@@ -1,0 +1,133 @@
+"""Build and load the hand-written CUDA kernels (``csrc/``).
+
+The sources compile with ``nvcc`` into one shared library with a plain C
+interface, loaded with ``ctypes``. The build happens at first use, into
+``build/torch_kernels/`` at the repository root, under a name keyed by a
+hash of the sources and flags, so a fresh checkout builds once and an edited
+source rebuilds. Nothing here runs at import: the package imports on a host
+with no CUDA toolkit and no card, where only the plain versions run.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points and their argument types (see csrc/*.cu).
+_SIGNATURES = {
+    # x, coeff, out, n0, n1, w2_0..w2_3, diag, stream
+    "fi_normal_apply": (_P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _P),
+    # pointer table, int table, w2 table (all host), stream
+    "fi_pcg_segment": (_P, _P, _P, _P),
+}
+
+_lock = threading.Lock()
+_loaded: dict[str, object] = {}
+
+
+def ensure_full_fp32(device) -> None:
+    """Keep float32 products in full float32 on the card.
+
+    PyTorch lets cuDNN (and, if a caller asked for it, cuBLAS) round float32
+    inputs to TF32, which keeps about three decimal digits. The assembly's
+    normal blocks, the dense coarse inverse and the transfer products all
+    need full float32, or the preconditioner and the residuals drift at the
+    1e-3 level. Called where the port first touches a CUDA device."""
+    if torch.device(device).type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives (built or not)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libfi_torch_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, float, str]:
+    """Compile the sources if their library is missing.
+
+    Returns (path, seconds spent building, nvcc's output). The library is
+    written under a temporary name and renamed, so a build cut short never
+    leaves a half-written library behind."""
+    path = library_path()
+    if path.exists():
+        return path, 0.0, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return path, time.perf_counter() - t0, proc.stdout + proc.stderr
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    with _lock:
+        lib = _loaded.get("lib")
+        if lib is None:
+            path, _, _ = build()
+            lib = ctypes.CDLL(str(path))
+            for name, args in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(args)
+                fn.restype = ctypes.c_int
+            lib.fi_error_string.argtypes = [ctypes.c_int]
+            lib.fi_error_string.restype = ctypes.c_char_p
+            _loaded["lib"] = lib
+        return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a nonzero cudaError_t returned by a C entry point."""
+    if rc != 0:
+        msg = library().fi_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc}: {msg}")
+
+
+def stream_handle(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,77 @@
+"""The port stands alone: it imports without JAX (and without triton, nvcc
+or a card), no file of it imports JAX or the JAX package, and on CPU
+tensors no kernel is launched: the wrappers run their plain versions."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import field_interpolation_tpu_torch as ft
+from field_interpolation_tpu_torch.ops.pcg import fused_pcg_solve
+from field_interpolation_tpu_torch.ops.stencil import fused_normal_apply
+
+ROOT = Path(__file__).resolve().parents[1]
+PACKAGE = ROOT / "field_interpolation_tpu_torch"
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+    for p in PACKAGE.rglob("*.py"))
+
+BLOCK_JAX = """
+import importlib.abc, sys
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "triton", "field_interpolation_tpu"):
+            raise ImportError("blocked: " + name)
+sys.meta_path.insert(0, Block())
+"""
+
+
+def test_port_imports_with_jax_blocked():
+    code = BLOCK_JAX + "".join(f"import {m}\n" for m in MODULES) + (
+        "assert not any(m.split('.')[0] in ('jax', 'triton') for m in sys.modules)\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300, env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")), ids=lambda p: p.name)
+def test_no_file_imports_jax_or_the_reference(path):
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|field_interpolation_tpu)\b(?!_torch)",
+                     re.M)
+    assert not pat.search(path.read_text()), path
+
+
+def test_launch_counters_stay_zero_on_cpu():
+    fused_normal_apply.launches = 0
+    fused_pcg_solve.launches = 0
+    rng = np.random.default_rng(0)
+    theta = rng.uniform(0, 2 * np.pi, 60)
+    nrm = np.stack([np.cos(theta), np.sin(theta)], 1).astype(np.float32)
+    pts = (15.5 + 9.0 * nrm).astype(np.float32)
+    x, info = ft.sdf_from_points_precise(ft.Grid((32, 32)), ft.Weights(model_2=0.3),
+                                         torch.as_tensor(pts), torch.as_tensor(nrm))
+    assert bool(info.converged)
+    assert fused_normal_apply.launches == 0
+    assert fused_pcg_solve.launches == 0
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """chip_smoke.py exits non-zero and prints no result when CUDA is
+    unavailable, here and in a directory holding nothing else of the repo."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: chip_smoke.py would run")
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((ROOT / "chip_smoke.py").read_text())
+    for script, cwd in [(ROOT / "chip_smoke.py", ROOT), (alone, tmp_path)]:
+        out = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                             capture_output=True, text=True, timeout=300)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
