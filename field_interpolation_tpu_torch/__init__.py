@@ -1,9 +1,10 @@
 """PyTorch/CUDA port of ``field_interpolation_tpu``.
 
-Scattered-data field interpolation and SDF reconstruction as a matrix-free
-normal-equations PCG, in PyTorch, with the operator apply and the whole
-multigrid-PCG segment as hand-written CUDA kernels for the H100 (``ops/``,
-``csrc/``). On CPU tensors every kernel runs its plain PyTorch version.
+Scattered-data field interpolation and SDF reconstruction on 2-D and 3-D
+grids as a matrix-free normal-equations PCG, in PyTorch, with the operator
+apply, the damped-Jacobi sweep and the whole 2-D multigrid-PCG segment as
+hand-written CUDA kernels for the H100 (``ops/``, ``csrc/``). On CPU tensors
+every kernel runs its plain PyTorch version.
 The JAX package stays the reference; names here are its names. Entry points
 not ported yet are listed in ROADMAP.md.
 """

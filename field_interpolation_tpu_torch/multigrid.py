@@ -14,6 +14,14 @@ Counterpart of ``field_interpolation_tpu.multigrid``:
 Only the lumped coarse data, the damped-Jacobi smoother and the dense or
 Jacobi coarsest solve are ported; Galerkin coarse data and Chebyshev
 smoothing raise ``NotImplementedError`` (ROADMAP.md).
+
+With ``kernels=True`` (the reference's ``pallas_smooth``) every level smooths
+through the port's sweep kernel (`ops.smooth.fused_smooth`), full or
+diagonal data, at any size. The reference's per-level choice
+(`smoother_plan`) only decides where a CUDA problem raises
+``NotImplementedError``: a level or cycle for which the reference runs a
+kernel not ported yet. The cycle itself (residuals, transfers, the dense
+coarsest solve) is plain torch, as it is XLA in the reference.
 """
 
 from __future__ import annotations
@@ -29,8 +37,16 @@ from . import stencils
 from .constraints import data_apply, data_diag, offset_list
 from .grid import Grid
 from .operators import Problem
-from .ops.stencil import fits_vmem
+from .ops import _policy
+from .ops._policy import fits_vmem
+from .ops.smooth import fused_smooth
 from .weights import SolverConfig, Weights
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} needs a TPU kernel that is not ported to CUDA yet (ROADMAP "
+        "queue 2); pass SolverConfig(backend='xla') to run plain torch ops")
 
 
 def _require_ported(config: SolverConfig) -> None:
@@ -301,11 +317,18 @@ def _fused_vcycle_operands(problem, levels, taus, fine_inv_diag, inv_diags,
             R = _resize_matrix(shapes_all[i][d], shapes_all[i + 1][d]).T
             Rs.append(torch.tensor(np.ascontiguousarray(R), dtype=f32, device=dev))
     inv32 = coarse_dense.to(f32).contiguous()
-    vmem_est = (sum(c.numel() for c in coeffs) + inv32.numel()
-                + 3 * problem.grid.num_nodes) * 4
-    if vmem_est > 12 * 1024 * 1024:
+    if not _fused_operands_fit(problem, levels):
         return None
     return coeffs, sids, Rs, inv32, lw, None
+
+
+def _fused_operands_fit(problem: Problem, levels) -> bool:
+    """The reference's 12 MB VMEM budget for the fused-cycle operands
+    (multigrid.py:636-639; TPU policy, kept for parity)."""
+    n_c = math.prod(levels[-1].shape)
+    est = (problem.coeff.numel() + sum(l.data_diag.numel() for l in levels)
+           + n_c * n_c + 3 * problem.grid.num_nodes) * 4
+    return est <= 12 * 1024 * 1024
 
 
 def build_fused_solver_operands(problem: Problem, config: SolverConfig):
@@ -344,11 +367,82 @@ def resolve_wdepth(config: SolverConfig, fine_shape: tuple[int, ...]) -> int:
     return config.mg_wcycle_depth if cycle == "w" else 0
 
 
+# The reference kernels `smoother_plan` names that the port's sweep kernel
+# stands in for; a level planned for any other raises on CUDA tensors.
+_PORTED_SMOOTHERS = ("fused_smooth", "fused_sweep_striped2_3d")
+
+
+def smoother_plan(shapes, diag_data, radius: int, nu_max: int) -> list:
+    """Per level, the reference kernel that smooths it with
+    ``pallas_smooth`` on (multigrid.py:959-1004): "fused_smooth" where the
+    level fits whole in VMEM, else "fused_smooth_striped" /
+    "fused_smooth_tiled" (2-D full data), "fused_sweep_striped2_3d" (3-D
+    diagonal data) or "fused_sweep_striped_diag" (2-D diagonal data) where
+    that kernel's tiling fits, and None where the reference runs XLA sweeps
+    (the port runs its sweep kernel there too).
+    ``diag_data[l]``: the level's data term is a diagonal plane; ``radius``:
+    the operator radius (≥ 1), the same on every level."""
+    plan = []
+    for shape, diag in zip(shapes, diag_data):
+        ndim = len(shape)
+        name = None
+        if fits_vmem(shape, diag_data=diag):
+            name = "fused_smooth"
+        elif ndim == 2 and not diag:
+            if _policy.pick_stripe_smooth(shape, radius, nu_max) is not None:
+                name = "fused_smooth_striped"
+            elif _policy.pick_tile_smooth(shape, radius, nu_max) is not None:
+                name = "fused_smooth_tiled"
+        elif ndim == 3 and diag:
+            if _policy.pick_stripe2_3d_sweep(shape) is not None:
+                name = "fused_sweep_striped2_3d"
+        elif ndim == 2 and diag:
+            if _policy.pick_stripe_sweep_diag(shape) is not None:
+                name = "fused_sweep_striped_diag"
+        plan.append(name)
+    return plan
+
+
+def kernel_plan(problem: Problem, config: SolverConfig, levels, lump: bool):
+    """(per-level smoother names from `smoother_plan`, the reference's
+    whole-cycle kernel or None). The whole-cycle kernels
+    (``fused_vcycle_2d`` / ``fused_wcycle_2d``, multigrid.py:1017-1042) take
+    over a 2-D cycle whose every level has a kernel smoother, with a dense
+    coarsest solve and ν_pre = ν_post, inside the fused-operand budget."""
+    shapes = [problem.grid.shape] + [l.shape for l in levels]
+    radius = max(stencils.max_stencil_radius(problem.weights), 1)
+    plan = smoother_plan(shapes, [lump] + [True] * len(levels), radius,
+                         max(config.mg_pre_smooth, config.mg_post_smooth))
+    whole = None
+    if (problem.grid.ndim == 2 and config.mg_coarse_solver == "dense" and levels
+            and math.prod(levels[-1].shape) <= 4096
+            and all(n is not None for n in plan)
+            and config.mg_pre_smooth == config.mg_post_smooth
+            and _fused_operands_fit(problem, levels)):
+        whole = ("fused_wcycle_2d" if resolve_wdepth(config, problem.grid.shape)
+                 else "fused_vcycle_2d")
+    return plan, whole
+
+
+def _kernel_smoother(coeff, sid, weights: Weights, ndim: int):
+    """smooth(r, z, sweeps, from_zero) on one level through the sweep kernel;
+    ``coeff`` is the level's full stencil or diagonal data term."""
+    c32 = coeff.to(torch.float32).contiguous()
+    s32 = sid.to(torch.float32).contiguous()
+
+    def smooth(r, z, sweeps, from_zero):
+        return fused_smooth(r.contiguous(), z.contiguous(), c32, s32, weights,
+                            ndim, sweeps, from_zero)
+    return smooth
+
+
 def make_vcycle_preconditioner(problem: Problem, config: SolverConfig,
-                               apply_fn=None):
+                               apply_fn=None, kernels: bool = False):
     """Returns z = M⁻¹ r: one symmetric multigrid cycle with damped-Jacobi
-    smoothing, in plain torch ops. ``apply_fn`` overrides the fine-level
-    operator apply."""
+    smoothing. ``apply_fn`` overrides the fine-level operator apply.
+    ``kernels`` (the reference's ``pallas_smooth``): smooth every level
+    through the sweep kernel; on CUDA tensors a level or cycle for which the
+    reference runs a kernel not ported yet raises ``NotImplementedError``."""
     _require_ported(config)
     levels = build_levels(problem, config)
     nu = config.mg_pre_smooth
@@ -379,12 +473,39 @@ def make_vcycle_preconditioner(problem: Problem, config: SolverConfig,
             and math.prod(levels[-1].shape) <= 4096):
         coarse_dense = _coarse_dense_inverse(levels[-1])
 
+    smoothers = [None] * len(shapes)
+    if kernels:
+        if problem.b.device.type == "cuda":
+            plan, whole = kernel_plan(problem, config, levels, lump)
+            missing = [f"the {'x'.join(map(str, s))} level ({n})"
+                       for s, n in zip(shapes, plan)
+                       if n is not None and n not in _PORTED_SMOOTHERS]
+            if missing:
+                raise _not_ported("smoothing " + ", ".join(missing))
+            if whole is not None:
+                raise _not_ported(f"the 2-D multigrid cycle outside the fused "
+                                 f"PCG path ({whole})")
+        coeffs = [fine_ddiag if lump else problem.coeff] + [l.data_diag for l in levels]
+        weights = [problem.weights] + [l.weights for l in levels]
+        smoothers = [_kernel_smoother(c, t * d, w, ndim)
+                     for c, t, d, w in zip(coeffs, taus, inv_diags, weights)]
+
     def smooth(li, r, z, iters):
-        # z None = from zero; 0 sweeps from zero IS zero.
+        # z None = from zero: the first sweep is sid·r.
         for _ in range(iters):
             az = 0.0 if z is None else applies[li](z)
             z = (0.0 if z is None else z) + taus[li] * inv_diags[li] * (r - az)
-        return torch.zeros_like(r) if z is None else z
+        return z
+
+    def level_smooth(li, r, z, iters, from_zero):
+        # iters == 0 is NO smoothing: zeros from a zero guess, z untouched
+        # otherwise (the kernels count the from-zero step as a sweep, so the
+        # guard sits here, as in the reference, multigrid.py:1044-1057).
+        if iters == 0:
+            return torch.zeros_like(r) if from_zero else z
+        if smoothers[li] is not None:
+            return smoothers[li](r, z, iters, from_zero)
+        return smooth(li, r, None if from_zero else z, iters)
 
     wdepth = resolve_wdepth(config, problem.grid.shape)
 
@@ -392,8 +513,8 @@ def make_vcycle_preconditioner(problem: Problem, config: SolverConfig,
         if li == len(levels):  # coarsest
             if coarse_dense is not None:
                 return (coarse_dense @ r.reshape(-1)).reshape(r.shape)
-            return smooth(li, r, None, config.mg_coarse_iters)
-        z = smooth(li, r, None, nu)
+            return level_smooth(li, r, r, config.mg_coarse_iters, True)
+        z = level_smooth(li, r, r, nu, True)
         restrict = make_restrict(shapes[li], shapes[li + 1])
         rc = restrict(r - applies[li](z))
         zc = vcycle(rc, li + 1)
@@ -401,6 +522,6 @@ def make_vcycle_preconditioner(problem: Problem, config: SolverConfig,
             # W-cycle: a second visit on the residual the first leaves.
             zc = zc + vcycle(rc - levels[li].apply(zc), li + 1)
         z = z + prolong(zc, shapes[li])
-        return smooth(li, r, z, config.mg_post_smooth)
+        return level_smooth(li, r, z, config.mg_post_smooth, False)
 
     return lambda r: vcycle(r, 0)

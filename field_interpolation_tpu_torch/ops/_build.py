@@ -25,15 +25,19 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points and their argument types (see csrc/*.cu).
 _SIGNATURES = {
-    # x, coeff, out, n0, n1, w2_0..w2_3, diag, stream
-    "fi_normal_apply": (_P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _P),
+    # x, coeff, out, ndim, n0, n1, n2, w2_0..w2_3, diag, stream
+    "fi_normal_apply": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P),
+    # r, z (null: from zero), coeff, sid, out, ndim, n0, n1, n2, w2_0..w2_3,
+    # diag, stream
+    "fi_jacobi_sweep": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F,
+                        _I, _P),
     # pointer table, int table, w2 table (all host), stream
     "fi_pcg_segment": (_P, _P, _P, _P),
 }
@@ -78,31 +82,40 @@ def library_path() -> Path:
     return BUILD_DIR / f"libfi_torch_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build() -> tuple[Path, float, str]:
-    """Compile the sources if their library is missing.
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands side by side; raise on the first that fails.
+    Returns their output, in order."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"{' '.join(cmd)} failed ({p.returncode}):\n{out}")
+    return "".join(outs)
 
-    Returns (path, seconds spent building, nvcc's output). The library is
-    written under a temporary name and renamed, so a build cut short never
-    leaves a half-written library behind."""
+
+def build() -> tuple[Path, float, str]:
+    """Compile the sources if their library is missing: one ``nvcc -c`` per
+    source, all started together, then one link.
+
+    Returns (path, seconds spent building, nvcc's output). The build runs in
+    a temporary directory and the library is renamed into place, so a build
+    cut short never leaves a half-written library behind."""
     path = library_path()
     if path.exists():
         return path, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return path, time.perf_counter() - t0, proc.stdout + proc.stderr
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        srcs = sorted(CSRC.glob("*.cu"))
+        objs = [str(Path(tmp) / f"{s.stem}.o") for s in srcs]
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(s)]
+                        for s, o in zip(srcs, objs)])
+        lib = str(Path(tmp) / path.name)
+        log += _run_all([[nvcc, "-shared", "-o", lib, *objs]])
+        os.replace(lib, path)
+    return path, time.perf_counter() - t0, log
 
 
 def library() -> ctypes.CDLL:

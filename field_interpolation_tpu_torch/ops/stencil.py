@@ -1,11 +1,15 @@
 """Kernel 1: the fused normal-operator apply, ``(S + DᵀWD) x`` in one pass.
 
-Replaces ``field_interpolation_tpu/ops/pallas_stencil.py:fused_normal_apply``
-(lines 170-183, body ``_kernel_body`` 104-166). The CUDA kernel is
-``csrc/normal_apply.cu``: one thread per node, gather form, the stencil
-recomputed on the fly; on the H100 it is bound by memory (nine coefficient
-planes per node), and at 256² the working set sits in L2. Its per-node
-routine (``csrc/normal_apply.cuh``) is shared with the PCG segment kernel.
+One CUDA kernel (``csrc/normal_apply.cu``) stands in for three TPU kernels
+of ``field_interpolation_tpu/ops/pallas_stencil.py`` that compute the same
+function and differ only in how they tile VMEM: ``fused_normal_apply``
+(170-183, body ``_kernel_body`` 104-166), ``fused_normal_apply_striped``
+(300) and ``fused_normal_apply_striped2_3d`` (1662). One thread per node,
+gather form, the stencil recomputed on the fly, on 2-D and 3-D grids. On the
+H100 it is bound by memory: 3^D coefficient planes per node (108 B/node in
+3-D, 226 MB per apply at 128³, read from HBM). Its per-node routine
+(``csrc/normal_apply.cuh``) is shared with the Jacobi sweep and PCG segment
+kernels.
 
 ``fused_normal_apply`` launches the kernel for a CUDA tensor and runs
 ``fused_normal_apply_plain`` for a CPU tensor; nothing else decides.
@@ -22,23 +26,7 @@ from .. import stencils
 from ..weights import Weights
 from . import _build
 
-# The reference keeps the fused path to problems whose operands fit half
-# of a TPU core's VMEM (8 MB). TPU policy, kept as the same pure shape rule
-# so the port takes the fused path exactly where the reference does;
-# re-decided on the H100 in a later PR.
-_VMEM_BUDGET_BYTES = 8 * 1024 * 1024
-
-
-def fits_vmem(shape: tuple[int, ...], diag_data: bool = False) -> bool:
-    """The reference's whole-array gate (pallas_stencil.py:79-96).
-    ``diag_data``: the data term is a single diagonal plane (multigrid
-    coarse levels) instead of 3^D channels."""
-    if len(shape) < 2:
-        return False
-    n = math.prod(shape)
-    channels = 1 if diag_data else 3 ** len(shape)
-    extra = 5 if diag_data else 2
-    return n * (channels + extra) * 4 <= _VMEM_BUDGET_BYTES
+_INT32_MAX = 2**31 - 1
 
 
 def order_w2(weights: Weights) -> tuple[float, float, float, float]:
@@ -58,35 +46,55 @@ def fused_normal_apply_plain(x: torch.Tensor, coeff: torch.Tensor,
     return s + cons.data_apply(x, coeff, ndim)
 
 
+def check_operands(what: str, x: torch.Tensor, coeff: torch.Tensor, ndim: int,
+                   *others: torch.Tensor) -> bool:
+    """Validate the operands of a kernel built on ``csrc/normal_apply.cuh``
+    and return whether the data term is diagonal (``coeff`` of the grid's
+    rank, as the reference reads it). ``others`` must match x exactly."""
+    if ndim not in (2, 3):
+        raise ValueError(f"{what}: the CUDA kernel covers 2-D and 3-D grids, "
+                         f"got ndim={ndim}")
+    diag = coeff.ndim == ndim
+    shape = tuple(x.shape)
+    want = shape if diag else (3 ** ndim,) + shape
+    tensors = (x, coeff) + others
+    if (x.ndim != ndim or tuple(coeff.shape) != want
+            or any(t.dtype != torch.float32 or t.device != x.device
+                   or not t.is_contiguous() for t in tensors)
+            or any(tuple(t.shape) != shape for t in others)):
+        raise ValueError(
+            f"{what}: needs contiguous float32 tensors on one device, grid "
+            f"tensors of x's shape and coeff {want}; got "
+            + ", ".join(f"{tuple(t.shape)} {t.dtype} on {t.device}"
+                        for t in tensors))
+    # Node indices are 32-bit in the kernels; 2-D channel offsets too.
+    n = math.prod(shape)
+    if n > _INT32_MAX or (ndim == 2 and not diag and 9 * n > _INT32_MAX):
+        raise ValueError(f"{what}: grid {shape} exceeds the kernels' 32-bit "
+                         "node indexing")
+    return diag
+
+
+def kernel_dims(shape: tuple[int, ...]) -> tuple[int, int, int, int]:
+    """(ndim, n0, n1, n2) as the C entry points take them (n2 = 1 in 2-D)."""
+    return (len(shape), shape[0], shape[1], shape[2] if len(shape) == 3 else 1)
+
+
 def fused_normal_apply(x: torch.Tensor, coeff: torch.Tensor, weights: Weights,
                        ndim: int) -> torch.Tensor:
-    """One-pass fused (S + DᵀWD) x; the data term is diagonal when ``coeff``
-    has the grid's rank (the reference reads the form off the rank too)."""
-    diag = coeff.ndim == ndim
+    """One-pass fused (S + DᵀWD) x on a 2-D or 3-D grid; the data term is
+    diagonal when ``coeff`` has the grid's rank."""
     if x.device.type == "cpu":
         return fused_normal_apply_plain(x, coeff, weights, ndim)
     if x.device.type != "cuda":
         raise ValueError(f"fused_normal_apply: no kernel for device {x.device}")
-    if ndim != 2:
-        raise NotImplementedError(
-            "fused_normal_apply: the CUDA kernel covers 2-D grids; the 3-D "
-            "apply kernels are ROADMAP queue 2 (fused_normal_apply_striped, "
-            "fused_normal_apply_striped2_3d)")
-    want = tuple(x.shape) if diag else (9,) + tuple(x.shape)
-    if (x.ndim != 2 or x.dtype != torch.float32 or coeff.dtype != torch.float32
-            or tuple(coeff.shape) != want or coeff.device != x.device
-            or not x.is_contiguous() or not coeff.is_contiguous()):
-        raise ValueError(
-            f"fused_normal_apply: needs contiguous float32 x [n0, n1] and "
-            f"coeff {want} on one device; got x {tuple(x.shape)} {x.dtype}, "
-            f"coeff {tuple(coeff.shape)} {coeff.dtype} on {coeff.device}")
+    diag = check_operands("fused_normal_apply", x, coeff, ndim)
     lib = _build.library()
     out = torch.empty_like(x)
-    w2 = order_w2(weights)
     with torch.cuda.device(x.device):
         rc = lib.fi_normal_apply(x.data_ptr(), coeff.data_ptr(), out.data_ptr(),
-                                 x.shape[0], x.shape[1], *w2, int(diag),
-                                 _build.stream_handle(x.device))
+                                 *kernel_dims(tuple(x.shape)), *order_w2(weights),
+                                 int(diag), _build.stream_handle(x.device))
     _build.check(rc, "fused_normal_apply")
     fused_normal_apply.launches += 1
     return out

@@ -11,6 +11,11 @@ Counterpart of ``field_interpolation_tpu.solver``:
   the `fits_vmem` gate) each CG segment is one `fused_pcg_solve` and each
   exit check one `fused_normal_apply`: the CUDA kernels for CUDA tensors,
   their plain versions for CPU tensors.
+* Elsewhere (3-D, large 2-D grids, other multigrid options) `pcg` runs with
+  the apply kernel at every size (`_make_apply`; it stands in for the
+  reference's whole-array, striped and two-axis applies and its XLA apply
+  alike) and the multigrid cycle smooths every level through the sweep
+  kernel (`multigrid.make_vcycle_preconditioner` with ``kernels=True``).
 
 The reference's ``lax.while_loop``s are Python loops here that read one
 scalar per segment (fused path), per iteration (plain `pcg`) or per round.
@@ -30,7 +35,7 @@ from .multigrid import (_require_ported, build_fused_solver_operands,
                         make_vcycle_preconditioner, resolve_wdepth)
 from .operators import Problem
 from .ops.pcg import fused_pcg_solve
-from .ops.stencil import fits_vmem, fused_normal_apply
+from .ops.stencil import fused_normal_apply
 from .weights import SolverConfig
 
 
@@ -147,12 +152,6 @@ def _pcg_fused(ops, b: torch.Tensor, x0: Optional[torch.Tensor], *, tol,
                         rel_residual=rel, converged=rr <= tol2)
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} needs a TPU kernel that is not ported to CUDA yet (ROADMAP "
-        "queue 2); pass SolverConfig(backend='xla') to run plain torch ops")
-
-
 def _fused_solver_ops(problem: Problem, config: SolverConfig):
     """Operands of the fused PCG path, or None when the problem, config or
     backend rules it out (the reference's rule, solver.py:198-210)."""
@@ -162,23 +161,17 @@ def _fused_solver_ops(problem: Problem, config: SolverConfig):
 
 
 def _make_apply(problem: Problem, config: SolverConfig):
-    """The float32 operator apply: the fused kernel inside the `fits_vmem`
-    gate on 2-D grids, plain ops otherwise (rank 1, where the reference uses
-    XLA too, and CPU tensors beyond the gate)."""
-    cuda = problem.b.device.type == "cuda"
-    if config.backend == "xla" or problem.grid.ndim == 1:
+    """The float32 operator apply: the port's apply kernel for a 2-D or 3-D
+    grid; plain ops under ``backend="xla"``, for float64 operands and on 1-D
+    grids, which no TPU kernel takes either (solver.py:213-249)."""
+    if config.backend == "xla" or problem.grid.ndim < 2:
         return problem.apply
-    if not (fits_vmem(problem.grid.shape) and problem.grid.ndim == 2):
-        if cuda:
-            raise _not_ported(f"the {problem.grid.ndim}-D apply at "
-                              f"{problem.grid.shape}")
-        return problem.apply
-    coeff, weights = problem.coeff, problem.weights
+    coeff, weights, ndim = problem.coeff, problem.weights, problem.grid.ndim
 
     def apply_fn(x):
         if x.dtype != torch.float32:
             return problem.apply(x)
-        return fused_normal_apply(x, coeff, weights, 2)
+        return fused_normal_apply(x, coeff, weights, ndim)
 
     return apply_fn
 
@@ -191,10 +184,12 @@ def _make_precond(problem: Problem, config: SolverConfig, apply_fn=None):
                                torch.ones_like(problem.diag))
         return lambda r: inv_diag * r
     if config.preconditioner == "multigrid":
-        if config.backend != "xla" and problem.b.device.type == "cuda":
-            raise _not_ported("a multigrid preconditioner outside the fused "
-                              "PCG path (fused_smooth, fused_vcycle_2d)")
-        return make_vcycle_preconditioner(problem, config, apply_fn=apply_fn)
+        # The reference's pallas_smooth rule (solver.py:263-267); 1-D grids
+        # have no smoothing kernel in either package.
+        kernels = (config.backend != "xla" and problem.grid.ndim >= 2
+                   and problem.diag.dtype == torch.float32)
+        return make_vcycle_preconditioner(problem, config, apply_fn=apply_fn,
+                                          kernels=kernels)
     raise ValueError(f"unknown preconditioner {config.preconditioner!r}")
 
 

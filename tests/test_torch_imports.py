@@ -14,6 +14,7 @@ import torch
 
 import field_interpolation_tpu_torch as ft
 from field_interpolation_tpu_torch.ops.pcg import fused_pcg_solve
+from field_interpolation_tpu_torch.ops.smooth import fused_smooth
 from field_interpolation_tpu_torch.ops.stencil import fused_normal_apply
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -61,6 +62,23 @@ def test_launch_counters_stay_zero_on_cpu():
     assert bool(info.converged)
     assert fused_normal_apply.launches == 0
     assert fused_pcg_solve.launches == 0
+
+
+def test_sweep_counters_stay_zero_on_cpu():
+    """A 3-D solve on CPU tensors goes through the apply and smoothing
+    wrappers (the kernel route) and launches nothing."""
+    for wrapper in (fused_normal_apply, fused_smooth):
+        wrapper.launches = 0
+    rng = np.random.default_rng(0)
+    u = rng.standard_normal((200, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    x, info = ft.sdf_from_points(
+        ft.Grid((20, 20, 20)), ft.Weights(model_2=0.3),
+        torch.as_tensor(9.5 + 6.0 * u, dtype=torch.float32),
+        torch.as_tensor(u, dtype=torch.float32),
+        config=ft.SolverConfig(tol=1e-4, mg_fine_operator="lumped"))
+    assert bool(info.converged)
+    assert (fused_normal_apply.launches, fused_smooth.launches) == (0, 0)
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
