@@ -40,7 +40,30 @@ toolkit (``nvcc``). Phases, each fatal on failure:
    over seeds 0..2, then ``torch.profiler`` over two fields: the device's
    busy and idle share, kernel launches, host→device copies and stream
    synchronizations per field, and device time per kind of work. The
-   profiler must see the apply and sweep kernels on the card.
+   profiler must see the apply and sweep kernels on the card;
+10. the apply kernel against its plain version, within 1e-5·max|plain|,
+    on BASELINE config 5's 4096² problem (100 000 points, 9-channel data)
+    and on its 2048² nested-iteration problem (the reference's striped
+    apply on both); then the multi-sweep kernel against its plain version,
+    within 2e-5·max|plain|: ν = 3 from zero and from z on the 4096² fine
+    level (the reference's tiled smoother), ν = 3 on the 2048² fine level
+    (the striped smoother) and ν = 2 with radius-3 weights at 1000×1030;
+    each timed beside ν launches of the per-sweep kernel, with GB/s from
+    the bytes each route must move;
+11. the per-sweep kernel against its plain version, within
+    2e-5·max|plain|, on config 5's diagonal levels: one sweep at 2048² and
+    1024² (the reference's fused_sweep_striped_diag), and ν = 3 from zero
+    at 512² (its whole-level fused_smooth);
+12. BASELINE config 5's single-chip proxy (bench.py:272-315):
+    ``sdf_from_points`` at 4096², 100 000 points, tol 1e-4, maxiter 500,
+    ``fmg_start=1``, seeds 0..1, each converged, finite, of shape 4096²,
+    seed 0 within ±2 iterations and 2e-3·max|x| of the same call under
+    ``backend="xla"``; ``sdf_from_points_precise`` at tol 1e-6, seed 0, true
+    float64 residual ≤ 1e-6 and reported within 2%. The apply, per-sweep
+    and multi-sweep kernels must launch in this phase, the segment kernel
+    not;
+13. where the time of a config-5 field goes, as phase 9: host clocks of its
+    stages and ``torch.profiler`` over one field.
 
 The lines before the last are the kernel record (JSON) and the card; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card it exits
@@ -68,10 +91,16 @@ SEEDS3 = range(4)
 SEEDS3_PRECISE = range(2)
 RADIUS3_WEIGHTS = dict(model_2=0.5, model_3=0.8)
 PROFILE_SEEDS = range(3)
+SHAPE5 = (4096, 4096)  # BASELINE config 5's single-chip proxy
+N_POINTS5 = 100_000
+SEEDS5 = range(2)
+CFG5 = dict(tol=1e-4, preconditioner="multigrid", backend="auto", maxiter=500)
+FMG5 = 1  # bench.py's default depth for 2-D grids (bench.py:259-271)
 # Device work by kind, matched on the kernel's name in the profile; the
 # rest is plain elementwise and reduction ops.
 DEVICE_KINDS = [
-    ("sweep kernel", r"jacobi_sweep"),
+    ("multi-sweep kernel", r"jacobi_multisweep2d"),
+    ("sweep kernel", r"jacobi_sweep_kernel"),
     ("apply kernel", r"normal_apply"),
     ("host->device copies", r"HtoD"),
     ("device->host copies", r"DtoH"),
@@ -133,6 +162,17 @@ def cuda_ms(fn, reps=REPS):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def timed(fn):
+    """(fn(), its time in ms from CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def shape_str(shape):
@@ -225,13 +265,9 @@ def phase_main(ft, device):
     fused_pcg_solve.launches = 0
     results = []
     for pts, nrm in inputs:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        x, info = ft.sdf_from_points_precise(grid, weights, pts, nrm, config=cfg)
-        end.record()
-        end.synchronize()
-        results.append((x, info, start.elapsed_time(end)))
+        (x, info), ms = timed(lambda: ft.sdf_from_points_precise(
+            grid, weights, pts, nrm, config=cfg))
+        results.append((x, info, ms))
     launches = {"fused_normal_apply": fused_normal_apply.launches,
                 "fused_pcg_solve": fused_pcg_solve.launches}
 
@@ -362,23 +398,14 @@ def phase_main3d(ft, device):
         c.launches = 0
     fields = []
     for seed in SEEDS3:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        x, info = ft.sdf_from_points(grid, weights, *inputs[seed], config=cfg)
-        end.record()
-        end.synchronize()
-        fields.append((seed, x, info, start.elapsed_time(end)))
+        (x, info), ms = timed(lambda: ft.sdf_from_points(grid, weights, *inputs[seed],
+                                                         config=cfg))
+        fields.append((seed, x, info, ms))
     precise = []
     for seed in SEEDS3_PRECISE:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        x, info = ft.sdf_from_points_precise(grid, weights, *inputs[seed],
-                                             config=cfg_precise)
-        end.record()
-        end.synchronize()
-        precise.append((seed, x, info, start.elapsed_time(end)))
+        (x, info), ms = timed(lambda: ft.sdf_from_points_precise(
+            grid, weights, *inputs[seed], config=cfg_precise))
+        precise.append((seed, x, info, ms))
     launches = {c.__name__: c.launches for c in counters}
 
     for seed, x, info, ms in fields:
@@ -433,56 +460,51 @@ def busy_ms(intervals):
     return (total + (0.0 if hi is None else hi - lo)) / 1e3
 
 
-def phase_profile3d(ft, device):
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+class StageClock:
+    """Synchronized host clocks of named stages, in ms."""
 
-    from field_interpolation_tpu_torch import solver
-    grid, weights = ft.Grid(SHAPE3), ft.Weights(model_2=0.3)
-    cfg = ft.SolverConfig(tol=1e-4, preconditioner="multigrid")
-    stages = {}
+    def __init__(self):
+        self.stages = {}
 
-    def clock(name, fn):
+    def __call__(self, name, fn):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        stages.setdefault(name, []).append(1e3 * (time.perf_counter() - t0))
+        self.stages.setdefault(name, []).append(1e3 * (time.perf_counter() - t0))
         return out
 
-    for seed in PROFILE_SEEDS:
-        pts, nrm = sphere_inputs(seed, device)
-        p = clock("assemble_sdf", lambda: ft.assemble_sdf(grid, weights, pts, nrm))
-        apply_fn = solver._make_apply(p, cfg)
-        pc = clock("preconditioner setup",
-                   lambda: solver._make_precond(p, cfg, apply_fn))
-        clock("one cycle", lambda: pc(p.b))
-        clock("one apply", lambda: apply_fn(p.b))
-        clock("solve", lambda: ft.solve(p, cfg))
-    print(f"profile, host clocks after synchronize, seeds "
-          f"{PROFILE_SEEDS.start}..{PROFILE_SEEDS.stop - 1}: " + "; ".join(
-              f"{k} {', '.join(f'{t:.3f}' for t in v)} ms" for k, v in stages.items()))
+    def line(self):
+        return "; ".join(f"{k} {', '.join(f'{t:.3f}' for t in v)} ms"
+                         for k, v in self.stages.items())
 
-    inputs = [sphere_inputs(s, device) for s in range(2)]
+
+def profile_fields(label, fields, must_see):
+    """``torch.profiler`` over ``fields`` (callables, one field each): the
+    device's busy and idle share, kernels, launches, host->device copies and
+    synchronizations per field, and device time per kind of work; fails if
+    a kind in ``must_see`` did not run on the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for pts, nrm in inputs:
-            ft.sdf_from_points(grid, weights, pts, nrm, config=cfg)
+        for field in fields:
+            field()
         torch.cuda.synchronize()
         span = 1e3 * (time.perf_counter() - t0)
     events = list(prof.events())
     dev = [e for e in events if e.device_type == DeviceType.CUDA]
     host = [e for e in events if e.device_type == DeviceType.CPU]
     busy = busy_ms((e.time_range.start, e.time_range.end) for e in dev)
-    n = len(inputs)
+    n = len(fields)
     launch = [e for e in host if e.name.startswith("cudaLaunchKernel")]
     syncs = sum(e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize")
                 for e in host)
     kernels = [e for e in dev if not re.search(r"Memcpy|Memset", e.name)]
-    print(f"profile, torch.profiler over {n} fields: span {span:.3f} ms, device "
-          f"busy {busy:.3f} ms, device idle share {1 - busy / span:.3f}; per field: "
-          f"{len(kernels) / n:.0f} kernels on the device, {len(launch) / n:.0f} "
+    print(f"profile {label}, torch.profiler over {n} field(s): span {span:.3f} ms, "
+          f"device busy {busy:.3f} ms, device idle share {1 - busy / span:.3f}; per "
+          f"field: {len(kernels) / n:.0f} kernels on the device, {len(launch) / n:.0f} "
           f"cudaLaunchKernel calls ({sum(e.self_cpu_time_total for e in launch) / n / 1e3:.3f}"
           f" ms host), {sum('HtoD' in e.name for e in dev) / n:.0f} host->device "
           f"copies, {syncs / n:.0f} stream synchronizations")
@@ -495,8 +517,251 @@ def phase_profile3d(ft, device):
     for kind, us in sorted(totals.items(), key=lambda kv: -kv[1]):
         print(f"  device {kind}: {us / n / 1e3:.3f} ms/field, "
               f"{counts[kind] / n:.0f} per field")
-    for kind in ("sweep kernel", "apply kernel"):
+    for kind in must_see:
         require(counts.get(kind, 0) > 0, f"the profile shows no {kind} on the card")
+
+
+def phase_profile3d(ft, device):
+    from field_interpolation_tpu_torch import solver
+    grid, weights = ft.Grid(SHAPE3), ft.Weights(model_2=0.3)
+    cfg = ft.SolverConfig(tol=1e-4, preconditioner="multigrid")
+    clock = StageClock()
+    for seed in PROFILE_SEEDS:
+        pts, nrm = sphere_inputs(seed, device)
+        p = clock("assemble_sdf", lambda: ft.assemble_sdf(grid, weights, pts, nrm))
+        apply_fn = solver._make_apply(p, cfg)
+        pc = clock("preconditioner setup",
+                   lambda: solver._make_precond(p, cfg, apply_fn))
+        clock("one cycle", lambda: pc(p.b))
+        clock("one apply", lambda: apply_fn(p.b))
+        clock("solve", lambda: ft.solve(p, cfg))
+    print(f"profile config 4, host clocks after synchronize, seeds "
+          f"{PROFILE_SEEDS.start}..{PROFILE_SEEDS.stop - 1}: {clock.line()}")
+    inputs = [sphere_inputs(s, device) for s in range(2)]
+    profile_fields("config 4", [
+        lambda pts=pts, nrm=nrm: ft.sdf_from_points(grid, weights, pts, nrm, config=cfg)
+        for pts, nrm in inputs], ("sweep kernel", "apply kernel"))
+
+
+def circle5_inputs(seed, device, shape=None, n=None):
+    """BASELINE config 5's proxy cloud (bench.py:272-276), θ from ``seed``:
+    n oriented points on a circle of radius 0.35·width around the center
+    (2047.5 + 1433.6·n̂ at 4096²)."""
+    shape, n = shape or SHAPE5, n or N_POINTS5
+    rng = np.random.default_rng(seed)
+    theta = rng.uniform(0, 2 * np.pi, n)
+    nrm = np.stack([np.cos(theta), np.sin(theta)], -1).astype(np.float32)
+    center = (np.asarray(shape, np.float64) - 1.0) / 2.0
+    pts = (center + (1433.6 / 4096.0) * shape[0] * nrm).astype(np.float32)
+    return (torch.as_tensor(pts, device=device),
+            torch.as_tensor(nrm, device=device))
+
+
+def fine_smoothing_operands(p, cfg):
+    """(levels, τ·D⁻¹ per level incl. the fine one) of a problem's cycle."""
+    from field_interpolation_tpu_torch import multigrid as tmg
+    levels = tmg.build_levels(p, cfg)
+    lump, _, taus, _ = tmg.build_smoothing_setup(p, levels, cfg)
+    require(not lump, f"{shape_str(p.grid.shape)} smooths with the full data stencil")
+    inv = [tmg._inv_diag(p.diag)] + [tmg._inv_diag(l.diag) for l in levels]
+    return levels, [(t * d).contiguous() for t, d in zip(taus, inv)]
+
+
+def phase_smooth2d(ft, device):
+    from field_interpolation_tpu_torch.ops.smooth import (fused_smooth, fused_smooth_2d,
+                                                          fused_smooth_plain)
+    from field_interpolation_tpu_torch.ops.stencil import (
+        fused_normal_apply, fused_normal_apply_plain)
+    rng = np.random.default_rng(5)
+    cfg = ft.SolverConfig(**CFG5)
+    w = ft.Weights(model_2=0.3)
+    pts, nrm = circle5_inputs(0, device)
+    p5 = ft.assemble_sdf(ft.Grid(SHAPE5), w, pts, nrm)
+    # The fmg guess's problem: the same cloud on the (n+1)//2 grid.
+    cshape = tuple((n + 1) // 2 for n in SHAPE5)
+    scale = (np.asarray(cshape) - 1.0) / (np.asarray(SHAPE5) - 1.0)
+    p2 = ft.assemble_sdf(ft.Grid(cshape), w, pts * torch.as_tensor(
+        scale, dtype=torch.float32, device=device), nrm)
+    odd = (1000, 1030)
+    podd = ft.assemble_sdf(ft.Grid(odd), ft.Weights(**RADIUS3_WEIGHTS),
+                           *circle5_inputs(0, device, odd, 20_000))
+    apply_rec = None
+    for label, p in [("config 5 (reference: fused_normal_apply_striped)", p5),
+                     ("fmg grid (reference: fused_normal_apply_striped)", p2)]:
+        x = torch.as_tensor(rng.standard_normal(p.grid.shape).astype(np.float32),
+                            device=device)
+        got = compare(f"apply {shape_str(p.grid.shape)} {label}, 9-channel",
+                      lambda: fused_normal_apply(x, p.coeff, p.weights, 2),
+                      lambda: fused_normal_apply_plain(x, p.coeff, p.weights, 2), 1e-5)
+        apply_rec = apply_rec or got
+    rec = None
+    for label, p, nu, from_zeros in [
+            ("config 5 fine level (reference: fused_smooth_tiled)", p5, 3, (True, False)),
+            ("fmg grid's fine level (reference: fused_smooth_striped)", p2, 3, (False,)),
+            ("radius-3 weights", podd, 2, (False,))]:
+        shape = p.grid.shape
+        sid = fine_smoothing_operands(p, cfg)[1][0]
+        r, z = (torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                                device=device) for _ in range(2))
+        for fz in from_zeros:
+            got = compare(
+                f"multi-sweep {shape_str(shape)} {label}, {nu} sweeps, from_zero={fz}",
+                lambda: fused_smooth_2d(r, z, p.coeff, sid, p.weights, nu, fz),
+                lambda: fused_smooth_plain(r, z, p.coeff, sid, p.weights, 2, nu, fz),
+                2e-5)
+            per_ms = cuda_ms(lambda: fused_smooth(r, z, p.coeff, sid, p.weights, 2, nu, fz))
+            # Bytes each route must move per node: the multi-sweep kernel reads
+            # the 9 coefficients, r, sid (and z) once and writes z once; each
+            # per-sweep launch does the same, the from-zero one only r, sid, z.
+            nodes = p.grid.num_nodes
+            multi = nodes * (48 + (0 if fz else 4))
+            per = nodes * ((12 if fz else 52) + 52 * (nu - 1))
+            print(f"  multi-sweep {got['ms']:.4f} ms, {multi / got['ms'] / 1e6:.0f} GB/s "
+                  f"of {multi / 1e9:.3f} GB; {nu} per-sweep launches {per_ms:.4f} ms, "
+                  f"{per / per_ms / 1e6:.0f} GB/s of {per / 1e9:.3f} GB")
+            if shape == SHAPE5 and not fz:
+                rec = got
+    del p2, podd
+    return p5, rec, apply_rec
+
+
+def phase_sweep2d(ft, device, p5):
+    from field_interpolation_tpu_torch.ops.smooth import (fused_smooth, fused_smooth_plain,
+                                                          fused_sweep)
+    rng = np.random.default_rng(6)
+    levels, sids = fine_smoothing_operands(p5, ft.SolverConfig(**CFG5))
+
+    def operands(li):
+        lvl = levels[li - 1]
+        r, z = (torch.as_tensor(rng.standard_normal(lvl.shape).astype(np.float32),
+                                device=device) for _ in range(2))
+        return lvl, lvl.data_diag.contiguous(), sids[li], r, z
+
+    rec = None
+    for li in (1, 2):
+        lvl, dd, sid, r, z = operands(li)
+        got = compare(f"sweep {shape_str(lvl.shape)} config 5 diagonal level "
+                      f"(reference: fused_sweep_striped_diag), 1 sweep",
+                      lambda: fused_sweep(r, z, dd, sid, lvl.weights),
+                      lambda: fused_smooth_plain(r, z, dd, sid, lvl.weights, 2, 1),
+                      2e-5)
+        rec = rec or got
+    # The whole-level diagonal form (the reference's fused_smooth) on the
+    # first level that fits VMEM, from zero: the kernel's null-z launch.
+    lvl, dd, sid, r, z = operands(3)
+    compare(f"smooth {shape_str(lvl.shape)} config 5 diagonal level "
+            f"(reference: fused_smooth), 3 sweeps, from_zero=True",
+            lambda: fused_smooth(r, z, dd, sid, lvl.weights, 2, 3, True),
+            lambda: fused_smooth_plain(r, z, dd, sid, lvl.weights, 2, 3, True), 2e-5)
+    return rec
+
+
+def record_solves(sdf_module):
+    """Record the SolveInfo of every `solve` the sdf module makes (the fmg
+    guess's coarse solves, then the fine one); returns (infos, restore)."""
+    inner = sdf_module.solve
+    infos = []
+
+    def solve(*args, **kwargs):
+        x, info = inner(*args, **kwargs)
+        infos.append(info)
+        return x, info
+    sdf_module.solve = solve
+    return infos, lambda: setattr(sdf_module, "solve", inner)
+
+
+def phase_main5(ft, device):
+    from field_interpolation_tpu_torch import sdf as tsdf
+    from field_interpolation_tpu_torch.ops.pcg import fused_pcg_solve
+    from field_interpolation_tpu_torch.ops.smooth import fused_smooth, fused_smooth_2d
+    from field_interpolation_tpu_torch.ops.stencil import fused_normal_apply
+    grid, weights = ft.Grid(SHAPE5), ft.Weights(model_2=0.3)
+    cfg = ft.SolverConfig(**CFG5)
+    cfg_xla = ft.SolverConfig(**{**CFG5, "backend": "xla"})
+    cfg_precise = ft.SolverConfig(**{**CFG5, "tol": 1e-6})
+    inputs = {s: circle5_inputs(s, device) for s in SEEDS5}
+    torch.cuda.synchronize()
+
+    counters = (fused_normal_apply, fused_smooth, fused_smooth_2d, fused_pcg_solve)
+    coarse, restore = record_solves(tsdf)
+    try:
+        for c in counters:
+            c.launches = 0
+        fields = []
+        for seed in SEEDS5:
+            coarse.clear()
+            (x, info), ms = timed(lambda: ft.sdf_from_points(
+                grid, weights, *inputs[seed], config=cfg, fmg_start=FMG5))
+            fields.append((seed, x, info, ms, [int(i.iterations) for i in coarse[:-1]]))
+        coarse.clear()
+        (xp, infop), msp = timed(lambda: ft.sdf_from_points_precise(
+            grid, weights, *inputs[0], config=cfg_precise, fmg_start=FMG5))
+        coarse_p = [int(i.iterations) for i in coarse]
+        launches = {c.__name__: c.launches for c in counters}
+    finally:
+        restore()
+
+    for seed, x, info, ms, its_c in fields:
+        print(f"config 5 field seed {seed}: fine iterations {int(info.iterations)}, "
+              f"coarse (fmg) iterations {its_c}, rel {float(info.rel_residual):.3e}, "
+              f"{ms:.3f} ms, finite {bool(torch.isfinite(x).all())}, shape {tuple(x.shape)}")
+        require(bool(info.converged), f"config 5 seed {seed} did not converge")
+        require(tuple(x.shape) == SHAPE5 and bool(torch.isfinite(x).all()),
+                f"config 5 seed {seed}: field not finite or wrong shape")
+    seed, x, info, _, _ = fields[0]
+    xr, ir = ft.sdf_from_points(grid, weights, *inputs[seed], config=cfg_xla,
+                                fmg_start=FMG5)
+    it, itr = int(info.iterations), int(ir.iterations)
+    err, scale = float((x - xr).abs().max()), float(xr.abs().max())
+    print(f"config 5 seed {seed} against backend='xla': iterations {it} (xla {itr}), "
+          f"max|x-x_xla| {err:.3e} (bar {2e-3 * scale:.3e})")
+    require(bool(ir.converged), "config 5: the xla solve did not converge")
+    require(abs(it - itr) <= 2, f"config 5: iterations {it} vs xla {itr}")
+    require(err <= 2e-3 * scale, f"config 5: {err} > 2e-3·{scale}")
+    pts, nrm = inputs[0]
+    pp = ft.assemble_precise(grid, weights, pts, torch.zeros(len(pts), device=device),
+                             gradients=nrm)
+    true = float(torch.linalg.norm(pp.residual64(xp)) / torch.linalg.norm(pp.b64))
+    rep = float(infop.rel_residual)
+    print(f"config 5 precise field seed 0: iterations {int(infop.iterations)}, coarse "
+          f"(fmg) iterations {coarse_p}, reported rel {rep:.6e}, true rel {true:.6e}, "
+          f"{msp:.3f} ms")
+    require(bool(infop.converged), "config 5 precise field did not converge")
+    require(tuple(xp.shape) == SHAPE5 and bool(torch.isfinite(xp).all()),
+            "config 5 precise field not finite or wrong shape")
+    require(true <= TOL, f"config 5 precise: true residual {true} > {TOL}")
+    require(abs(true - rep) <= 0.02 * true, f"config 5 precise: reported {rep} vs true {true}")
+    ms_all = [ms for *_, ms, _ in fields]
+    print(f"config 5 main path: {len(ms_all)} fields at tol 1e-4, ms/field "
+          f"{', '.join(f'{ms:.3f}' for ms in ms_all)}; precise {msp:.3f} ms; "
+          f"launches {launches}")
+    for name in ("fused_normal_apply", "fused_smooth", "fused_smooth_2d"):
+        require(launches[name] > 0, f"{name} was not launched on the config 5 path")
+    require(launches["fused_pcg_solve"] == 0, "the config 5 path launched fused_pcg_solve")
+    return launches
+
+
+def phase_profile5(ft, device):
+    from field_interpolation_tpu_torch import sdf as tsdf
+    from field_interpolation_tpu_torch import solver
+    grid, weights = ft.Grid(SHAPE5), ft.Weights(model_2=0.3)
+    cfg = ft.SolverConfig(**CFG5)
+    pts, nrm = circle5_inputs(0, device)
+    clock = StageClock()
+    cshape = shape_str(tuple((n + 1) // 2 for n in SHAPE5))
+    guess = clock(f"fmg guess ({cshape} solve, prolong)", lambda: tsdf._fmg_guess(
+        grid, weights, pts, nrm, None, cfg, FMG5))
+    p = clock("assemble_sdf", lambda: ft.assemble_sdf(grid, weights, pts, nrm))
+    apply_fn = solver._make_apply(p, cfg)
+    pc = clock("preconditioner setup", lambda: solver._make_precond(p, cfg, apply_fn))
+    clock("one cycle", lambda: pc(p.b))
+    clock("one apply", lambda: apply_fn(p.b))
+    clock("solve from the guess", lambda: ft.solve(p, cfg, x0=guess))
+    print(f"profile config 5, host clocks after synchronize, seed 0: {clock.line()}")
+    del p, pc, guess
+    profile_fields("config 5", [lambda: ft.sdf_from_points(
+        grid, weights, pts, nrm, config=cfg, fmg_start=FMG5)],
+        ("multi-sweep kernel", "sweep kernel", "apply kernel"))
 
 
 def main():
@@ -525,6 +790,11 @@ def main():
     del p128, p32, lvl1
     launches3 = phase_main3d(ft, device)
     phase_profile3d(ft, device)
+    p5, multi_rec, apply5_rec = phase_smooth2d(ft, device)
+    sweep5_rec = phase_sweep2d(ft, device, p5)
+    del p5
+    launches5 = phase_main5(ft, device)
+    phase_profile5(ft, device)
 
     src = "field_interpolation_tpu_torch/csrc/"
     ref = "field_interpolation_tpu/ops/pallas_stencil.py:"
@@ -539,6 +809,15 @@ def main():
         dict(name="jacobi_sweep", route="cuda", source=src + "jacobi_sweep.cu",
              replaces=ref + "513,1813",
              launches=launches3["fused_smooth"], **sweep_rec),
+        dict(name="fused_normal_apply_2d_large", route="cuda",
+             source=src + "normal_apply.cu", replaces=ref + "300",
+             launches=launches5["fused_normal_apply"], **apply5_rec),
+        dict(name="jacobi_sweep_2d_diag", route="cuda", source=src + "jacobi_sweep.cu",
+             replaces=ref + "513,1959",
+             launches=launches5["fused_smooth"], **sweep5_rec),
+        dict(name="jacobi_multisweep_2d", route="cuda",
+             source=src + "jacobi_multisweep2d.cu", replaces=ref + "653,876",
+             launches=launches5["fused_smooth_2d"], **multi_rec),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -1,11 +1,13 @@
 // One damped-Jacobi sweep for Hopper: z_out = z + sid·(r − A z) on a 2-D or
 // 3-D grid, A = S + DᵀWD with the full 3^D data stencil or a diagonal one.
 //
-// Replaces two TPU kernels of field_interpolation_tpu/ops/pallas_stencil.py:
-// fused_smooth, Jacobi form (513 → 559: ν sweeps on a whole-VMEM level, full
-// or diagonal data), which the wrapper runs as ν launches of this kernel,
-// and fused_sweep_striped2_3d (1813: one sweep on a 3-D diagonal-data level
-// too large for VMEM, tiled over axes 0/1), which is one launch.
+// Replaces three TPU kernels of field_interpolation_tpu/ops/pallas_stencil.py:
+// fused_smooth, Jacobi form (513 → 559: ν sweeps on a whole-VMEM level), which
+// the wrapper runs as ν launches of this kernel on diagonal-data levels and
+// 3-D full-data levels (2-D full-data levels go to jacobi_multisweep2d.cu);
+// fused_sweep_striped2_3d (1813: one sweep on a 3-D diagonal-data level too
+// large for VMEM, tiled over axes 0/1) and fused_sweep_striped_diag (1959:
+// the same on a 2-D diagonal-data level, axis-0 stripes), each one launch.
 //
 // Out of place: the TPU kernels update z inside one sequential program; on
 // the H100 the blocks of a launch run in no order, so an in-place update
@@ -20,8 +22,7 @@
 // 27 planes in full form: 120 B/node) and writes z_out; neighbouring z
 // values come from L1/L2. What the design does about it: one thread per node
 // in gather form, coalesced along the minor axis, A recomputed on the fly
-// from the shared apply_at. Fusing the ν sweeps of a level into one launch
-// (shared-memory tiles with halos) is later work.
+// from the shared apply_at.
 #include "normal_apply.cuh"
 
 namespace {

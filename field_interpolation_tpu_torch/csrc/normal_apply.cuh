@@ -1,6 +1,7 @@
 // The normal operator (S + DᵀWD) x at one node of a 2-D or 3-D grid, shared
-// by the apply kernel (normal_apply.cu), the Jacobi sweep kernel
-// (jacobi_sweep.cu) and the PCG segment kernel (pcg_segment.cu, 2-D only).
+// by the apply kernel (normal_apply.cu), the Jacobi sweep kernels
+// (jacobi_sweep.cu; jacobi_multisweep2d.cu, 2-D, on shared-memory tiles) and
+// the PCG segment kernel (pcg_segment.cu, 2-D only).
 //
 // Gather form of field_interpolation_tpu/ops/pallas_stencil.py:_kernel_body
 // (lines 104-166): the TPU kernel scatters each window's contribution into
@@ -48,6 +49,47 @@ __device__ __forceinline__ float axis_normal(const float* __restrict__ x,
     return acc;
 }
 
+// The smoothness part S x = Σ_orders w² Σ_axes BᵀB x (+ w0² x) at node
+// (i0, i1) of an n0 × n1 grid. x is addressed around x[flat] with row stride
+// st0: the grid's own (st0 = n1) or a shared-memory tile's. The windows are
+// bounded by the node's GLOBAL index and extent, so a tile edge inside the
+// grid is not a boundary.
+__device__ __forceinline__ float smooth_at(const float* w2,
+                                           const float* __restrict__ x, int flat,
+                                           int i0, int i1, int n0, int n1,
+                                           int st0) {
+    float out = w2[0] != 0.f ? w2[0] * x[flat] : 0.f;
+    if (w2[1] != 0.f)
+        out += w2[1] * (axis_normal<2>(x, flat, i0, n0, st0)
+                        + axis_normal<2>(x, flat, i1, n1, 1));
+    if (w2[2] != 0.f)
+        out += w2[2] * (axis_normal<3>(x, flat, i0, n0, st0)
+                        + axis_normal<3>(x, flat, i1, n1, 1));
+    if (w2[3] != 0.f)
+        out += w2[3] * (axis_normal<4>(x, flat, i0, n0, st0)
+                        + axis_normal<4>(x, flat, i1, n1, 1));
+    return out;
+}
+
+// The 9-channel data term Σ_o c(o) · x[i + o] over the 3×3 box at node
+// (i0, i1), offsets in constraints.offset_list C-order, x addressed as in
+// smooth_at; pairs leaving the grid carry c = 0 and are skipped. c(o) gives
+// the node's coefficient of channel o (from global memory or registers).
+template <class Coeff>
+__device__ __forceinline__ float data_at(Coeff c, const float* __restrict__ x,
+                                         int flat, int i0, int i1, int n0, int n1,
+                                         int st0) {
+    float out = 0.f;
+#pragma unroll
+    for (int o = 0; o < 9; ++o) {
+        const int d0 = o / 3 - 1, d1 = o % 3 - 1;
+        const int j0 = i0 + d0, j1 = i1 + d1;
+        if (j0 < 0 || j0 >= n0 || j1 < 0 || j1 >= n1) continue;
+        out += c(o) * x[flat + d0 * st0 + d1];
+    }
+    return out;
+}
+
 // (A x)[i0, i1] for A = S + data, S = Σ_orders w² Σ_axes BᵀB (+ w0² I).
 // 32-bit channel offsets: 9·N < 2³¹ (the wrappers check it).
 __device__ __forceinline__ float apply_at(const ApplyOp& op,
@@ -55,29 +97,11 @@ __device__ __forceinline__ float apply_at(const ApplyOp& op,
                                           int i0, int i1) {
     const int n0 = op.n0, n1 = op.n1;
     const int flat = i0 * n1 + i1;
-    const float xc = x[flat];
-    float out = op.w2[0] != 0.f ? op.w2[0] * xc : 0.f;
-    if (op.w2[1] != 0.f)
-        out += op.w2[1] * (axis_normal<2>(x, flat, i0, n0, n1)
-                           + axis_normal<2>(x, flat, i1, n1, 1));
-    if (op.w2[2] != 0.f)
-        out += op.w2[2] * (axis_normal<3>(x, flat, i0, n0, n1)
-                           + axis_normal<3>(x, flat, i1, n1, 1));
-    if (op.w2[3] != 0.f)
-        out += op.w2[3] * (axis_normal<4>(x, flat, i0, n0, n1)
-                           + axis_normal<4>(x, flat, i1, n1, 1));
-    if (op.diag) return out + op.coeff[flat] * xc;
-    // Data term: Σ_o c[o, i] · x[i + o] over the 3×3 box, offsets in
-    // constraints.offset_list C-order; pairs leaving the grid carry c = 0
-    // and are skipped.
+    const float out = smooth_at(op.w2, x, flat, i0, i1, n0, n1, n1);
+    if (op.diag) return out + op.coeff[flat] * x[flat];
+    const float* c = op.coeff + flat;
     const int N = n0 * n1;
-#pragma unroll
-    for (int o = 0; o < 9; ++o) {
-        const int j0 = i0 + o / 3 - 1, j1 = i1 + o % 3 - 1;
-        if (j0 < 0 || j0 >= n0 || j1 < 0 || j1 >= n1) continue;
-        out += op.coeff[o * N + flat] * x[j0 * n1 + j1];
-    }
-    return out;
+    return out + data_at([&](int o) { return c[o * N]; }, x, flat, i0, i1, n0, n1, n1);
 }
 
 // (A x)[i0, i1, i2] on a 3-D grid (C order, strides n1·n2, n2, 1). Node

@@ -2,10 +2,12 @@
 
 Counterpart of ``field_interpolation_tpu.multigrid``:
 
-* transfers — endpoint-aligned separable linear prolongation ``P`` as dense
-  per-axis matrices (`_resize_matrix`, the reference's numpy constant); the
-  restriction is literally ``Pᵀ``, which with symmetric pre/post damped-Jacobi
-  smoothing keeps the V-cycle symmetric positive definite (safe in CG).
+* transfers — endpoint-aligned separable linear prolongation ``P``, per axis
+  in banded form (`_resize_bands`: ≤ 3 weights per output row, kept on the
+  device per shape); the restriction is literally ``Pᵀ``, which with
+  symmetric pre/post damped-Jacobi smoothing keeps the V-cycle symmetric
+  positive definite (safe in CG). The dense matrices (`_resize_matrix`)
+  remain for the fused segment's operands.
 * coarse operators — rediscretized smoothness with energy-matched weights
   ``w_k ← w_k · 2^{(D-2k)/2}`` per coarsening, plus the diagonally lumped
   data term ``diag_c = Pᵀ² diag_f``.
@@ -16,11 +18,13 @@ Jacobi coarsest solve are ported; Galerkin coarse data and Chebyshev
 smoothing raise ``NotImplementedError`` (ROADMAP.md).
 
 With ``kernels=True`` (the reference's ``pallas_smooth``) every level smooths
-through the port's sweep kernel (`ops.smooth.fused_smooth`), full or
-diagonal data, at any size. The reference's per-level choice
-(`smoother_plan`) only decides where a CUDA problem raises
-``NotImplementedError``: a level or cycle for which the reference runs a
-kernel not ported yet. The cycle itself (residuals, transfers, the dense
+through one of the port's smoothing kernels, at any size: a 2-D level with
+the full 9-channel data term through the multi-sweep kernel
+(`ops.smooth.fused_smooth_2d`), every other level (diagonal data, 3-D)
+through the per-sweep kernel (`ops.smooth.fused_smooth`). The reference's
+plan (`kernel_plan`) only decides where a CUDA problem raises
+``NotImplementedError``: a cycle the reference runs as one whole-cycle
+kernel, not ported yet. The cycle itself (residuals, transfers, the dense
 coarsest solve) is plain torch, as it is XLA in the reference.
 """
 
@@ -39,7 +43,7 @@ from .grid import Grid
 from .operators import Problem
 from .ops import _policy
 from .ops._policy import fits_vmem
-from .ops.smooth import fused_smooth
+from .ops.smooth import fused_smooth, fused_smooth_2d
 from .weights import SolverConfig, Weights
 
 
@@ -78,10 +82,56 @@ def _resize_matrix(n_out: int, n_in: int, square: bool = False) -> np.ndarray:
     return P                 # array must fail loudly, not poison the cache
 
 
-def _apply_axis_matrix(x: torch.Tensor, P: np.ndarray, axis: int) -> torch.Tensor:
-    """Contract matrix P [n_out, n_in] with x's ``axis``."""
-    Pt = torch.tensor(P, dtype=x.dtype, device=x.device)
-    return torch.movedim(torch.tensordot(Pt, x, dims=([1], [axis])), 0, axis)
+@functools.lru_cache(maxsize=None)
+def _resize_bands(n_out: int, n_in: int, transpose: bool, square: bool):
+    """Banded form (start [n_out] int32, w [W, n_out]) of the resize matrix
+    (its transpose when ``transpose``): row r's nonzeros are w[:, r] at
+    columns start[r]..start[r]+W-1, W ≤ 2 for prolongation rows and ≤ 3 for
+    restriction rows (the reference's numpy code, unchanged)."""
+    M = _resize_matrix(n_out, n_in, square=square) if not transpose \
+        else _resize_matrix(n_in, n_out, square=square).T
+    W = max(int((M[r] != 0).sum()) for r in range(M.shape[0]))
+    W = max(W, 1)
+    start = np.zeros(M.shape[0], np.int32)
+    w = np.zeros((W, M.shape[0]))
+    for r in range(M.shape[0]):
+        nz = np.nonzero(M[r])[0]
+        s = int(nz[0]) if len(nz) else 0
+        s = min(s, M.shape[1] - W)
+        start[r] = s
+        w[:, r] = M[r, s:s + W]
+    start.setflags(write=False)
+    w.setflags(write=False)
+    return start, w
+
+
+@functools.lru_cache(maxsize=None)
+def _band_tensors(n_out: int, n_in: int, transpose: bool, square: bool,
+                  dtype: torch.dtype, device: torch.device):
+    """`_resize_bands` as tensors on ``device``: (rows [W·n_out] int64, the
+    input row of band term t of output row r at t·n_out + r, and
+    w [W, n_out]). Made once per key, so the transfers of a cycle copy
+    nothing from the host."""
+    start, w = _resize_bands(n_out, n_in, transpose, square)
+    rows = np.clip(start[None, :] + np.arange(w.shape[0])[:, None], 0, n_in - 1)
+    return (torch.tensor(rows.reshape(-1), dtype=torch.int64, device=device),
+            torch.tensor(w, dtype=dtype, device=device))
+
+
+def _apply_axis_resize(x: torch.Tensor, n_out: int, axis: int,
+                       transpose: bool = False, square: bool = False) -> torch.Tensor:
+    """Resize x's ``axis`` to ``n_out`` by the linear map of `_resize_matrix`
+    (its transpose with ``transpose``) in banded form: one gather of the
+    W ≤ 3 input rows each output row reads, then a weighted sum over them,
+    O(N) in three launches, where a dense [n_out, n_in] contraction is
+    O(N·n). The reference evaluates the same bands as strided slices, to
+    avoid TPU gathers (multigrid.py:100-212); the card gathers well."""
+    rows, w = _band_tensors(n_out, x.shape[axis], transpose, square, x.dtype,
+                            x.device)
+    terms = torch.index_select(x, axis, rows).unflatten(axis, tuple(w.shape))
+    wshape = [1] * terms.ndim
+    wshape[axis:axis + 2] = w.shape
+    return (terms * w.view(wshape)).sum(dim=axis)
 
 
 def prolong(xc: torch.Tensor, fine_shape: tuple[int, ...]) -> torch.Tensor:
@@ -90,8 +140,7 @@ def prolong(xc: torch.Tensor, fine_shape: tuple[int, ...]) -> torch.Tensor:
     out = xc
     for d, n in enumerate(fine_shape):
         if out.shape[base + d] != n:
-            out = _apply_axis_matrix(out, _resize_matrix(n, out.shape[base + d]),
-                                     base + d)
+            out = _apply_axis_resize(out, n, base + d)
     return out
 
 
@@ -103,7 +152,7 @@ def make_restrict(fine_shape: tuple[int, ...], coarse_shape: tuple[int, ...]):
         out = rf
         for d, (n_f, n_c) in enumerate(zip(fine_shape, coarse_shape)):
             if n_f != n_c:
-                out = _apply_axis_matrix(out, _resize_matrix(n_f, n_c).T, base + d)
+                out = _apply_axis_resize(out, n_c, base + d, transpose=True)
         return out
 
     return restrict
@@ -114,10 +163,9 @@ def restrict_diag(diag_f: torch.Tensor, coarse_shape: tuple[int, ...]) -> torch.
     base = diag_f.ndim - len(coarse_shape)
     out = diag_f
     for d, n_c in enumerate(coarse_shape):
-        n_f = diag_f.shape[base + d]
-        if n_f != n_c:
-            out = _apply_axis_matrix(out, _resize_matrix(n_f, n_c, square=True).T,
-                                     base + d)
+        if diag_f.shape[base + d] != n_c:
+            out = _apply_axis_resize(out, n_c, base + d, transpose=True,
+                                     square=True)
     return out
 
 
@@ -367,19 +415,15 @@ def resolve_wdepth(config: SolverConfig, fine_shape: tuple[int, ...]) -> int:
     return config.mg_wcycle_depth if cycle == "w" else 0
 
 
-# The reference kernels `smoother_plan` names that the port's sweep kernel
-# stands in for; a level planned for any other raises on CUDA tensors.
-_PORTED_SMOOTHERS = ("fused_smooth", "fused_sweep_striped2_3d")
-
-
 def smoother_plan(shapes, diag_data, radius: int, nu_max: int) -> list:
     """Per level, the reference kernel that smooths it with
     ``pallas_smooth`` on (multigrid.py:959-1004): "fused_smooth" where the
     level fits whole in VMEM, else "fused_smooth_striped" /
     "fused_smooth_tiled" (2-D full data), "fused_sweep_striped2_3d" (3-D
     diagonal data) or "fused_sweep_striped_diag" (2-D diagonal data) where
-    that kernel's tiling fits, and None where the reference runs XLA sweeps
-    (the port runs its sweep kernel there too).
+    that kernel's tiling fits, and None where the reference runs XLA sweeps.
+    The port's smoothing kernels stand in for all of them, and run at the
+    None levels too.
     ``diag_data[l]``: the level's data term is a diagonal plane; ``radius``:
     the operator radius (≥ 1), the same on every level."""
     plan = []
@@ -425,14 +469,21 @@ def kernel_plan(problem: Problem, config: SolverConfig, levels, lump: bool):
 
 
 def _kernel_smoother(coeff, sid, weights: Weights, ndim: int):
-    """smooth(r, z, sweeps, from_zero) on one level through the sweep kernel;
-    ``coeff`` is the level's full stencil or diagonal data term."""
+    """smooth(r, z, sweeps, from_zero) on one level through a smoothing
+    kernel; ``coeff`` is the level's full stencil or diagonal data term. A
+    2-D full stencil goes to the multi-sweep kernel, everything else to the
+    per-sweep one."""
     c32 = coeff.to(torch.float32).contiguous()
     s32 = sid.to(torch.float32).contiguous()
 
-    def smooth(r, z, sweeps, from_zero):
-        return fused_smooth(r.contiguous(), z.contiguous(), c32, s32, weights,
-                            ndim, sweeps, from_zero)
+    if ndim == 2 and c32.ndim == 3:
+        def smooth(r, z, sweeps, from_zero):
+            return fused_smooth_2d(r.contiguous(), z.contiguous(), c32, s32,
+                                   weights, sweeps, from_zero)
+    else:
+        def smooth(r, z, sweeps, from_zero):
+            return fused_smooth(r.contiguous(), z.contiguous(), c32, s32,
+                                weights, ndim, sweeps, from_zero)
     return smooth
 
 
@@ -441,8 +492,9 @@ def make_vcycle_preconditioner(problem: Problem, config: SolverConfig,
     """Returns z = M⁻¹ r: one symmetric multigrid cycle with damped-Jacobi
     smoothing. ``apply_fn`` overrides the fine-level operator apply.
     ``kernels`` (the reference's ``pallas_smooth``): smooth every level
-    through the sweep kernel; on CUDA tensors a level or cycle for which the
-    reference runs a kernel not ported yet raises ``NotImplementedError``."""
+    through a smoothing kernel (`_kernel_smoother`); on CUDA tensors a level
+    or cycle for which the reference runs a kernel not ported yet raises
+    ``NotImplementedError``."""
     _require_ported(config)
     levels = build_levels(problem, config)
     nu = config.mg_pre_smooth
@@ -476,12 +528,9 @@ def make_vcycle_preconditioner(problem: Problem, config: SolverConfig,
     smoothers = [None] * len(shapes)
     if kernels:
         if problem.b.device.type == "cuda":
-            plan, whole = kernel_plan(problem, config, levels, lump)
-            missing = [f"the {'x'.join(map(str, s))} level ({n})"
-                       for s, n in zip(shapes, plan)
-                       if n is not None and n not in _PORTED_SMOOTHERS]
-            if missing:
-                raise _not_ported("smoothing " + ", ".join(missing))
+            # Every per-level smoother the reference plans is ported; its
+            # whole-cycle kernels are not.
+            whole = kernel_plan(problem, config, levels, lump)[1]
             if whole is not None:
                 raise _not_ported(f"the 2-D multigrid cycle outside the fused "
                                  f"PCG path ({whole})")

@@ -38,6 +38,12 @@ _SIGNATURES = {
     # diag, stream
     "fi_jacobi_sweep": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F,
                         _I, _P),
+    # r, z (null: from zero), coeff [9, n0, n1], sid, out, n0, n1, w2_0..w2_3,
+    # rho, sweeps, stream
+    "fi_jacobi_multisweep2d": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I,
+                               _I, _P),
+    # the halo, in nodes, the multi-sweep kernel is built for
+    "fi_jacobi_multisweep2d_max_halo": (),
     # pointer table, int table, w2 table (all host), stream
     "fi_pcg_segment": (_P, _P, _P, _P),
 }

@@ -1,34 +1,46 @@
-"""Kernel 3: damped-Jacobi smoothing, ``z ← z + sid·(r − A z)``.
+"""Kernels 3 and 4: damped-Jacobi smoothing, ``z ← z + sid·(r − A z)``.
 
-One CUDA kernel (``csrc/jacobi_sweep.cu``, one sweep per launch) stands in
-for two TPU kernels of ``field_interpolation_tpu/ops/pallas_stencil.py``:
+Two CUDA kernels stand in for the Jacobi smoothers of
+``field_interpolation_tpu/ops/pallas_stencil.py``.
+
+``csrc/jacobi_sweep.cu``, one sweep per launch:
 
 * `fused_smooth` — ``fused_smooth`` in its Jacobi form (513 → 559): ν sweeps
-  on a level, 2-D or 3-D, full 3^D-channel or diagonal data term, launched
-  as ν sweeps of the kernel;
-* `fused_sweep` — ``fused_sweep_striped2_3d`` (1813): ONE sweep with a
-  diagonal data term (the lumped fine level of a large 3-D grid), which is
-  `fused_smooth` with one sweep from z.
+  on a level, 2-D or 3-D, launched as ν sweeps of the kernel; the multigrid
+  cycle sends it the diagonal-data levels and 3-D full-data levels;
+* `fused_sweep` — ``fused_sweep_striped2_3d`` (1813) and
+  ``fused_sweep_striped_diag`` (1959): ONE sweep with a diagonal data term
+  (the lumped fine level of a large 3-D grid; the 1024²/2048² coarse levels
+  of a large 2-D grid), which is `fused_smooth` with one sweep from z.
+
+``csrc/jacobi_multisweep2d.cu``, several sweeps per launch:
+
+* `fused_smooth_2d` — ``fused_smooth_striped`` (653) and
+  ``fused_smooth_tiled`` (876), and the 2-D full-data form of
+  ``fused_smooth`` (513): ν sweeps on a 2-D level with the 9-channel data
+  term, each block running all of them on a shared-memory tile, so the
+  coefficients come from memory once per smoothing phase.
 
 The TPU kernels update z in place inside one program; across CUDA blocks an
-in-place sweep would race, so the sweeps ping-pong two buffers and the
-launch boundary is the barrier between sweeps. On the H100 a sweep is bound
-by memory (r, sid, z and the data term per node). `fused_smooth` launches
-the kernel for CUDA tensors and runs `fused_smooth_plain` for CPU tensors,
-and counts every launch of the kernel in ``fused_smooth.launches`` (the
-launches of `fused_sweep` included). Chebyshev smoothing
-(pallas_stencil.py:537) is not ported (ROADMAP.md).
+in-place sweep would race, so the sweeps ping-pong two buffers: in
+`fused_smooth` the launch boundary is the barrier between sweeps, in
+`fused_smooth_2d` a block barrier. On the H100 both are bound by memory.
+Each wrapper launches its kernel for CUDA tensors and runs
+`fused_smooth_plain` for CPU tensors, and counts its launches in
+``fused_smooth.launches`` (the launches of `fused_sweep` included) and
+``fused_smooth_2d.launches``. Chebyshev smoothing (pallas_stencil.py:537) is
+not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..stencils import max_stencil_radius
 from ..weights import Weights
 from . import _build
 from .stencil import (check_operands, fused_normal_apply_plain, kernel_dims,
                       order_w2)
-
 
 def fused_smooth_plain(r: torch.Tensor, z: torch.Tensor, coeff: torch.Tensor,
                        scaled_inv_diag: torch.Tensor, weights: Weights,
@@ -48,6 +60,28 @@ def fused_smooth_plain(r: torch.Tensor, z: torch.Tensor, coeff: torch.Tensor,
     return out
 
 
+def _smoothing_call(name, launch, r, z, coeff, scaled_inv_diag, weights, ndim,
+                    sweeps, from_zero):
+    """The part both kernel wrappers share: the plain version for CPU
+    tensors; for CUDA tensors the sweeps to run (the from-zero step counts
+    as one, so it runs even at 0), the operand checks, and
+    ``launch(count, diag, lib, w2, stream)`` on r's device."""
+    if sweeps < 0:
+        raise ValueError(f"{name}: sweeps must be >= 0, got {sweeps}")
+    if r.device.type == "cpu":
+        return fused_smooth_plain(r, z, coeff, scaled_inv_diag, weights, ndim,
+                                  sweeps, from_zero)
+    if r.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {r.device}")
+    count = max(sweeps, 1) if from_zero else sweeps
+    if count == 0:
+        return z
+    diag = check_operands(name, r, coeff, ndim, z, scaled_inv_diag)
+    with torch.cuda.device(r.device):
+        return launch(count, diag, _build.library(), order_w2(weights),
+                      _build.stream_handle(r.device))
+
+
 def fused_smooth(r: torch.Tensor, z: torch.Tensor, coeff: torch.Tensor,
                  scaled_inv_diag: torch.Tensor, weights: Weights, ndim: int,
                  sweeps: int, from_zero: bool = False) -> torch.Tensor:
@@ -56,24 +90,10 @@ def fused_smooth(r: torch.Tensor, z: torch.Tensor, coeff: torch.Tensor,
     ``coeff`` is the [3^D, *grid] data stencil or a [*grid] diagonal (read
     off the rank). With ``from_zero`` the first launch reads no z. Semantics
     of `fused_smooth_plain`."""
-    if sweeps < 0:
-        raise ValueError(f"fused_smooth: sweeps must be >= 0, got {sweeps}")
-    if r.device.type == "cpu":
-        return fused_smooth_plain(r, z, coeff, scaled_inv_diag, weights, ndim,
-                                  sweeps, from_zero)
-    if r.device.type != "cuda":
-        raise ValueError(f"fused_smooth: no kernel for device {r.device}")
-    count = max(sweeps, 1) if from_zero else sweeps
-    if count == 0:
-        return z
-    diag = check_operands("fused_smooth", r, coeff, ndim, z, scaled_inv_diag)
-    lib = _build.library()
-    bufs = [torch.empty_like(r) for _ in range(min(count, 2))]
-    dims = kernel_dims(tuple(r.shape))
-    w2 = order_w2(weights)
-    stream = _build.stream_handle(r.device)
-    src = None if from_zero else z
-    with torch.cuda.device(r.device):
+    def launch(count, diag, lib, w2, stream):
+        bufs = [torch.empty_like(r) for _ in range(min(count, 2))]
+        dims = kernel_dims(tuple(r.shape))
+        src = None if from_zero else z
         for k in range(count):
             dst = bufs[k % 2]
             rc = lib.fi_jacobi_sweep(r.data_ptr(),
@@ -83,19 +103,65 @@ def fused_smooth(r: torch.Tensor, z: torch.Tensor, coeff: torch.Tensor,
             _build.check(rc, "fused_smooth")
             fused_smooth.launches += 1
             src = dst
-    return src
+        return src
+    return _smoothing_call("fused_smooth", launch, r, z, coeff, scaled_inv_diag,
+                           weights, ndim, sweeps, from_zero)
 
 
 def fused_sweep(r: torch.Tensor, z: torch.Tensor, cdiag: torch.Tensor,
                 scaled_inv_diag: torch.Tensor, weights: Weights) -> torch.Tensor:
     """ONE damped-Jacobi sweep z + sid·(r − (S + diag cdiag) z): the
-    counterpart of ``fused_sweep_striped2_3d``, run as `fused_smooth` with
-    one sweep from z (its plain version is `fused_smooth_plain` likewise).
-    The grid's rank is z's."""
+    counterpart of ``fused_sweep_striped2_3d`` (3-D) and
+    ``fused_sweep_striped_diag`` (2-D), run as `fused_smooth` with one sweep
+    from z (its plain version is `fused_smooth_plain` likewise). The grid's
+    rank is z's."""
     if cdiag.ndim != z.ndim:
         raise ValueError(f"fused_sweep: cdiag must be a [*grid] diagonal, got "
                          f"{tuple(cdiag.shape)} for grid {tuple(z.shape)}")
     return fused_smooth(r, z, cdiag, scaled_inv_diag, weights, z.ndim, 1)
 
 
+def multisweep_max_halo() -> int:
+    """The halo, in nodes, that csrc/jacobi_multisweep2d.cu is built for: a
+    launch takes as many sweeps as keep (sweeps reading neighbours)·ρ within
+    it. Read from the library, which holds the one copy of the number."""
+    return _build.library().fi_jacobi_multisweep2d_max_halo()
+
+
+def fused_smooth_2d(r: torch.Tensor, z: torch.Tensor, coeff: torch.Tensor,
+                    scaled_inv_diag: torch.Tensor, weights: Weights,
+                    sweeps: int, from_zero: bool = False) -> torch.Tensor:
+    """``sweeps`` damped-Jacobi sweeps on (S + data) z = r on a 2-D grid with
+    the [9, n0, n1] data stencil, several sweeps per launch of
+    ``csrc/jacobi_multisweep2d.cu``: the counterpart of
+    ``fused_smooth_striped``, ``fused_smooth_tiled`` and the 2-D full-data
+    ``fused_smooth``. A launch takes as many sweeps as fit its halo
+    (`multisweep_max_halo`, in nodes, over the operator radius ρ), so a
+    longer phase (ν·ρ > 8 from z) is several launches. Semantics of
+    `fused_smooth_plain`, ``from_zero`` included."""
+    def launch(left, diag, lib, w2, stream):
+        if diag:
+            raise ValueError("fused_smooth_2d: needs the [9, n0, n1] data stencil; "
+                             "a diagonal data term goes through fused_smooth")
+        rho = max(max_stencil_radius(weights), 1)
+        per_launch = lib.fi_jacobi_multisweep2d_max_halo() // rho
+        n0, n1 = r.shape
+        src = None if from_zero else z
+        while left:
+            # The from-zero step reads no neighbours, so it costs no halo.
+            k = min(left, per_launch + (1 if src is None else 0))
+            dst = torch.empty_like(r)
+            rc = lib.fi_jacobi_multisweep2d(
+                r.data_ptr(), None if src is None else src.data_ptr(),
+                coeff.data_ptr(), scaled_inv_diag.data_ptr(), dst.data_ptr(),
+                n0, n1, *w2, rho, k, stream)
+            _build.check(rc, "fused_smooth_2d")
+            fused_smooth_2d.launches += 1
+            src, left = dst, left - k
+        return src
+    return _smoothing_call("fused_smooth_2d", launch, r, z, coeff, scaled_inv_diag,
+                           weights, 2, sweeps, from_zero)
+
+
 fused_smooth.launches = 0
+fused_smooth_2d.launches = 0

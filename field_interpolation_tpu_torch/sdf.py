@@ -2,7 +2,8 @@
 
 Counterpart of the SDF half of ``field_interpolation_tpu.sdf``:
 `sdf_from_points` (float32 assembly + PCG) and `sdf_from_points_precise`
-(float32 problem + matter-free float64 system + float64 refinement).
+(float32 problem + matter-free float64 system + float64 refinement), both
+with the nested-iteration start `fmg_start` (`_fmg_guess`).
 The H100 has native float64, so `PreciseProblem` keeps its float64 rows and
 scatter in plain float64: none of the reference's double-float or
 integer-grid emulation is needed.
@@ -13,11 +14,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from . import constraints as cons
 from . import stencils
 from .grid import Grid
+from .multigrid import prolong
 from .operators import Problem, assemble
 from .solver import SolveInfo, solve, solve_refined
 from .weights import SolverConfig, Weights
@@ -40,6 +43,33 @@ def assemble_sdf(
                     else point_weights.to(f32))
 
 
+def _fmg_guess(grid: Grid, weights: Weights, positions, normals,
+               point_weights, config: SolverConfig,
+               depth: int = 1) -> Optional[torch.Tensor]:
+    """Nested-iteration (FMG) initial guess: assemble and solve the SAME
+    cloud on the (n+1)//2-coarsened grid (positions scaled by the spacing
+    ratio, tol = max(1e-3, tol)), prolong, and rescale to fine lattice
+    units. ``depth > 1`` starts the coarse solve from its own coarser guess.
+    None when the grid cannot coarsen."""
+    cshape = tuple(max(2, (n + 1) // 2) for n in grid.shape)
+    if cshape == grid.shape:
+        return None
+    cgrid = Grid(cshape)
+    scale = ((np.asarray(cshape, np.float64) - 1.0)
+             / (np.asarray(grid.shape, np.float64) - 1.0))
+    cpos = positions * torch.as_tensor(scale, dtype=positions.dtype,
+                                       device=positions.device)
+    cprob = assemble_sdf(cgrid, weights, cpos, normals, point_weights)
+    ccfg = dataclasses.replace(config, tol=max(1e-3, config.tol), debug=False)
+    cx0 = None
+    if depth > 1:
+        cx0 = _fmg_guess(cgrid, weights, cpos, normals, point_weights, config,
+                         depth - 1)
+    xc, _ = solve(cprob, ccfg, x0=cx0)
+    # SDF values are in lattice units: rescale by the spacing ratio.
+    return prolong(xc, grid.shape) * (1.0 / float(scale.min()))
+
+
 def sdf_from_points(
     grid: Grid,
     weights: Weights,
@@ -48,9 +78,16 @@ def sdf_from_points(
     point_weights: Optional[torch.Tensor] = None,
     config: SolverConfig = SolverConfig(),
     x0: Optional[torch.Tensor] = None,
+    fmg_start: bool | int = False,
 ) -> tuple[torch.Tensor, SolveInfo]:
     """Reconstruct a signed-distance field from an oriented point cloud.
-    Returns (field [*grid.shape] float32, SolveInfo); warm start via ``x0``."""
+    Returns (field [*grid.shape] float32, SolveInfo); warm start via ``x0``.
+    ``fmg_start=True`` (ignored when ``x0`` is given) starts from a
+    half-resolution solve of the same cloud (`_fmg_guess`); an int recurses
+    that many levels. The coarse iterations are not counted in SolveInfo."""
+    if fmg_start and x0 is None:
+        x0 = _fmg_guess(grid, weights, positions, normals, point_weights,
+                        config, depth=int(fmg_start))
     problem = assemble_sdf(grid, weights, positions, normals, point_weights)
     return solve(problem, config, x0=x0)
 
@@ -139,10 +176,16 @@ def sdf_from_points_precise(
     point_weights: Optional[torch.Tensor] = None,
     config: SolverConfig = SolverConfig(),
     x0: Optional[torch.Tensor] = None,
+    fmg_start: bool | int = False,
 ) -> tuple[torch.Tensor, SolveInfo]:
     """SDF reconstruction to a TRUE ≤ tol relative residual against the
     float64 normal equations: float64 rows + float32 PCG inner solves +
-    float64 iterative refinement. Returns (field float64, SolveInfo)."""
+    float64 iterative refinement. Returns (field float64, SolveInfo).
+    ``fmg_start`` as in `sdf_from_points` (the guess is the refinement's
+    warm start)."""
+    if fmg_start and x0 is None:
+        x0 = _fmg_guess(grid, weights, positions, normals, point_weights,
+                        config, depth=int(fmg_start))
     zeros = torch.zeros(positions.shape[0], dtype=torch.float32,
                         device=positions.device)
     p64 = assemble_precise(grid, weights, positions, zeros, gradients=normals,

@@ -86,9 +86,19 @@ def _axis_diag_1d(order: int, n: int) -> np.ndarray:
     return np.convolve(np.ones(n - L + 1), taps**2)  # length n
 
 
+@functools.lru_cache(maxsize=None)
+def _axis_profile(profile, order: int, n: int, device: torch.device) -> torch.Tensor:
+    """``profile(order, n)`` as a float64 tensor on ``device``, made once."""
+    return torch.tensor(profile(order, n), dtype=torch.float64, device=device)
+
+
 def _per_axis_sum(shape: tuple[int, ...], weights: Weights, profile,
                   dtype: torch.dtype, device) -> torch.Tensor:
-    out = np.zeros(shape, dtype=np.float64)
+    """Σ_orders w² Σ_axes profile(order, n_axis), broadcast over the grid and
+    summed in float64 on ``device``: only the 1-D profiles come from the
+    host, once per extent, never a grid-sized array."""
+    device = torch.device(device)
+    out = torch.zeros(shape, dtype=torch.float64, device=device)
     for order in weights.active_orders():
         w2 = weights.model_weight(order) ** 2
         if order == 0:
@@ -97,8 +107,8 @@ def _per_axis_sum(shape: tuple[int, ...], weights: Weights, profile,
         for ax in range(len(shape)):
             bshape = [1] * len(shape)
             bshape[ax] = shape[ax]
-            out += w2 * profile(order, shape[ax]).reshape(bshape)
-    return torch.as_tensor(out, device=device).to(dtype)
+            out += w2 * _axis_profile(profile, order, shape[ax], device).reshape(bshape)
+    return out.to(dtype)
 
 
 def smoothness_diag(shape: tuple[int, ...], weights: Weights,

@@ -7,11 +7,15 @@
 * The smoothing: the reference's multigrid cycle is built with
   ``pallas_smooth=True`` and run once with its kernels replaced by recorders;
   the port's `multigrid.kernel_plan` must name, level by level, the kernels
-  the reference called (multigrid.py:934-1042). The 128³ plan of the slice
-  (BASELINE config 4) is checked from its shapes.
+  the reference called (multigrid.py:934-1042). The 128³ plan (BASELINE
+  config 4) and the 4096², 2048² and 440² plans (config 5's grid, its
+  nested-iteration grid, and a grid whose whole cycle is still one reference
+  kernel) are checked from their shapes.
 * The port's cycle at 72³, the smallest cube whose lumped fine level is past
   the reference's whole-array gate, smooths every level through
-  `fused_smooth` and equals the plain cycle.
+  `fused_smooth` and equals the plain cycle; at 64² the 9-channel fine
+  level goes through `fused_smooth_2d` and the coarse levels through
+  `fused_smooth`, equal to the plain cycle.
 * Where the reference's rules name no kernel (odd 3-D extents past the
   gate, where it runs XLA), the port's solve still goes through its apply
   and sweep wrappers, which launch the kernels on CUDA tensors."""
@@ -161,6 +165,102 @@ def _check_plan(monkeypatch, shape, change):
 ], ids=str)
 def test_smoother_plan_matches_reference_calls(monkeypatch, shape, change):
     _check_plan(monkeypatch, shape, change)
+
+
+def _reference_chain(shapes, radius, nu_max):
+    """The reference's per-level smoother for a 2-D hierarchy with a 9-channel
+    fine level and diagonal coarse levels, from its own pickers
+    (multigrid.py:959-1004)."""
+    chain = []
+    for li, shape in enumerate(shapes):
+        diag = li > 0
+        if ps.fits_vmem(shape, diag_data=diag):
+            chain.append("fused_smooth")
+        elif diag:
+            chain.append("fused_sweep_striped_diag"
+                         if ps.pick_stripe_sweep_diag(shape) is not None else None)
+        elif ps.pick_stripe_smooth(shape, radius, nu_max) is not None:
+            chain.append("fused_smooth_striped")
+        elif ps.pick_tile_smooth(shape, radius, nu_max) is not None:
+            chain.append("fused_smooth_tiled")
+        else:
+            chain.append(None)
+    return chain
+
+
+@pytest.mark.parametrize("shape,head", [
+    ((4096, 4096), ["fused_smooth_tiled", "fused_sweep_striped_diag",
+                    "fused_sweep_striped_diag"]),   # BASELINE config 5's grid
+    ((2048, 2048), ["fused_smooth_striped", "fused_sweep_striped_diag"]),  # its fmg grid
+    ((440, 440), ["fused_smooth_striped"]),
+], ids=str)
+def test_large_2d_plans_match_reference_pickers(shape, head):
+    """Pure shape arithmetic: the port's plan for config 5's hierarchy and
+    the others equals the reference pickers' chain; every level has a
+    kernel smoother there, each one the port's kernels stand in for."""
+    cfg = ft.SolverConfig(tol=1e-4)
+    shapes = [shape] + list(tmg.level_shapes(shape, cfg.mg_min_size,
+                                             cfg.mg_coarse_solver))
+    assert shapes == [shape] + list(jmg.level_shapes(shape, 16, "dense"))
+    radius = max(max_stencil_radius(ft.Weights(model_2=0.3)), 1)
+    plan = tmg.smoother_plan(shapes, [False] + [True] * (len(shapes) - 1), radius, 3)
+    assert plan == _reference_chain(shapes, radius, 3)
+    assert plan == head + ["fused_smooth"] * (len(shapes) - len(head))
+
+
+def test_whole_cycle_kernel_still_planned_just_past_the_gate():
+    """440² is past the whole-array gate, but its fused-cycle operands fit
+    the reference's 12 MB budget, so the reference runs the whole W-cycle
+    kernel there (not ported: a CUDA problem raises); 1024² is past both."""
+    cfg = ft.SolverConfig(tol=1e-4)
+    theta = np.random.default_rng(0).uniform(0, 2 * np.pi, 60)
+    nrm = torch.as_tensor(np.stack([np.cos(theta), np.sin(theta)], 1),
+                          dtype=torch.float32)
+    for shape, whole in [((440, 440), "fused_wcycle_2d"), ((1024, 1024), None)]:
+        tp = ft.assemble_sdf(ft.Grid(shape), ft.Weights(model_2=0.3),
+                             (shape[0] - 1) / 2.0 + 0.3 * shape[0] * nrm, nrm)
+        levels = tmg.build_levels(tp, cfg)
+        assert not ps.fits_vmem(shape)
+        assert tmg.kernel_plan(tp, cfg, levels, False)[1] == whole
+
+
+@pytest.mark.parametrize("shape,guess_whole", [((880, 880), "fused_wcycle_2d"),
+                                               ((1000, 1000), None)], ids=str)
+def test_fmg_guess_grid_plan(shape, guess_whole):
+    """``fmg_start`` first solves on the (n+1)//2 grid. From 880² that is
+    440², where the reference plans the whole W-cycle kernel, so a CUDA call
+    with ``fmg_start`` raises where the same call without it runs (ROADMAP.md
+    §3); from 1000² it is 500², past the whole-cycle budget."""
+    cfg = ft.SolverConfig(tol=1e-4)
+    theta = np.random.default_rng(0).uniform(0, 2 * np.pi, 60)
+    nrm = torch.as_tensor(np.stack([np.cos(theta), np.sin(theta)], 1),
+                          dtype=torch.float32)
+    wholes = []
+    for grid_shape in (shape, tuple((n + 1) // 2 for n in shape)):
+        tp = ft.assemble_sdf(ft.Grid(grid_shape), ft.Weights(model_2=0.3),
+                             (grid_shape[0] - 1) / 2.0 + 0.3 * grid_shape[0] * nrm, nrm)
+        wholes.append(tmg.kernel_plan(tp, cfg, tmg.build_levels(tp, cfg), False)[1])
+    assert wholes == [None, guess_whole]
+
+
+def test_2d_cycle_goes_through_the_multisweep_wrapper(monkeypatch):
+    """A 2-D cycle off the fused PCG path: the 9-channel fine level smooths
+    through fused_smooth_2d, the diagonal coarse levels through
+    fused_smooth (the 16² coarsest is solved densely); on CPU tensors the
+    wrappers run their plain versions, so the kernel route equals the
+    plain route."""
+    shape = (64, 64)
+    _, tp = _pair(shape, n=100)
+    seen = set()
+    _spy(monkeypatch, seen, tmg, ["fused_smooth", "fused_smooth_2d"])
+    cfg = ft.SolverConfig()
+    r = torch.as_tensor(np.random.default_rng(5).standard_normal(shape),
+                        dtype=torch.float32)
+    got = tmg.make_vcycle_preconditioner(tp, cfg, kernels=True)(r)
+    want = tmg.make_vcycle_preconditioner(tp, cfg, kernels=False)(r)
+    assert seen == {("fused_smooth_2d", shape), ("fused_smooth", (32, 32))}
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * scale
 
 
 @pytest.mark.slow

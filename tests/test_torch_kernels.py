@@ -9,6 +9,8 @@ does not use). Bars: the apply within 1e-5·max|plain| and a sweep within
 2e-5·max|plain| (float32 sums in another order); the segment and the solves
 within ±2 iterations and 2e-3·max|x| (tests/test_solver.py:191-195)."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -16,8 +18,9 @@ import torch
 import field_interpolation_tpu_torch as ft
 from field_interpolation_tpu_torch import multigrid as tmg
 from field_interpolation_tpu_torch.ops.pcg import fused_pcg_solve, fused_pcg_solve_plain
-from field_interpolation_tpu_torch.ops.smooth import (fused_smooth, fused_smooth_plain,
-                                                      fused_sweep)
+from field_interpolation_tpu_torch.ops.smooth import (fused_smooth, fused_smooth_2d,
+                                                      fused_smooth_plain, fused_sweep,
+                                                      multisweep_max_halo)
 from field_interpolation_tpu_torch.ops.stencil import (fused_normal_apply,
                                                        fused_normal_apply_plain)
 
@@ -248,18 +251,83 @@ def test_smooth_kernel_configs_run_on_card(cuda, change):
 
 @pytest.mark.parametrize("shape,change", [
     ((64, 64), dict(mg_cycle="w")),                     # W-cycle in the fused kernel
-    ((1024, 1024), dict()),                             # fused_smooth_striped
+    ((440, 440), dict()),                               # fused_wcycle_2d past the gate
     ((64, 64), dict(mg_fine_operator="lumped")),        # fused_vcycle_2d
     ((64, 64), dict(mg_smoother="chebyshev")),
     ((24, 24, 24), dict(mg_smoother="chebyshev")),
 ])
 def test_unported_cuda_configs_raise(cuda, shape, change):
-    # 100 points leave a 1024² float32 solve stuck near 3e-4 (plain ops on
-    # CPU too); 2000 points on its circle converge.
-    problem = _problem(shape, cuda, n=2000 if max(shape) >= 1024 else 100)
+    problem = _problem(shape, cuda)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ft.solve(problem, ft.SolverConfig(tol=1e-4, **change))
     if "mg_smoother" in change:
         return  # Chebyshev is not ported to plain ops either
     x, info = ft.solve(problem, ft.SolverConfig(tol=1e-4, backend="xla", **change))
     assert bool(info.converged)
+
+
+def test_fmg_guess_in_the_whole_cycle_band_raises(cuda):
+    """880² runs on the card, but ``fmg_start=1`` first solves the same
+    cloud on 440², where the reference plans fused_wcycle_2d (not ported):
+    that call raises, and runs in plain ops under backend="xla"."""
+    rng = np.random.default_rng(4)
+    theta = rng.uniform(0, 2 * np.pi, 2000)
+    u = np.stack([np.cos(theta), np.sin(theta)], 1)
+    args = (ft.Grid((880, 880)), ft.Weights(model_2=0.3),
+            torch.as_tensor(439.5 + 264.0 * u, dtype=torch.float32, device=cuda),
+            torch.as_tensor(u, dtype=torch.float32, device=cuda))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ft.sdf_from_points(*args, config=ft.SolverConfig(tol=1e-4), fmg_start=1)
+    _, info = ft.sdf_from_points(*args, config=ft.SolverConfig(tol=1e-4))
+    assert bool(info.converged)
+    _, info = ft.sdf_from_points(*args, config=ft.SolverConfig(tol=1e-4, backend="xla"),
+                                 fmg_start=1)
+    assert bool(info.converged)
+
+
+def test_large_2d_solve_runs_through_the_smoothing_kernels(cuda):
+    """1024²: the reference smooths its fine level with fused_smooth_striped
+    and its 512² level with fused_smooth; the port launches the multi-sweep
+    and per-sweep kernels and matches its plain solve (backend="xla").
+    100 points leave a 1024² float32 solve stuck near 3e-4 (plain ops on
+    CPU too); 2000 points on its circle converge."""
+    problem = _problem((1024, 1024), cuda, n=2000)
+    before = (fused_smooth_2d.launches, fused_smooth.launches,
+              fused_normal_apply.launches, fused_pcg_solve.launches)
+    x, info = ft.solve(problem, ft.SolverConfig(tol=1e-4))
+    after = (fused_smooth_2d.launches, fused_smooth.launches,
+             fused_normal_apply.launches, fused_pcg_solve.launches)
+    assert all(a > b for a, b in zip(after[:3], before[:3]))
+    assert after[3] == before[3]
+    xr, ir = ft.solve(problem, ft.SolverConfig(tol=1e-4, backend="xla"))
+    assert bool(info.converged) and bool(ir.converged)
+    assert abs(int(info.iterations) - int(ir.iterations)) <= 2
+    assert float((x - xr).abs().max()) <= 2e-3 * float(xr.abs().max())
+
+
+MULTISWEEP_WEIGHTS = {1: dict(model_0=0.1, model_1=0.7, model_2=0.0),
+                      2: dict(model_1=0.2, model_2=1.0),
+                      3: dict(model_2=0.5, model_3=0.8)}  # by operator radius
+
+
+@pytest.mark.parametrize("shape", [(100, 130), (37, 201), (5, 7)])
+@pytest.mark.parametrize("radius", [1, 2, 3])
+@pytest.mark.parametrize("sweeps", [1, 2, 3, 4])
+@pytest.mark.parametrize("from_zero", [False, True])
+def test_multisweep_kernel_matches_plain(cuda, shape, radius, sweeps, from_zero):
+    """Odd sizes that cut into many tiles of every output size (the tile
+    shrinks with the halo, ν·ρ), one that is smaller than a tile, and
+    phases that need more than one launch (ν·ρ > 8)."""
+    r, z, coeff, sid, w = _sweep_operands(shape, cuda, False, MULTISWEEP_WEIGHTS[radius])
+    # A launch takes the sweeps whose neighbour reads fit the halo; the
+    # from-zero step reads none.
+    per_launch = multisweep_max_halo() // radius
+    first = per_launch + (1 if from_zero else 0)
+    launches = 1 + math.ceil(max(sweeps - first, 0) / per_launch)
+    before = fused_smooth_2d.launches
+    got = fused_smooth_2d(r, z, coeff, sid, w, sweeps, from_zero)
+    want = fused_smooth_plain(r, z, coeff, sid, w, 2, sweeps, from_zero)
+    torch.cuda.synchronize()
+    assert fused_smooth_2d.launches == before + launches
+    err = float((got - want).abs().max())
+    assert err <= 2e-5 * float(want.abs().max()), err
