@@ -63,15 +63,49 @@ toolkit (``nvcc``). Phases, each fatal on failure:
     and multi-sweep kernels must launch in this phase, the segment kernel
     not;
 13. where the time of a config-5 field goes, as phase 9: host clocks of its
-    stages and ``torch.profiler`` over one field.
+    stages and ``torch.profiler`` over one field;
+14. the whole-cycle kernel against ``mg_cycle_plain``, within
+    3e-5·max|plain|, on the operands ``multigrid.whole_cycle_operands``
+    hands it for field A (496², the W-cycle, the V-cycle, the V-cycle with
+    ν_pre = 2, ν_post = 3) and for a 256² lumped problem (V), each on a
+    standard-normal residual and on r = A·x (which the fine level's
+    smoothing shapes): each timed beside one plain-torch cycle (the
+    ``backend="xla"`` preconditioner), with its grid-barrier phases and µs
+    per phase;
+15. the PCG segment kernel with the W-cycle (``wdepth=99``) against its
+    plain version, as phase 4;
+16. field A, the whole-cycle band's main path: the apply kernel against its
+    plain version on the field's 9-channel 496² problem, within
+    1e-5·max|plain|; ``sdf_from_points`` at 496²,
+    2000 circle points, the default config (tol 1e-4), seeds 0..1, each
+    converged, finite, of shape 496², seed 0 within ±2 iterations and
+    2e-3·max|x| of ``backend="xla"``; ``sdf_from_points_precise`` at tol
+    1e-6, seed 0, true float64 residual ≤ 1e-6 and reported within 2%. The
+    whole W-cycle kernel and the apply kernel must launch, the segment
+    kernel not; then ``torch.profiler`` over one field;
+17. field B: ``sdf_from_points_precise`` at 256², 1000 points, tol 1e-6,
+    ``mg_cycle="w"`` (the segment kernel with the W-cycle), seeds 0..1,
+    true residual ≤ 1e-6, reported within 2%, beside phase 5's V-cycle
+    iterations and times;
+18. field C: the apply kernel (1e-5·max|plain|), the multi-sweep kernel
+    at 992² and the per-sweep kernel on its 496² diagonal level (ν = 3 from
+    zero and from z, 2e-5·max|plain|) against their plain versions on the
+    field's own problem; then ``sdf_from_points`` at 992², 4000 points, tol
+    1e-4, ``fmg_start=1``, seed 0: converged, finite, of shape 992²; its
+    496² guess launches the whole-cycle kernel, its fine level the apply,
+    multi-sweep and per-sweep kernels.
 
-The lines before the last are the kernel record (JSON) and the card; the
-last line is ``{"ok": true, "device": {...}}``. Without a CUDA card it exits
-non-zero before printing any result.
+The lines before the last are the kernel record (JSON: per kernel its
+launches on its path, its error and time against its plain version, and
+its bound: the bytes it must move over 3.35 TB/s or its float32 operations
+over 67 TFLOP/s, whichever is longer) and the card; the last line is
+``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
+before printing any result.
 """
 
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -96,9 +130,22 @@ N_POINTS5 = 100_000
 SEEDS5 = range(2)
 CFG5 = dict(tol=1e-4, preconditioner="multigrid", backend="auto", maxiter=500)
 FMG5 = 1  # bench.py's default depth for 2-D grids (bench.py:259-271)
+SHAPE_A = (496, 496)  # field A: the largest side of the whole-cycle band
+N_POINTS_A = 2000     # the headline's density, ~1.8 points per unit of arc
+SEEDS_A = range(2)
+SEEDS_B = range(2)    # field B: the headline with SolverConfig(mg_cycle="w")
+SHAPE_C = (992, 992)  # field C: fmg_start=1 guesses on 496², in the band
+N_POINTS_C = 4000
+# The least time the card could take (bound_ms): bytes over HBM's rate, or
+# float32 operations over the peak outside the tensor cores (H100 SXM data
+# sheet, 700 W).
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
 # Device work by kind, matched on the kernel's name in the profile; the
 # rest is plain elementwise and reduction ops.
 DEVICE_KINDS = [
+    ("cycle kernel", r"mg_cycle2d"),
+    ("segment kernel", r"pcg_segment"),
     ("multi-sweep kernel", r"jacobi_multisweep2d"),
     ("sweep kernel", r"jacobi_sweep_kernel"),
     ("apply kernel", r"normal_apply"),
@@ -164,6 +211,23 @@ def cuda_ms(fn, reps=REPS):
     return statistics.median(times)
 
 
+def batch_ms(fn, reps=REPS):
+    """Time per call of ``reps`` calls launched back to back, from CUDA
+    events around the batch: the card's time when the host enqueues faster
+    than the card runs, which single-call events (`cuda_ms`) do not give for
+    a kernel whose wrapper takes longer than its work."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def timed(fn):
     """(fn(), its time in ms from CUDA events)."""
     start = torch.cuda.Event(enable_timing=True)
@@ -179,21 +243,99 @@ def shape_str(shape):
     return "x".join(map(str, shape))
 
 
-def compare(name, kernel, plain, bar):
-    """Run ``kernel`` and ``plain`` once each, check max|kernel - plain| ≤
-    bar·max|plain|, time both; returns the record."""
-    got = kernel()
-    want = plain()
+def bound(nbytes, flops):
+    """bound_ms and bound_by of the kernel record: the larger of the bytes
+    the call must move (each input read once, each output written once)
+    over HBM's rate and its float32 operations over the peak rate."""
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * flops / FP32_FLOPS_PER_S
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def apply_flops(weights, ndim, diag):
+    """Operations per node of one operator apply, as the kernels do them:
+    per active order of stencil length L and per axis, L windows of an
+    L-tap correlation and one accumulate (L·(2L + 2)), one scale; the data
+    term's multiply-adds (one channel when diagonal, 3^D otherwise)."""
+    active = weights.active_orders()
+    ops = 2 if 0 in active else 0
+    for k in active:
+        if k:
+            ops += ndim * (k + 1) * (2 * k + 4) + 2
+    return ops + 2 * (1 if diag else 3 ** ndim)
+
+
+def apply_work(x, coeff, weights, ndim):
+    """(bytes, operations) of one apply: x and the coefficients read, the
+    result written."""
+    return (4 * (2 * x.numel() + coeff.numel()),
+            apply_flops(weights, ndim, coeff.ndim == ndim) * x.numel())
+
+
+def sweep_work(r, coeff, weights, ndim, sweeps, from_zero):
+    """(bytes, operations) of ``sweeps`` damped-Jacobi sweeps in one call:
+    r, sid, the coefficients (and z) read once, z written once."""
+    n = r.numel()
+    reads = 2 * n + coeff.numel() + (0 if from_zero else n)
+    per = apply_flops(weights, ndim, coeff.ndim == ndim) + 4
+    return 4 * (reads + n), n * (per * sweeps - (per - 1 if from_zero else 0))
+
+
+def cycle_work(ops, nu_pre, nu_post, wdepth):
+    """(bytes, operations, grid-barrier phases) of one whole cycle on
+    ``ops`` = (coeffs, sids, Rs, inv_c, level weights): r read and z
+    written, every operand read once (the Rs over their nonzeros); the
+    operations and phases of csrc/mg_cycle2d.cuh's schedule (per visit of
+    a level above the coarsest: max(ν_pre, 1) pre-sweep phases, the
+    residual's apply, the restriction, one prolongation per child visit,
+    ν_post post-sweeps; one dense matvec per coarsest visit)."""
+    from field_interpolation_tpu_torch.ops.cycle import level_shapes
+    coeffs, sids, Rs, inv_c, lw = ops[:5]
+    sizes = [math.prod(sh) for sh in level_shapes(coeffs)]
+    L = len(sizes)
+    nbytes = 4 * (2 * sizes[0] + sum(c.numel() for c in coeffs)
+                  + sum(t.numel() for t in sids) + inv_c.numel()
+                  + sum(int(torch.count_nonzero(R)) for R in Rs))
+    visits, flops, phases = 1, 0, 0
+    for l in range(L - 1):
+        a = apply_flops(lw[l], 2, coeffs[l].ndim == 2)
+        twice = l < wdepth and l + 1 < L - 1
+        work = sizes[l] * ((nu_pre + nu_post) * (a + 4) + a + 2 * 6 * (1 + twice))
+        if twice:  # the W step's residual update on level l + 1
+            work += sizes[l + 1] * (apply_flops(lw[l + 1], 2, True) + 1)
+        flops += visits * work
+        phases += visits * (max(nu_pre, 1) + 2 + (1 + twice) + nu_post)
+        visits *= 2 if twice else 1
+    flops += visits * 2 * sizes[-1] ** 2
+    return nbytes, flops, phases + visits
+
+
+def check_close(name, got, want, bar):
+    """max|got - want| ≤ bar·max|want| and got finite; returns the error."""
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
-    ms = cuda_ms(kernel)
-    plain_ms = cuda_ms(plain)
-    print(f"{name}: max|kernel-plain| {err:.3e} (bar {bar * scale:.3e}); "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    print(f"{name}: max|kernel-plain| {err:.3e} (bar {bar * scale:.3e})")
     require(bool(torch.isfinite(got).all()), f"{name}: kernel output not finite")
     require(err <= bar * scale, f"{name}: {err} > {bar}·{scale}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return err
+
+
+def compare(name, kernel, plain, bar, work=None):
+    """Run ``kernel`` and ``plain`` once each, check max|kernel - plain| ≤
+    bar·max|plain|, time both; returns the record, with `bound` of
+    ``work`` = (bytes, operations) when given."""
+    err = check_close(name, kernel(), plain(), bar)
+    ms = cuda_ms(kernel)
+    plain_ms = cuda_ms(plain)
+    print(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    if work is not None:
+        rec.update(bound(*work))
+        print(f"  bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
+              f"{work[0] / 1e6:.3f} MB, {work[1] / 1e6:.3f} MFLOP)")
+    return rec
 
 
 def headline_inputs(seed, device):
@@ -220,12 +362,13 @@ def phase_apply(ft, device):
                             device=device)
         r = compare(f"apply {form} {shape_str(shape)}",
                     lambda: fused_normal_apply(x, coeff, w, 2),
-                    lambda: fused_normal_apply_plain(x, coeff, w, 2), 1e-5)
+                    lambda: fused_normal_apply_plain(x, coeff, w, 2), 1e-5,
+                    apply_work(x, coeff, w, 2))
         rec = rec or r
     return problem, ops, rec
 
 
-def phase_segment(problem, ops, device):
+def phase_segment(problem, ops, device, wdepth=0):
     from field_interpolation_tpu_torch.ops.pcg import (fused_pcg_solve,
                                                        fused_pcg_solve_plain)
     coeffs, sids, Rs, inv32, lw, _ = ops
@@ -234,22 +377,49 @@ def phase_segment(problem, ops, device):
     tol2 = (1e-4 ** 2 * torch.sum(b * b)).reshape(1, 1)
     budget = torch.full((1, 1), 2000, dtype=torch.int32, device=device)
     args = (x0, b, tol2, budget, coeffs, sids, Rs, inv32, lw, 3)
-    xk, ik, rrk = fused_pcg_solve(*args)
-    xp, ip, rrp = fused_pcg_solve_plain(*args)
+    xk, ik, rrk = fused_pcg_solve(*args, wdepth=wdepth)
+    xp, ip, rrp = fused_pcg_solve_plain(*args, wdepth=wdepth)
     torch.cuda.synchronize()
     ik, ip = int(ik.item()), int(ip.item())
     err = float((xk - xp).abs().max())
     scale = float(xp.abs().max())
-    ms = cuda_ms(lambda: fused_pcg_solve(*args))
-    plain_ms = cuda_ms(lambda: fused_pcg_solve_plain(*args))
-    print(f"segment tol 1e-4: iterations kernel {ik} plain {ip}; "
+    ms = cuda_ms(lambda: fused_pcg_solve(*args, wdepth=wdepth))
+    dev_ms = batch_ms(lambda: fused_pcg_solve(*args, wdepth=wdepth))
+    plain_ms = cuda_ms(lambda: fused_pcg_solve_plain(*args, wdepth=wdepth))
+    # The segment's work: the cycle's operands and x, r read once, x
+    # written; ik + 1 cycles, ik applies and CG updates; 3 + cycle phases
+    # per iteration and for the start.
+    n = b.numel()
+    cb, cf, cp = cycle_work(ops, 3, 3, wdepth)
+    work = (cb + 4 * n, (ik + 1) * cf + ik * n * (apply_flops(lw[0], 2, False) + 12))
+    phases = (ik + 1) * (cp + 2)
+    print(f"segment tol 1e-4, wdepth {wdepth}: iterations kernel {ik} plain {ip}; "
           f"max|x_kernel-x_plain| {err:.3e} (bar {2e-3 * scale:.3e}); "
           f"rr kernel {float(rrk.item()):.4e} plain {float(rrp.item()):.4e}; "
-          f"kernel {ms:.3f} ms ({1e3 * ms / max(ik, 1):.1f} us/iter), "
+          f"kernel {ms:.3f} ms, back to back {dev_ms:.3f} ms ({1e3 * dev_ms / max(ik, 1):.1f} "
+          f"us/iter, {phases} grid-barrier phases, {1e3 * dev_ms / phases:.2f} us/phase), "
           f"plain {plain_ms:.3f} ms ({1e3 * plain_ms / max(ip, 1):.1f} us/iter)")
     require(abs(ik - ip) <= 2, f"segment iterations {ik} vs {ip}")
     require(err <= 2e-3 * scale, f"segment x: {err} > 2e-3·{scale}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound(*work), batch_ms=dev_ms)
+    print(f"  bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    return rec, ik
+
+
+def check_precise(label, ft, grid, weights, pts, nrm, x, info, device):
+    """Converged, finite, of the grid's shape; the true float64 residual
+    (the port's plain float64 operator) ≤ TOL and the reported one within
+    2% of it. Returns the true residual."""
+    zeros = torch.zeros(len(pts), dtype=torch.float32, device=device)
+    pp = ft.assemble_precise(grid, weights, pts, zeros, gradients=nrm)
+    true = float(torch.linalg.norm(pp.residual64(x)) / torch.linalg.norm(pp.b64))
+    rep = float(info.rel_residual)
+    require(bool(info.converged), f"{label} did not converge")
+    require(tuple(x.shape) == grid.shape and bool(torch.isfinite(x).all()),
+            f"{label}: field not finite or wrong shape")
+    require(true <= TOL, f"{label}: true residual {true} > {TOL}")
+    require(abs(true - rep) <= 0.02 * true, f"{label}: reported {rep} vs true {true}")
+    return true
 
 
 def phase_main(ft, device):
@@ -272,27 +442,17 @@ def phase_main(ft, device):
                 "fused_pcg_solve": fused_pcg_solve.launches}
 
     for seed, (pts, nrm), (x, info, ms) in zip(SEEDS, inputs, results):
-        # The true residual, from the port's plain float64 operator.
-        zeros = torch.zeros(N_POINTS, dtype=torch.float32, device=device)
-        pp = ft.assemble_precise(grid, weights, pts, zeros, gradients=nrm)
-        true = float(torch.linalg.norm(pp.residual64(x)) / torch.linalg.norm(pp.b64))
-        rep = float(info.rel_residual)
+        true = check_precise(f"seed {seed}", ft, grid, weights, pts, nrm, x, info, device)
         print(f"field seed {seed}: iterations {int(info.iterations)}, reported "
-              f"rel {rep:.6e}, true rel {true:.6e}, {ms:.3f} ms, "
+              f"rel {float(info.rel_residual):.6e}, true rel {true:.6e}, {ms:.3f} ms, "
               f"finite {bool(torch.isfinite(x).all())}, shape {tuple(x.shape)}")
-        require(bool(info.converged), f"seed {seed} did not converge")
-        require(tuple(x.shape) == SHAPE and bool(torch.isfinite(x).all()),
-                f"seed {seed}: field not finite or wrong shape")
-        require(true <= TOL, f"seed {seed}: true residual {true} > {TOL}")
-        require(abs(true - rep) <= 0.02 * true,
-                f"seed {seed}: reported {rep} vs true {true}")
     ms_all = [ms for _, _, ms in results]
     print(f"main path: {len(ms_all)} fields, ms/field mean "
           f"{statistics.mean(ms_all):.3f}, median {statistics.median(ms_all):.3f}, "
           f"min {min(ms_all):.3f}, max {max(ms_all):.3f}; launches {launches}")
     for name, n in launches.items():
         require(n > 0, f"{name} was not launched on the main path")
-    return launches
+    return launches, ms_all, [int(info.iterations) for _, info, _ in results]
 
 
 def sphere_inputs(seed, device, shape=None, n=None):
@@ -334,7 +494,8 @@ def phase_apply3d(ft, device):
                             device=device)
         r = compare(f"apply {shape_str(shape)} {label} (reference: {ref})",
                     lambda: fused_normal_apply(x, coeff, wl, 3),
-                    lambda: fused_normal_apply_plain(x, coeff, wl, 3), 1e-5)
+                    lambda: fused_normal_apply_plain(x, coeff, wl, 3), 1e-5,
+                    apply_work(x, coeff, wl, 3))
         rec = rec or r
     return p128, p32, lvl1, rec
 
@@ -360,7 +521,7 @@ def phase_sweep3d(ft, device, p128, p32, lvl1):
     rec = compare(f"sweep {shape_str(SHAPE3)} lumped fine level, 1 sweep",
                   lambda: fused_sweep(r0, z0, fd, sid0, p128.weights),
                   lambda: fused_smooth_plain(r0, z0, fd, sid0, p128.weights, 3, 1),
-                  2e-5)
+                  2e-5, sweep_work(r0, fd, p128.weights, 3, 1, False))
     r1, z1 = rand(lvl1.shape), rand(lvl1.shape)
     for from_zero in (True, False):
         compare(f"smooth {shape_str(lvl1.shape)} level diag, 3 sweeps, "
@@ -368,7 +529,8 @@ def phase_sweep3d(ft, device, p128, p32, lvl1):
                 lambda: fused_smooth(r1, z1, lvl1.data_diag, sid1, lvl1.weights,
                                      3, 3, from_zero),
                 lambda: fused_smooth_plain(r1, z1, lvl1.data_diag, sid1,
-                                           lvl1.weights, 3, 3, from_zero), 2e-5)
+                                           lvl1.weights, 3, 3, from_zero), 2e-5,
+                sweep_work(r1, lvl1.data_diag, lvl1.weights, 3, 3, from_zero))
     l32 = tmg.build_levels(p32, cfg)
     lump32, _, taus32, _ = tmg.build_smoothing_setup(p32, l32, cfg)
     require(not lump32, "32^3 smooths with the full data stencil")
@@ -377,7 +539,7 @@ def phase_sweep3d(ft, device, p128, p32, lvl1):
     compare(f"smooth {shape_str(p32.grid.shape)} 27-channel, 3 sweeps",
             lambda: fused_smooth(r2, z2, p32.coeff, sid32, p32.weights, 3, 3),
             lambda: fused_smooth_plain(r2, z2, p32.coeff, sid32, p32.weights, 3, 3),
-            2e-5)
+            2e-5, sweep_work(r2, p32.coeff, p32.weights, 3, 3, False))
     return rec
 
 
@@ -424,19 +586,11 @@ def phase_main3d(ft, device):
         require(abs(it - itr) <= 2, f"3-D seed {seed}: iterations {it} vs xla {itr}")
         require(err <= 2e-3 * scale, f"3-D seed {seed}: {err} > 2e-3·{scale}")
     for seed, x, info, ms in precise:
-        pts, nrm = inputs[seed]
-        zeros = torch.zeros(N_POINTS3, dtype=torch.float32, device=device)
-        pp = ft.assemble_precise(grid, weights, pts, zeros, gradients=nrm)
-        true = float(torch.linalg.norm(pp.residual64(x)) / torch.linalg.norm(pp.b64))
-        rep = float(info.rel_residual)
+        true = check_precise(f"3-D precise seed {seed}", ft, grid, weights,
+                             *inputs[seed], x, info, device)
         print(f"3-D precise field seed {seed}: iterations {int(info.iterations)}, "
-              f"reported rel {rep:.6e}, true rel {true:.6e}, {ms:.3f} ms")
-        require(bool(info.converged), f"3-D precise seed {seed} did not converge")
-        require(tuple(x.shape) == SHAPE3 and bool(torch.isfinite(x).all()),
-                f"3-D precise seed {seed}: field not finite or wrong shape")
-        require(true <= TOL, f"3-D precise seed {seed}: true residual {true} > {TOL}")
-        require(abs(true - rep) <= 0.02 * true,
-                f"3-D precise seed {seed}: reported {rep} vs true {true}")
+              f"reported rel {float(info.rel_residual):.6e}, true rel {true:.6e}, "
+              f"{ms:.3f} ms")
     ms_all = [ms for *_, ms in fields]
     print(f"3-D main path: {len(ms_all)} fields at tol 1e-4, ms/field mean "
           f"{statistics.mean(ms_all):.3f}, median {statistics.median(ms_all):.3f}, "
@@ -498,14 +652,16 @@ def profile_fields(label, fields, must_see):
     host = [e for e in events if e.device_type == DeviceType.CPU]
     busy = busy_ms((e.time_range.start, e.time_range.end) for e in dev)
     n = len(fields)
-    launch = [e for e in host if e.name.startswith("cudaLaunchKernel")]
+    # The segment and cycle kernels go through cudaLaunchCooperativeKernel.
+    launch = [e for e in host if re.match(r"cudaLaunch(Cooperative)?Kernel", e.name)]
     syncs = sum(e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize")
                 for e in host)
     kernels = [e for e in dev if not re.search(r"Memcpy|Memset", e.name)]
+    launch_ms = sum(e.self_cpu_time_total for e in launch) / n / 1e3
     print(f"profile {label}, torch.profiler over {n} field(s): span {span:.3f} ms, "
           f"device busy {busy:.3f} ms, device idle share {1 - busy / span:.3f}; per "
           f"field: {len(kernels) / n:.0f} kernels on the device, {len(launch) / n:.0f} "
-          f"cudaLaunchKernel calls ({sum(e.self_cpu_time_total for e in launch) / n / 1e3:.3f}"
+          f"cudaLaunch(Cooperative)Kernel calls ({launch_ms:.3f}"
           f" ms host), {sum('HtoD' in e.name for e in dev) / n:.0f} host->device "
           f"copies, {syncs / n:.0f} stream synchronizations")
     totals, counts = {}, {}
@@ -592,7 +748,8 @@ def phase_smooth2d(ft, device):
                             device=device)
         got = compare(f"apply {shape_str(p.grid.shape)} {label}, 9-channel",
                       lambda: fused_normal_apply(x, p.coeff, p.weights, 2),
-                      lambda: fused_normal_apply_plain(x, p.coeff, p.weights, 2), 1e-5)
+                      lambda: fused_normal_apply_plain(x, p.coeff, p.weights, 2), 1e-5,
+                      apply_work(x, p.coeff, p.weights, 2))
         apply_rec = apply_rec or got
     rec = None
     for label, p, nu, from_zeros in [
@@ -608,7 +765,7 @@ def phase_smooth2d(ft, device):
                 f"multi-sweep {shape_str(shape)} {label}, {nu} sweeps, from_zero={fz}",
                 lambda: fused_smooth_2d(r, z, p.coeff, sid, p.weights, nu, fz),
                 lambda: fused_smooth_plain(r, z, p.coeff, sid, p.weights, 2, nu, fz),
-                2e-5)
+                2e-5, sweep_work(r, p.coeff, p.weights, 2, nu, fz))
             per_ms = cuda_ms(lambda: fused_smooth(r, z, p.coeff, sid, p.weights, 2, nu, fz))
             # Bytes each route must move per node: the multi-sweep kernel reads
             # the 9 coefficients, r, sid (and z) once and writes z once; each
@@ -644,7 +801,7 @@ def phase_sweep2d(ft, device, p5):
                       f"(reference: fused_sweep_striped_diag), 1 sweep",
                       lambda: fused_sweep(r, z, dd, sid, lvl.weights),
                       lambda: fused_smooth_plain(r, z, dd, sid, lvl.weights, 2, 1),
-                      2e-5)
+                      2e-5, sweep_work(r, dd, lvl.weights, 2, 1, False))
         rec = rec or got
     # The whole-level diagonal form (the reference's fused_smooth) on the
     # first level that fits VMEM, from zero: the kernel's null-z launch.
@@ -652,7 +809,8 @@ def phase_sweep2d(ft, device, p5):
     compare(f"smooth {shape_str(lvl.shape)} config 5 diagonal level "
             f"(reference: fused_smooth), 3 sweeps, from_zero=True",
             lambda: fused_smooth(r, z, dd, sid, lvl.weights, 2, 3, True),
-            lambda: fused_smooth_plain(r, z, dd, sid, lvl.weights, 2, 3, True), 2e-5)
+            lambda: fused_smooth_plain(r, z, dd, sid, lvl.weights, 2, 3, True), 2e-5,
+            sweep_work(r, dd, lvl.weights, 2, 3, True))
     return rec
 
 
@@ -718,19 +876,11 @@ def phase_main5(ft, device):
     require(bool(ir.converged), "config 5: the xla solve did not converge")
     require(abs(it - itr) <= 2, f"config 5: iterations {it} vs xla {itr}")
     require(err <= 2e-3 * scale, f"config 5: {err} > 2e-3·{scale}")
-    pts, nrm = inputs[0]
-    pp = ft.assemble_precise(grid, weights, pts, torch.zeros(len(pts), device=device),
-                             gradients=nrm)
-    true = float(torch.linalg.norm(pp.residual64(xp)) / torch.linalg.norm(pp.b64))
-    rep = float(infop.rel_residual)
+    true = check_precise("config 5 precise", ft, grid, weights, *inputs[0], xp, infop,
+                         device)
     print(f"config 5 precise field seed 0: iterations {int(infop.iterations)}, coarse "
-          f"(fmg) iterations {coarse_p}, reported rel {rep:.6e}, true rel {true:.6e}, "
-          f"{msp:.3f} ms")
-    require(bool(infop.converged), "config 5 precise field did not converge")
-    require(tuple(xp.shape) == SHAPE5 and bool(torch.isfinite(xp).all()),
-            "config 5 precise field not finite or wrong shape")
-    require(true <= TOL, f"config 5 precise: true residual {true} > {TOL}")
-    require(abs(true - rep) <= 0.02 * true, f"config 5 precise: reported {rep} vs true {true}")
+          f"(fmg) iterations {coarse_p}, reported rel {float(infop.rel_residual):.6e}, "
+          f"true rel {true:.6e}, {msp:.3f} ms")
     ms_all = [ms for *_, ms, _ in fields]
     print(f"config 5 main path: {len(ms_all)} fields at tol 1e-4, ms/field "
           f"{', '.join(f'{ms:.3f}' for ms in ms_all)}; precise {msp:.3f} ms; "
@@ -764,6 +914,259 @@ def phase_profile5(ft, device):
         ("multi-sweep kernel", "sweep kernel", "apply kernel"))
 
 
+def field_a_inputs(seed, device, shape=SHAPE_A, n=N_POINTS_A):
+    pts, nrm = make_circle_cloud(n, shape, seed=seed)
+    return (torch.as_tensor(pts, device=device),
+            torch.as_tensor(nrm, device=device))
+
+
+def phase_cycle(ft, device):
+    """The whole-cycle kernel against mg_cycle_plain on field A's operands
+    (W, V, V with ν_pre ≠ ν_post) and a 256² lumped problem (V), each timed
+    beside one plain-torch cycle (the backend="xla" preconditioner).
+
+    Each case is checked twice at the reference's bar 3e-5·max|plain|: z on
+    a standard-normal r, whose z is dominated by the coarse-grid correction
+    of the near-null space (max|z| ~ 1e7 at 496²), so that an error of the
+    fine level's sweeps or prolongation hides under the bar; and the fine
+    residual r - A·z in float64 on r = A·x for a standard-normal x, which
+    such an error moves by a quarter of its size. z itself on r = A·x is no
+    check: float32 rounding through the near-singular coarsest solve moves
+    it by ~1% of max|z| (plain float32 against float64), while A maps that
+    smooth error to ~1e-5 of the residual."""
+    from field_interpolation_tpu_torch import multigrid as tmg
+    from field_interpolation_tpu_torch.ops.cycle import (fused_vcycle_2d, fused_wcycle_2d,
+                                                         mg_cycle_plain)
+    from field_interpolation_tpu_torch.ops.stencil import fused_normal_apply_plain
+    rng = np.random.default_rng(9)
+    w = ft.Weights(model_2=0.3)
+    pa = ft.assemble_sdf(ft.Grid(SHAPE_A), w, *field_a_inputs(0, device))
+    p256 = ft.assemble_sdf(ft.Grid(SHAPE), w, *headline_inputs(0, device))
+    lumped = dict(mg_fine_operator="lumped")
+    rec, runs = None, []
+    # The operands do not depend on ν: the ν_pre ≠ ν_post case (which the
+    # route never plans) runs on the V-cycle's.
+    for label, p, cfg_kw, nu_pre, nu_post, wdepth in [
+            ("field A, W", pa, {}, 3, 3, 99),
+            ("field A, V", pa, dict(mg_cycle="v"), 3, 3, 0),
+            ("field A, V", pa, dict(mg_cycle="v"), 2, 3, 0),
+            ("256² lumped, V", p256, lumped, 3, 3, 0)]:
+        cfg = ft.SolverConfig(tol=1e-4, **cfg_kw)
+        whole = tmg.whole_cycle_operands(p, cfg)
+        require(whole is not None and (whole[1] > 0) == (wdepth > 0),
+                f"{label}: the route hands {whole and whole[1]} as wdepth")
+        ops = whole[0]
+        x = torch.as_tensor(rng.standard_normal(p.grid.shape).astype(np.float32),
+                            device=device)
+        c64 = ops[0][0].double()
+
+        def fine_residual(r, z):
+            return r.double() - fused_normal_apply_plain(z.double(), c64, ops[4][0], 2)
+
+        r_ax = fused_normal_apply_plain(x, ops[0][0], ops[4][0], 2)
+        r = torch.as_tensor(rng.standard_normal(p.grid.shape).astype(np.float32),
+                            device=device)
+
+        def kernel(r=r):
+            if wdepth:
+                return fused_wcycle_2d(r, *ops, nu_pre, wdepth=wdepth)
+            return fused_vcycle_2d(r, *ops, nu_pre, nu_post)
+
+        name = (f"cycle {shape_str(p.grid.shape)} {label}, nu {nu_pre}/{nu_post}, "
+                f"wdepth {wdepth}, {len(ops[0])} levels")
+        check_close(f"{name}, r = A·x, fine residual r - A·z",
+                    fine_residual(r_ax, kernel(r_ax)),
+                    fine_residual(r_ax, mg_cycle_plain(r_ax, *ops, nu_pre, nu_post, wdepth)),
+                    3e-5)
+        nbytes, flops, phases = cycle_work(ops, nu_pre, nu_post, wdepth)
+        got = compare(f"{name}, standard-normal r", kernel,
+                      lambda: mg_cycle_plain(r, *ops, nu_pre, nu_post, wdepth),
+                      3e-5, (nbytes, flops))
+        dev_ms = batch_ms(kernel)
+        xla = tmg.make_vcycle_preconditioner(p, ft.SolverConfig(
+            tol=1e-4, **cfg_kw, mg_pre_smooth=nu_pre, mg_post_smooth=nu_post))
+        xla_ms = cuda_ms(lambda: xla(r))
+        print(f"  back to back {dev_ms:.4f} ms per launch; {phases} "
+              f"grid-barrier phases, {1e3 * dev_ms / phases:.2f} us/phase; one plain-torch "
+              f"cycle (backend='xla') {xla_ms:.3f} ms, {xla_ms / got['ms']:.1f}x the kernel")
+        rec = rec or dict(got, batch_ms=dev_ms, xla_cycle_ms=xla_ms, phases=phases)
+        runs.append((dev_ms, phases))
+    # The W-cycle's extra phases over the V-cycle's on the same operands all
+    # run on the coarse levels (≤ 248², little work): their cost per phase
+    # is the grid barrier's.
+    (w_ms, w_phases), (v_ms, v_phases) = runs[:2]
+    barrier_us = 1e3 * (w_ms - v_ms) / (w_phases - v_phases)
+    print(f"cycle: measured cost of a coarse-level phase (W minus V at 496², back to "
+          f"back) {barrier_us:.2f} us; W {w_phases} phases x {barrier_us:.2f} us = "
+          f"{w_phases * barrier_us / 1e3:.4f} ms, V {v_phases} x {barrier_us:.2f} us = "
+          f"{v_phases * barrier_us / 1e3:.4f} ms")
+    return dict(rec, barrier_us=barrier_us)
+
+
+def counters_zero():
+    from field_interpolation_tpu_torch.ops.cycle import fused_vcycle_2d, fused_wcycle_2d
+    from field_interpolation_tpu_torch.ops.pcg import fused_pcg_solve
+    from field_interpolation_tpu_torch.ops.smooth import fused_smooth, fused_smooth_2d
+    from field_interpolation_tpu_torch.ops.stencil import fused_normal_apply
+    counters = (fused_normal_apply, fused_smooth, fused_smooth_2d, fused_pcg_solve,
+                fused_vcycle_2d, fused_wcycle_2d)
+    for c in counters:
+        c.launches = 0
+    return lambda: {c.__name__: c.launches for c in counters}
+
+
+def phase_field_a(ft, device):
+    """Field A, the slice's main path: 496², 2000 points, the default
+    config, where the reference runs fused_wcycle_2d. First the apply
+    kernel against its plain version on the field's 9-channel problem
+    (the cycle kernel on its operands is phase 14's)."""
+    from field_interpolation_tpu_torch.ops.stencil import (
+        fused_normal_apply, fused_normal_apply_plain)
+    grid, weights = ft.Grid(SHAPE_A), ft.Weights(model_2=0.3)
+    cfg = ft.SolverConfig(tol=1e-4)
+    cfg_xla = ft.SolverConfig(tol=1e-4, backend="xla")
+    inputs = {s: field_a_inputs(s, device) for s in SEEDS_A}
+    p = ft.assemble_sdf(grid, weights, *inputs[0])
+    x = torch.as_tensor(np.random.default_rng(10).standard_normal(SHAPE_A)
+                        .astype(np.float32), device=device)
+    apply_rec = compare(f"apply {shape_str(SHAPE_A)} field A, 9-channel (reference: "
+                        f"fused_normal_apply_striped)",
+                        lambda: fused_normal_apply(x, p.coeff, weights, 2),
+                        lambda: fused_normal_apply_plain(x, p.coeff, weights, 2), 1e-5,
+                        apply_work(x, p.coeff, weights, 2))
+    del p
+    ft.sdf_from_points(grid, weights, *inputs[0], config=cfg)  # warm-up
+    torch.cuda.synchronize()
+
+    read = counters_zero()
+    fields = []
+    for seed in SEEDS_A:
+        (x, info), ms = timed(lambda: ft.sdf_from_points(grid, weights, *inputs[seed],
+                                                         config=cfg))
+        fields.append((seed, x, info, ms))
+    (xp, infop), msp = timed(lambda: ft.sdf_from_points_precise(
+        grid, weights, *inputs[0], config=ft.SolverConfig(tol=TOL)))
+    launches = read()
+
+    for seed, x, info, ms in fields:
+        print(f"field A seed {seed}: iterations {int(info.iterations)}, rel "
+              f"{float(info.rel_residual):.3e}, {ms:.3f} ms, finite "
+              f"{bool(torch.isfinite(x).all())}, shape {tuple(x.shape)}")
+        require(bool(info.converged), f"field A seed {seed} did not converge")
+        require(tuple(x.shape) == SHAPE_A and bool(torch.isfinite(x).all()),
+                f"field A seed {seed}: field not finite or wrong shape")
+    _, x, info, _ = fields[0]
+    (xr, ir), ms_xla = timed(lambda: ft.sdf_from_points(grid, weights, *inputs[0],
+                                                        config=cfg_xla))
+    it, itr = int(info.iterations), int(ir.iterations)
+    err, scale = float((x - xr).abs().max()), float(xr.abs().max())
+    print(f"field A seed 0 against backend='xla': iterations {it} (xla {itr}), "
+          f"max|x-x_xla| {err:.3e} (bar {2e-3 * scale:.3e}); xla {ms_xla:.3f} ms")
+    require(bool(ir.converged), "field A: the xla solve did not converge")
+    require(abs(it - itr) <= 2, f"field A: iterations {it} vs xla {itr}")
+    require(err <= 2e-3 * scale, f"field A: {err} > 2e-3·{scale}")
+    true = check_precise("field A precise", ft, grid, weights, *inputs[0], xp, infop,
+                         device)
+    print(f"field A precise seed 0: iterations {int(infop.iterations)}, reported rel "
+          f"{float(infop.rel_residual):.6e}, true rel {true:.6e}, {msp:.3f} ms")
+    n = len(SEEDS_A) + 1
+    print(f"field A main path: ms/field {', '.join(f'{ms:.3f}' for *_, ms in fields)}; "
+          f"precise {msp:.3f} ms; launches {launches} over {n} fields "
+          f"({launches['fused_wcycle_2d'] / n:.1f} cycle launches per field)")
+    require(launches["fused_wcycle_2d"] > 0, "fused_wcycle_2d was not launched on field A")
+    require(launches["fused_normal_apply"] > 0, "the apply kernel was not launched on field A")
+    require(launches["fused_pcg_solve"] == 0, "field A launched fused_pcg_solve")
+    profile_fields("field A", [lambda: ft.sdf_from_points(
+        grid, weights, *inputs[0], config=cfg)], ("cycle kernel", "apply kernel"))
+    return launches, apply_rec
+
+
+def phase_field_b(ft, device, v_ms, v_iters):
+    """Field B: the headline (256², 1000 points, tol 1e-6) with the
+    reference's W option: the segment kernel with wdepth 99."""
+    grid, weights = ft.Grid(SHAPE), ft.Weights(model_2=0.3)
+    cfg = ft.SolverConfig(tol=TOL, mg_cycle="w", maxiter=2000)
+    inputs = {s: headline_inputs(s, device) for s in SEEDS_B}
+    ft.sdf_from_points_precise(grid, weights, *inputs[0], config=cfg)  # warm-up
+    torch.cuda.synchronize()
+    read = counters_zero()
+    fields = []
+    for seed in SEEDS_B:
+        (x, info), ms = timed(lambda: ft.sdf_from_points_precise(
+            grid, weights, *inputs[seed], config=cfg))
+        fields.append((seed, x, info, ms))
+    launches = read()
+    for seed, x, info, ms in fields:
+        true = check_precise(f"field B seed {seed}", ft, grid, weights, *inputs[seed],
+                             x, info, device)
+        print(f"field B seed {seed}: iterations {int(info.iterations)} (V, phase 5: "
+              f"{v_iters[seed]}), reported rel {float(info.rel_residual):.6e}, true rel "
+              f"{true:.6e}, {ms:.3f} ms (V, phase 5: {v_ms[seed]:.3f} ms)")
+    print(f"field B: launches {launches}")
+    require(launches["fused_pcg_solve"] > 0, "field B did not launch fused_pcg_solve")
+
+
+def phase_field_c(ft, device):
+    """Field C: 992², 4000 points, tol 1e-4, fmg_start=1: the 496² guess
+    runs the whole W-cycle kernel, the fine level the multi-sweep kernel.
+    First the kernels of its fine solve against their plain versions on
+    its own problem: the apply (1e-5·max|plain|), the multi-sweep kernel
+    at 992² and the per-sweep kernel on the 496² diagonal level, ν = 3
+    from zero and from z (2e-5·max|plain|). Returns the launches and the
+    records of the apply, multi-sweep and per-sweep checks."""
+    from field_interpolation_tpu_torch.ops.smooth import (fused_smooth, fused_smooth_2d,
+                                                          fused_smooth_plain)
+    from field_interpolation_tpu_torch.ops.stencil import (
+        fused_normal_apply, fused_normal_apply_plain)
+    grid, weights = ft.Grid(SHAPE_C), ft.Weights(model_2=0.3)
+    pts, nrm = field_a_inputs(0, device, SHAPE_C, N_POINTS_C)
+    rng = np.random.default_rng(11)
+
+    def rand(shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                               device=device)
+
+    p = ft.assemble_sdf(grid, weights, pts, nrm)
+    levels, sids = fine_smoothing_operands(p, ft.SolverConfig(tol=1e-4))
+    x, r, z = rand(SHAPE_C), rand(SHAPE_C), rand(SHAPE_C)
+    recs = dict(apply=compare(
+        f"apply {shape_str(SHAPE_C)} field C, 9-channel (reference: "
+        f"fused_normal_apply_striped)",
+        lambda: fused_normal_apply(x, p.coeff, weights, 2),
+        lambda: fused_normal_apply_plain(x, p.coeff, weights, 2), 1e-5,
+        apply_work(x, p.coeff, weights, 2)))
+    for fz in (True, False):
+        recs["multi"] = compare(
+            f"multi-sweep {shape_str(SHAPE_C)} field C fine level (reference: "
+            f"fused_smooth_striped), 3 sweeps, from_zero={fz}",
+            lambda: fused_smooth_2d(r, z, p.coeff, sids[0], weights, 3, fz),
+            lambda: fused_smooth_plain(r, z, p.coeff, sids[0], weights, 2, 3, fz),
+            2e-5, sweep_work(r, p.coeff, weights, 2, 3, fz))
+    lvl = levels[0]
+    dd, r1, z1 = lvl.data_diag.contiguous(), rand(lvl.shape), rand(lvl.shape)
+    for fz in (True, False):
+        recs["sweep"] = compare(
+            f"smooth {shape_str(lvl.shape)} field C diagonal level (reference: "
+            f"fused_smooth), 3 sweeps, from_zero={fz}",
+            lambda: fused_smooth(r1, z1, dd, sids[1], lvl.weights, 2, 3, fz),
+            lambda: fused_smooth_plain(r1, z1, dd, sids[1], lvl.weights, 2, 3, fz),
+            2e-5, sweep_work(r1, dd, lvl.weights, 2, 3, fz))
+    del p, levels, sids
+    read = counters_zero()
+    (x, info), ms = timed(lambda: ft.sdf_from_points(
+        grid, weights, pts, nrm, config=ft.SolverConfig(tol=1e-4), fmg_start=1))
+    launches = read()
+    print(f"field C seed 0: fine iterations {int(info.iterations)}, rel "
+          f"{float(info.rel_residual):.3e}, {ms:.3f} ms, finite "
+          f"{bool(torch.isfinite(x).all())}, shape {tuple(x.shape)}; launches {launches}")
+    require(bool(info.converged), "field C did not converge")
+    require(tuple(x.shape) == SHAPE_C and bool(torch.isfinite(x).all()),
+            "field C: field not finite or wrong shape")
+    for name in ("fused_wcycle_2d", "fused_smooth_2d", "fused_smooth", "fused_normal_apply"):
+        require(launches[name] > 0, f"{name} was not launched on field C")
+    return launches, recs
+
+
 def main():
     require(torch.cuda.is_available(), "torch.cuda.is_available() is False")
     import field_interpolation_tpu_torch as ft
@@ -779,12 +1182,12 @@ def main():
     _build.library()
     print(f"build: {path.name} in {build_s:.1f} s (load {time.perf_counter() - t0:.1f} s)")
     for line in log.splitlines():
-        if "Used" in line or "Compiling entry" in line:
+        if any(key in line for key in ("Used", "Compiling entry", "stack frame")):
             print("  ptxas:", line.strip())
 
     problem, ops, apply_rec = phase_apply(ft, device)
-    seg_rec = phase_segment(problem, ops, device)
-    launches = phase_main(ft, device)
+    seg_rec, _ = phase_segment(problem, ops, device)
+    launches, v_ms, v_iters = phase_main(ft, device)
     p128, p32, lvl1, apply3_rec = phase_apply3d(ft, device)
     sweep_rec = phase_sweep3d(ft, device, p128, p32, lvl1)
     del p128, p32, lvl1
@@ -795,6 +1198,11 @@ def main():
     del p5
     launches5 = phase_main5(ft, device)
     phase_profile5(ft, device)
+    cycle_rec = phase_cycle(ft, device)
+    seg_w_rec, _ = phase_segment(problem, ops, device, wdepth=99)
+    launches_a, apply_a_rec = phase_field_a(ft, device)
+    phase_field_b(ft, device, v_ms, v_iters)
+    launches_c, recs_c = phase_field_c(ft, device)
 
     src = "field_interpolation_tpu_torch/csrc/"
     ref = "field_interpolation_tpu/ops/pallas_stencil.py:"
@@ -802,7 +1210,8 @@ def main():
         dict(name="fused_normal_apply", route="cuda", source=src + "normal_apply.cu",
              replaces=ref + "170", launches=launches["fused_normal_apply"], **apply_rec),
         dict(name="fused_pcg_solve", route="cuda", source=src + "pcg_segment.cu",
-             replaces=ref + "1484", launches=launches["fused_pcg_solve"], **seg_rec),
+             replaces=ref + "1484", launches=launches["fused_pcg_solve"], **seg_rec,
+             wcycle=seg_w_rec),
         dict(name="fused_normal_apply_3d", route="cuda", source=src + "normal_apply.cu",
              replaces=ref + "170,300,1662",
              launches=launches3["fused_normal_apply"], **apply3_rec),
@@ -818,7 +1227,24 @@ def main():
         dict(name="jacobi_multisweep_2d", route="cuda",
              source=src + "jacobi_multisweep2d.cu", replaces=ref + "653,876",
              launches=launches5["fused_smooth_2d"], **multi_rec),
+        dict(name="mg_cycle2d", route="cuda", source=src + "mg_cycle2d.cu",
+             replaces=ref + "1052,1114,1192",
+             launches=launches_a["fused_wcycle_2d"] + launches_a["fused_vcycle_2d"],
+             field_c_launches=launches_c["fused_wcycle_2d"], **cycle_rec),
+        dict(name="fused_normal_apply_2d_field_a", route="cuda",
+             source=src + "normal_apply.cu", replaces=ref + "300",
+             launches=launches_a["fused_normal_apply"], **apply_a_rec),
+        dict(name="fused_normal_apply_2d_field_c", route="cuda",
+             source=src + "normal_apply.cu", replaces=ref + "300",
+             launches=launches_c["fused_normal_apply"], **recs_c["apply"]),
+        dict(name="jacobi_multisweep_2d_field_c", route="cuda",
+             source=src + "jacobi_multisweep2d.cu", replaces=ref + "653",
+             launches=launches_c["fused_smooth_2d"], **recs_c["multi"]),
+        dict(name="jacobi_sweep_2d_field_c", route="cuda", source=src + "jacobi_sweep.cu",
+             replaces=ref + "513", launches=launches_c["fused_smooth"], **recs_c["sweep"]),
     ]
+    for k in kernels:
+        k["library_ms"] = None  # no one PyTorch call computes any of these functions
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,9 @@ Counterpart of ``field_interpolation_tpu.multigrid``:
   in banded form (`_resize_bands`: ≤ 3 weights per output row, kept on the
   device per shape); the restriction is literally ``Pᵀ``, which with
   symmetric pre/post damped-Jacobi smoothing keeps the V-cycle symmetric
-  positive definite (safe in CG). The dense matrices (`_resize_matrix`)
-  remain for the fused segment's operands.
+  positive definite (safe in CG). The dense matrices (`_resize_matrix`,
+  cached on the device per shape by `_restriction_tensor`) remain for the
+  fused segment's and the whole-cycle kernel's operands.
 * coarse operators — rediscretized smoothness with energy-matched weights
   ``w_k ← w_k · 2^{(D-2k)/2}`` per coarsening, plus the diagonally lumped
   data term ``diag_c = Pᵀ² diag_f``.
@@ -17,15 +18,21 @@ Only the lumped coarse data, the damped-Jacobi smoother and the dense or
 Jacobi coarsest solve are ported; Galerkin coarse data and Chebyshev
 smoothing raise ``NotImplementedError`` (ROADMAP.md).
 
-With ``kernels=True`` (the reference's ``pallas_smooth``) every level smooths
-through one of the port's smoothing kernels, at any size: a 2-D level with
-the full 9-channel data term through the multi-sweep kernel
-(`ops.smooth.fused_smooth_2d`), every other level (diagonal data, 3-D)
-through the per-sweep kernel (`ops.smooth.fused_smooth`). The reference's
-plan (`kernel_plan`) only decides where a CUDA problem raises
-``NotImplementedError``: a cycle the reference runs as one whole-cycle
-kernel, not ported yet. The cycle itself (residuals, transfers, the dense
-coarsest solve) is plain torch, as it is XLA in the reference.
+With ``kernels=True`` (the reference's ``pallas_smooth``) the cycle runs
+through the port's kernels, at any size, on CPU and CUDA tensors alike:
+
+* where the reference runs a whole-cycle kernel (`kernel_plan`: a 2-D
+  hierarchy whose every level has a kernel smoother, dense coarsest solve,
+  ν_pre = ν_post, inside the fused-operand budget), the whole cycle is one
+  `ops.cycle.fused_wcycle_2d` (W) or `ops.cycle.fused_vcycle_2d` (V) call on
+  the operands of `whole_cycle_operands` (multigrid.py:1017-1042 of the
+  reference);
+* elsewhere every level smooths through one of the smoothing kernels: a
+  2-D level with the full 9-channel data term through the multi-sweep
+  kernel (`ops.smooth.fused_smooth_2d`), every other level (diagonal data,
+  3-D) through the per-sweep kernel (`ops.smooth.fused_smooth`); the rest
+  of the cycle (residuals, transfers, the dense coarsest solve) is plain
+  torch, as it is XLA in the reference.
 """
 
 from __future__ import annotations
@@ -47,21 +54,15 @@ from .ops.smooth import fused_smooth, fused_smooth_2d
 from .weights import SolverConfig, Weights
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} needs a TPU kernel that is not ported to CUDA yet (ROADMAP "
-        "queue 2); pass SolverConfig(backend='xla') to run plain torch ops")
-
-
 def _require_ported(config: SolverConfig) -> None:
     if config.mg_coarse_data != "lumped":
         raise NotImplementedError(
             "mg_coarse_data='galerkin' is not ported (ROADMAP queue 1, "
-            "Chebyshev / W-cycle / Galerkin)")
+            "Chebyshev / Galerkin)")
     if config.mg_smoother != "jacobi":
         raise NotImplementedError(
             f"mg_smoother={config.mg_smoother!r} is not ported (ROADMAP "
-            "queue 1, Chebyshev / W-cycle / Galerkin)")
+            "queue 1, Chebyshev / Galerkin)")
 
 
 @functools.lru_cache(maxsize=None)
@@ -116,6 +117,14 @@ def _band_tensors(n_out: int, n_in: int, transpose: bool, square: bool,
     rows = np.clip(start[None, :] + np.arange(w.shape[0])[:, None], 0, n_in - 1)
     return (torch.tensor(rows.reshape(-1), dtype=torch.int64, device=device),
             torch.tensor(w, dtype=dtype, device=device))
+
+
+@functools.lru_cache(maxsize=None)
+def _restriction_tensor(n_f: int, n_c: int, device: torch.device) -> torch.Tensor:
+    """The dense per-axis restriction [n_c, n_f] = `_resize_matrix`(n_f, n_c)ᵀ
+    as float32 on ``device``, made once per key (the fused operands)."""
+    R = np.ascontiguousarray(_resize_matrix(n_f, n_c).T)
+    return torch.tensor(R, dtype=torch.float32, device=device)
 
 
 def _apply_axis_resize(x: torch.Tensor, n_out: int, axis: int,
@@ -359,11 +368,8 @@ def _fused_vcycle_operands(problem, levels, taus, fine_inv_diag, inv_diags,
     inv_all = [fine_inv_diag] + list(inv_diags)
     sids = [(t * d).to(f32).contiguous() for t, d in zip(taus, inv_all)]
     dev = problem.coeff.device
-    Rs = []
-    for i in range(len(shapes_all) - 1):
-        for d in range(ndim):
-            R = _resize_matrix(shapes_all[i][d], shapes_all[i + 1][d]).T
-            Rs.append(torch.tensor(np.ascontiguousarray(R), dtype=f32, device=dev))
+    Rs = [_restriction_tensor(shapes_all[i][d], shapes_all[i + 1][d], dev)
+          for i in range(len(shapes_all) - 1) for d in range(ndim)]
     inv32 = coarse_dense.to(f32).contiguous()
     if not _fused_operands_fit(problem, levels):
         return None
@@ -487,14 +493,46 @@ def _kernel_smoother(coeff, sid, weights: Weights, ndim: int):
     return smooth
 
 
+def whole_cycle_operands(problem: Problem, config: SolverConfig, levels=None,
+                         setup=None):
+    """((coeffs, sids, Rs, inv32, lw), wdepth) that the whole-cycle route
+    hands its kernel (the reference's route, multigrid.py:1017-1042), or
+    None where `kernel_plan` names no whole-cycle kernel. The operands are
+    `_fused_vcycle_operands` with the cycle's own taus: under
+    ``mg_fine_operator="lumped"`` those are the lumped fine level's while
+    coeffs[0] stays the full 9-channel stencil, as in the reference.
+    ``levels`` and ``setup`` (`build_smoothing_setup`'s result) are reused
+    when given."""
+    levels = build_levels(problem, config) if levels is None else levels
+    lump, _, taus, _ = (build_smoothing_setup(problem, levels, config)
+                        if setup is None else setup)
+    if kernel_plan(problem, config, levels, lump)[1] is None:
+        return None
+    coeffs, sids, Rs, inv32, lw, _ = _fused_vcycle_operands(
+        problem, levels, taus, _inv_diag(problem.diag),
+        [_inv_diag(l.diag) for l in levels], _coarse_dense_inverse(levels[-1]), config)
+    return (coeffs, sids, Rs, inv32, lw), resolve_wdepth(config, problem.grid.shape)
+
+
+def _whole_cycle(ops, wdepth: int, config: SolverConfig):
+    """The cycle as one whole-cycle kernel call on `whole_cycle_operands`'
+    result: the W-cycle wrapper when ``wdepth > 0``, else the V-cycle's."""
+    from .ops import cycle  # ops.cycle imports this module
+    if wdepth > 0:
+        return lambda r: cycle.fused_wcycle_2d(r.contiguous(), *ops, config.mg_pre_smooth,
+                                               wdepth=wdepth)
+    return lambda r: cycle.fused_vcycle_2d(r.contiguous(), *ops, config.mg_pre_smooth,
+                                           config.mg_post_smooth)
+
+
 def make_vcycle_preconditioner(problem: Problem, config: SolverConfig,
                                apply_fn=None, kernels: bool = False):
     """Returns z = M⁻¹ r: one symmetric multigrid cycle with damped-Jacobi
     smoothing. ``apply_fn`` overrides the fine-level operator apply.
-    ``kernels`` (the reference's ``pallas_smooth``): smooth every level
-    through a smoothing kernel (`_kernel_smoother`); on CUDA tensors a level
-    or cycle for which the reference runs a kernel not ported yet raises
-    ``NotImplementedError``."""
+    ``kernels`` (the reference's ``pallas_smooth``): run the cycle as one
+    whole-cycle kernel call where the reference does
+    (`whole_cycle_operands`), else smooth every level through a smoothing kernel
+    (`_kernel_smoother`)."""
     _require_ported(config)
     levels = build_levels(problem, config)
     nu = config.mg_pre_smooth
@@ -510,7 +548,12 @@ def make_vcycle_preconditioner(problem: Problem, config: SolverConfig,
             data_coeff=problem.coeff))
         return lambda r: (inv0 @ r.reshape(-1)).reshape(r.shape)
 
-    lump, fine_ddiag, taus, _ = build_smoothing_setup(problem, levels, config)
+    setup = build_smoothing_setup(problem, levels, config)
+    if kernels:
+        whole = whole_cycle_operands(problem, config, levels, setup)
+        if whole is not None:
+            return _whole_cycle(*whole, config)
+    lump, fine_ddiag, taus, _ = setup
     if lump:
         def fine_apply(x):
             return stencils.smoothness_apply(x, problem.weights, ndim) + fine_ddiag * x
@@ -527,13 +570,6 @@ def make_vcycle_preconditioner(problem: Problem, config: SolverConfig,
 
     smoothers = [None] * len(shapes)
     if kernels:
-        if problem.b.device.type == "cuda":
-            # Every per-level smoother the reference plans is ported; its
-            # whole-cycle kernels are not.
-            whole = kernel_plan(problem, config, levels, lump)[1]
-            if whole is not None:
-                raise _not_ported(f"the 2-D multigrid cycle outside the fused "
-                                 f"PCG path ({whole})")
         coeffs = [fine_ddiag if lump else problem.coeff] + [l.data_diag for l in levels]
         weights = [problem.weights] + [l.weights for l in levels]
         smoothers = [_kernel_smoother(c, t * d, w, ndim)

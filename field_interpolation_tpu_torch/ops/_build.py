@@ -46,6 +46,7 @@ _SIGNATURES = {
     "fi_jacobi_multisweep2d_max_halo": (),
     # pointer table, int table, w2 table (all host), stream
     "fi_pcg_segment": (_P, _P, _P, _P),
+    "fi_mg_cycle2d": (_P, _P, _P, _P),
 }
 
 _lock = threading.Lock()

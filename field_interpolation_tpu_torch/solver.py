@@ -14,10 +14,12 @@ Counterpart of ``field_interpolation_tpu.solver``:
 * Elsewhere (3-D, large 2-D grids, other multigrid options) `pcg` runs with
   the apply kernel at every size (`_make_apply`; it stands in for the
   reference's whole-array, striped and two-axis applies and its XLA apply
-  alike) and the multigrid cycle smooths every level through a smoothing
-  kernel: the multi-sweep one on 2-D levels with the 9-channel data term,
-  the per-sweep one elsewhere (`multigrid.make_vcycle_preconditioner` with
-  ``kernels=True``).
+  alike) and the multigrid cycle runs through the kernels
+  (`multigrid.make_vcycle_preconditioner` with ``kernels=True``): as one
+  whole-cycle kernel launch where the reference runs ``fused_vcycle_2d`` /
+  ``fused_wcycle_2d`` (2-D grids just past the gate, the lumped fine
+  operator), else level by level through the multi-sweep kernel on 2-D
+  levels with the 9-channel data term and the per-sweep one elsewhere.
 
 The reference's ``lax.while_loop``s are Python loops here that read one
 scalar per segment (fused path), per iteration (plain `pcg`) or per round.

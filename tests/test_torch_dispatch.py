@@ -13,9 +13,11 @@
   kernel) are checked from their shapes.
 * The port's cycle at 72³, the smallest cube whose lumped fine level is past
   the reference's whole-array gate, smooths every level through
-  `fused_smooth` and equals the plain cycle; at 64² the 9-channel fine
-  level goes through `fused_smooth_2d` and the coarse levels through
-  `fused_smooth`, equal to the plain cycle.
+  `fused_smooth` and equals the plain cycle; at 64² with ν_pre ≠ ν_post the
+  9-channel fine level goes through `fused_smooth_2d` and the coarse levels
+  through `fused_smooth`, equal to the plain cycle; at 64² under the lumped
+  fine operator the whole cycle is one `ops.cycle` wrapper call, as the
+  reference's is one whole-cycle kernel.
 * Where the reference's rules name no kernel (odd 3-D extents past the
   gate, where it runs XLA), the port's solve still goes through its apply
   and sweep wrappers, which launch the kernels on CUDA tensors."""
@@ -35,6 +37,7 @@ from field_interpolation_tpu_torch import multigrid as tmg
 from field_interpolation_tpu_torch import solver as tsolver
 from field_interpolation_tpu_torch.convert import problem_from_numpy
 from field_interpolation_tpu_torch.ops import _policy
+from field_interpolation_tpu_torch.ops import cycle as tcycle
 from field_interpolation_tpu_torch.stencils import max_stencil_radius
 
 SHAPES = [(128,) * 3, (256,) * 3, (64,) * 3, (72,) * 3, (32,) * 3, (41,) * 3,
@@ -211,7 +214,8 @@ def test_large_2d_plans_match_reference_pickers(shape, head):
 def test_whole_cycle_kernel_still_planned_just_past_the_gate():
     """440² is past the whole-array gate, but its fused-cycle operands fit
     the reference's 12 MB budget, so the reference runs the whole W-cycle
-    kernel there (not ported: a CUDA problem raises); 1024² is past both."""
+    kernel there (the port: `ops.cycle.fused_wcycle_2d`); 1024² is past
+    both."""
     cfg = ft.SolverConfig(tol=1e-4)
     theta = np.random.default_rng(0).uniform(0, 2 * np.pi, 60)
     nrm = torch.as_tensor(np.stack([np.cos(theta), np.sin(theta)], 1),
@@ -228,9 +232,9 @@ def test_whole_cycle_kernel_still_planned_just_past_the_gate():
                                                ((1000, 1000), None)], ids=str)
 def test_fmg_guess_grid_plan(shape, guess_whole):
     """``fmg_start`` first solves on the (n+1)//2 grid. From 880² that is
-    440², where the reference plans the whole W-cycle kernel, so a CUDA call
-    with ``fmg_start`` raises where the same call without it runs (ROADMAP.md
-    §3); from 1000² it is 500², past the whole-cycle budget."""
+    440², where the reference plans the whole W-cycle kernel, so the guess
+    runs through the port's whole-cycle kernel while the fine solve smooths
+    level by level; from 1000² it is 500², past the whole-cycle budget."""
     cfg = ft.SolverConfig(tol=1e-4)
     theta = np.random.default_rng(0).uniform(0, 2 * np.pi, 60)
     nrm = torch.as_tensor(np.stack([np.cos(theta), np.sin(theta)], 1),
@@ -244,16 +248,18 @@ def test_fmg_guess_grid_plan(shape, guess_whole):
 
 
 def test_2d_cycle_goes_through_the_multisweep_wrapper(monkeypatch):
-    """A 2-D cycle off the fused PCG path: the 9-channel fine level smooths
-    through fused_smooth_2d, the diagonal coarse levels through
-    fused_smooth (the 16² coarsest is solved densely); on CPU tensors the
-    wrappers run their plain versions, so the kernel route equals the
-    plain route."""
+    """A 2-D cycle off the fused PCG path that the reference smooths level by
+    level (ν_pre ≠ ν_post rules its whole-cycle kernels out): the 9-channel
+    fine level smooths through fused_smooth_2d, the diagonal coarse levels
+    through fused_smooth (the 16² coarsest is solved densely); on CPU
+    tensors the wrappers run their plain versions, so the kernel route
+    equals the plain route."""
     shape = (64, 64)
     _, tp = _pair(shape, n=100)
     seen = set()
     _spy(monkeypatch, seen, tmg, ["fused_smooth", "fused_smooth_2d"])
-    cfg = ft.SolverConfig()
+    cfg = ft.SolverConfig(mg_pre_smooth=2)
+    assert tmg.kernel_plan(tp, cfg, tmg.build_levels(tp, cfg), False)[1] is None
     r = torch.as_tensor(np.random.default_rng(5).standard_normal(shape),
                         dtype=torch.float32)
     got = tmg.make_vcycle_preconditioner(tp, cfg, kernels=True)(r)
@@ -261,6 +267,29 @@ def test_2d_cycle_goes_through_the_multisweep_wrapper(monkeypatch):
     assert seen == {("fused_smooth_2d", shape), ("fused_smooth", (32, 32))}
     scale = float(want.abs().max())
     assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("change,whole", [
+    (dict(mg_fine_operator="lumped"), "fused_vcycle_2d"),
+    (dict(mg_fine_operator="lumped", mg_cycle="w"), "fused_wcycle_2d"),
+], ids=str)
+def test_whole_cycle_goes_through_the_cycle_wrappers(monkeypatch, change, whole):
+    """64² under the lumped fine operator: the reference's cycle is one call
+    of its whole-cycle kernel; the port's is one call of the wrapper of the
+    same name (`ops.cycle`, the CUDA kernel on a CUDA tensor, its plain
+    version here), and no level-by-level smoothing."""
+    shape = (64, 64)
+    jp, tp = _pair(shape, n=100)
+    assert _reference_calls(monkeypatch, jp, fi.SolverConfig(**change)) == {(whole, shape)}
+    seen = set()
+    _spy(monkeypatch, seen, tcycle, ["fused_vcycle_2d", "fused_wcycle_2d"])
+    _spy(monkeypatch, seen, tmg, ["fused_smooth", "fused_smooth_2d"])
+    r = torch.as_tensor(np.random.default_rng(5).standard_normal(shape),
+                        dtype=torch.float32)
+    z = tmg.make_vcycle_preconditioner(tp, ft.SolverConfig(**change), kernels=True)(r)
+    assert seen == {(whole, shape)}
+    assert tuple(z.shape) == shape and bool(torch.isfinite(z).all())
+    assert float(torch.sum(r * z)) > 0  # a positive definite preconditioner
 
 
 @pytest.mark.slow

@@ -7,7 +7,8 @@ Marked ``gpu``: each test skips without a CUDA card. On the GPU host run
 (``--noconftest`` because tests/conftest.py configures JAX, which this file
 does not use). Bars: the apply within 1e-5·max|plain| and a sweep within
 2e-5·max|plain| (float32 sums in another order); the segment and the solves
-within ±2 iterations and 2e-3·max|x| (tests/test_solver.py:191-195)."""
+within ±2 iterations and 2e-3·max|x| (tests/test_solver.py:191-195); the
+whole-cycle kernel within 3e-5·max|plain| (tests/test_mg_options.py:269-271)."""
 
 import math
 
@@ -17,6 +18,8 @@ import torch
 
 import field_interpolation_tpu_torch as ft
 from field_interpolation_tpu_torch import multigrid as tmg
+from field_interpolation_tpu_torch.ops.cycle import (fused_vcycle_2d, fused_wcycle_2d,
+                                                     mg_cycle_plain)
 from field_interpolation_tpu_torch.ops.pcg import fused_pcg_solve, fused_pcg_solve_plain
 from field_interpolation_tpu_torch.ops.smooth import (fused_smooth, fused_smooth_2d,
                                                       fused_smooth_plain, fused_sweep,
@@ -250,9 +253,6 @@ def test_smooth_kernel_configs_run_on_card(cuda, change):
 
 
 @pytest.mark.parametrize("shape,change", [
-    ((64, 64), dict(mg_cycle="w")),                     # W-cycle in the fused kernel
-    ((440, 440), dict()),                               # fused_wcycle_2d past the gate
-    ((64, 64), dict(mg_fine_operator="lumped")),        # fused_vcycle_2d
     ((64, 64), dict(mg_smoother="chebyshev")),
     ((24, 24, 24), dict(mg_smoother="chebyshev")),
 ])
@@ -260,29 +260,121 @@ def test_unported_cuda_configs_raise(cuda, shape, change):
     problem = _problem(shape, cuda)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ft.solve(problem, ft.SolverConfig(tol=1e-4, **change))
-    if "mg_smoother" in change:
-        return  # Chebyshev is not ported to plain ops either
-    x, info = ft.solve(problem, ft.SolverConfig(tol=1e-4, backend="xla", **change))
-    assert bool(info.converged)
 
 
-def test_fmg_guess_in_the_whole_cycle_band_raises(cuda):
-    """880² runs on the card, but ``fmg_start=1`` first solves the same
-    cloud on 440², where the reference plans fused_wcycle_2d (not ported):
-    that call raises, and runs in plain ops under backend="xla"."""
+@pytest.mark.parametrize("shape,n,change,counter", [
+    ((64, 64), 100, dict(mg_cycle="w"), fused_pcg_solve),     # W inside the segment
+    ((440, 440), 2000, dict(), fused_wcycle_2d),             # whole W-cycle past the gate
+    ((64, 64), 100, dict(mg_fine_operator="lumped"), fused_vcycle_2d),
+], ids=["64-w", "440", "64-lumped"])
+def test_whole_cycle_configs_solve_on_card(cuda, shape, n, change, counter):
+    """The configurations the reference runs through its whole-cycle kernels
+    or the W-cycle segment: on the card they launch the port's kernel and
+    match the same solve on CPU tensors (the plain versions)."""
+    problem = _problem(shape, cuda, n=n)
+    cfg = ft.SolverConfig(tol=1e-4, **change)
+    before = counter.launches
+    x, info = ft.solve(problem, cfg)
+    torch.cuda.synchronize()
+    assert counter.launches > before
+    cpu = ft.Problem(coeff=problem.coeff.cpu(), b=problem.b.cpu(), diag=problem.diag.cpu(),
+                     grid=problem.grid, weights=problem.weights)
+    xc, ic = ft.solve(cpu, cfg)
+    assert bool(info.converged) and bool(ic.converged)
+    assert abs(int(info.iterations) - int(ic.iterations)) <= 2
+    assert float((x.cpu() - xc).abs().max()) <= 2e-3 * float(xc.abs().max())
+
+
+def test_fmg_guess_in_the_whole_cycle_band_runs(cuda):
+    """880²: ``fmg_start=1`` first solves the same cloud on 440², where the
+    reference runs fused_wcycle_2d; the port launches its whole-cycle
+    kernel there and the call matches the same call under backend="xla"."""
     rng = np.random.default_rng(4)
     theta = rng.uniform(0, 2 * np.pi, 2000)
     u = np.stack([np.cos(theta), np.sin(theta)], 1)
     args = (ft.Grid((880, 880)), ft.Weights(model_2=0.3),
             torch.as_tensor(439.5 + 264.0 * u, dtype=torch.float32, device=cuda),
             torch.as_tensor(u, dtype=torch.float32, device=cuda))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ft.sdf_from_points(*args, config=ft.SolverConfig(tol=1e-4), fmg_start=1)
-    _, info = ft.sdf_from_points(*args, config=ft.SolverConfig(tol=1e-4))
-    assert bool(info.converged)
-    _, info = ft.sdf_from_points(*args, config=ft.SolverConfig(tol=1e-4, backend="xla"),
-                                 fmg_start=1)
-    assert bool(info.converged)
+    before = fused_wcycle_2d.launches
+    x, info = ft.sdf_from_points(*args, config=ft.SolverConfig(tol=1e-4), fmg_start=1)
+    torch.cuda.synchronize()
+    assert fused_wcycle_2d.launches > before
+    xr, ir = ft.sdf_from_points(*args, config=ft.SolverConfig(tol=1e-4, backend="xla"),
+                                fmg_start=1)
+    assert bool(info.converged) and bool(ir.converged)
+    assert abs(int(info.iterations) - int(ir.iterations)) <= 2
+    assert float((x - xr).abs().max()) <= 2e-3 * float(xr.abs().max())
+
+
+def _cycle_operands(shape, cuda):
+    problem = _problem(shape, cuda, n=300)
+    coeffs, sids, Rs, inv32, lw, _ = tmg.build_fused_solver_operands(
+        problem, ft.SolverConfig())
+    return (coeffs, sids, Rs, inv32, lw), problem
+
+
+@pytest.mark.parametrize("shape", [(45, 61), (97, 130)])
+@pytest.mark.parametrize("wdepth,nu_pre,nu_post", [
+    (0, 1, 1), (0, 2, 3), (0, 3, 3), (1, 1, 1), (1, 3, 3), (99, 1, 1), (99, 2, 2),
+    (99, 3, 3)])
+def test_cycle_kernel_matches_plain(cuda, shape, wdepth, nu_pre, nu_post):
+    """Odd, non-square grids (three and four levels, so wdepth 1 and 99
+    differ at 97×130); V with ν_pre ≠ ν_post through fused_vcycle_2d. z on
+    a standard-normal r is dominated by the coarse correction, so the fine
+    residual r - A·z (float64) on r = A·x is held to the same bar: an error
+    of the fine level's sweeps or prolongation moves it by a quarter of its
+    size, the float32 rounding of the coarsest solve (~1% of z there) by
+    ~1e-5."""
+    ops, _ = _cycle_operands(shape, cuda)
+    rng = np.random.default_rng(7)
+    x, r = (torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=cuda)
+            for _ in range(2))
+    r_ax = fused_normal_apply_plain(x, ops[0][0], ops[4][0], 2)
+
+    def fine_residual(z):
+        return r_ax.double() - fused_normal_apply_plain(z.double(), ops[0][0].double(),
+                                                        ops[4][0], 2)
+
+    counter = fused_wcycle_2d if wdepth else fused_vcycle_2d
+    for rhs, seen in ((r, lambda z: z), (r_ax, fine_residual)):
+        before = counter.launches
+        if wdepth:
+            got = fused_wcycle_2d(rhs, *ops, nu_pre, wdepth=wdepth)
+        else:
+            got = fused_vcycle_2d(rhs, *ops, nu_pre, nu_post)
+        want = mg_cycle_plain(rhs, *ops, nu_pre, nu_post, wdepth)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        got, want = seen(got), seen(want)
+        err = float((got - want).abs().max())
+        assert err <= 3e-5 * float(want.abs().max()), err
+
+
+def test_cycle_kernel_is_symmetric_and_deterministic(cuda):
+    ops, _ = _cycle_operands((97, 130), cuda)
+    rng = np.random.default_rng(8)
+    u, v = (torch.as_tensor(rng.standard_normal((97, 130)).astype(np.float32), device=cuda)
+            for _ in range(2))
+    Mv = fused_wcycle_2d(v, *ops, 3)
+    uMv = float(torch.sum(u * Mv))
+    vMu = float(torch.sum(v * fused_wcycle_2d(u, *ops, 3)))
+    assert abs(uMv - vMu) < 1e-4 * abs(uMv)
+    assert torch.equal(fused_wcycle_2d(v, *ops, 3), Mv)
+
+
+def test_segment_wcycle_matches_plain(cuda):
+    problem = _problem((97, 130), cuda, n=300)
+    coeffs, sids, Rs, inv32, lw, _ = tmg.build_fused_solver_operands(
+        problem, ft.SolverConfig())
+    b = problem.b
+    tol2 = (1e-4 ** 2 * torch.sum(b * b)).reshape(1, 1)
+    budget = torch.full((1, 1), 2000, dtype=torch.int32, device=cuda)
+    args = (torch.zeros_like(b), b, tol2, budget, coeffs, sids, Rs, inv32, lw, 3)
+    xk, ik, rrk = fused_pcg_solve(*args, wdepth=99)
+    xp, ip, _ = fused_pcg_solve_plain(*args, wdepth=99)
+    torch.cuda.synchronize()
+    assert abs(int(ik) - int(ip)) <= 2 and float(rrk) <= float(tol2)
+    assert float((xk - xp).abs().max()) <= 2e-3 * float(xp.abs().max())
 
 
 def test_large_2d_solve_runs_through_the_smoothing_kernels(cuda):

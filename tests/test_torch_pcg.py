@@ -21,6 +21,7 @@ import field_interpolation_tpu_torch as ft
 from field_interpolation_tpu_torch import multigrid as tmg
 from field_interpolation_tpu_torch.convert import (fused_operands_from_numpy,
                                                    problem_from_numpy)
+from field_interpolation_tpu_torch.ops import cycle as tcycle
 from field_interpolation_tpu_torch.ops import pcg as tpcg
 
 SHAPE = (64, 64)
@@ -69,6 +70,27 @@ def test_plain_segment_matches_reference_kernel(tol):
     _agree(xt, itt[0, 0], xj, np.asarray(itj)[0, 0])
 
 
+def test_plain_wsegment_matches_reference_kernel():
+    """The segment with the W-cycle (wdepth 99, the reference's
+    ``mg_cycle="w"``) against the reference's interpret-mode kernel."""
+    jp, _ = _pair()
+    coeffs, sids, Rs, inv32, lw, _ = build_fused_solver_operands(jp, fi.SolverConfig())
+    b = np.array(jp.b)
+    tol2 = np.float32(1e-8 * np.sum(b.astype(np.float64) ** 2)).reshape(1, 1)
+    budget = np.full((1, 1), 2000, np.int32)
+    x0 = np.zeros_like(b)
+    xj, itj, _ = ps.fused_pcg_solve(jnp.asarray(x0), jnp.asarray(b), jnp.asarray(tol2),
+                                    jnp.asarray(budget), coeffs, sids, Rs, inv32, lw, 3,
+                                    True, wdepth=99)
+    tc, ts, tR, tinv, tlw, _ = fused_operands_from_numpy(
+        coeffs, sids, Rs, inv32, [ft.Weights(**vars(w)) for w in lw])
+    xt, itt, rrt = tpcg.fused_pcg_solve(
+        torch.as_tensor(x0), torch.as_tensor(b), torch.as_tensor(tol2),
+        torch.as_tensor(budget), tc, ts, tR, tinv, tlw, 3, wdepth=99)
+    assert float(rrt) <= float(tol2[0, 0])
+    _agree(xt, itt[0, 0], xj, np.asarray(itj)[0, 0])
+
+
 def test_segment_budget_and_exit_semantics():
     """A budget of k stops after k iterations; a tolerance already met runs
     none (the reference's loop condition: rr > tol2 and k < budget)."""
@@ -92,26 +114,27 @@ def test_segment_budget_and_exit_semantics():
 def test_launch_tables_match_kernel_layout(shape):
     """The operands the port builds pass the CUDA wrapper's checks, and the
     host tables have the lengths csrc/pcg_segment.cu reads (11 + 6L + 6(L−1)
-    pointers, 3 + 3L ints, 4L weights), checked here without a card."""
+    pointers, level 0's r left 0; 5 + 3L ints: the grid cap, then the
+    cycle's L, ν_pre, ν_post, wdepth and 3 per level; 4L weights), checked
+    here without a card."""
     jp, tp = _pair(shape)
     coeffs, sids, Rs, inv32, lw, _ = tmg.build_fused_solver_operands(
         tp, ft.SolverConfig())
     x0, b = torch.zeros_like(tp.b), tp.b
     tol2 = torch.ones((1, 1))
     budget = torch.ones((1, 1), dtype=torch.int32)
-    shapes = tpcg._level_shapes(coeffs)
-    tpcg._check_operands(x0, b, tol2, budget, coeffs, sids, Rs, inv32, shapes)
+    tpcg._check_operands(x0, b, tol2, budget, coeffs, sids, Rs, inv32)
     _, ptrs, ints, w2s, _ = tpcg._launch_tables(x0, b, tol2, budget, coeffs,
-                                                sids, Rs, inv32, lw, 3)
+                                                sids, Rs, inv32, lw, 3, 99)
     L = len(coeffs)
-    assert len(ptrs) == 11 + 6 * L + 6 * (L - 1)
-    assert ints[:2] == [L, 3] and len(ints) == 3 + 3 * L
-    assert ints[3:6] == [shape[0], shape[1], 0]                 # fine: 9 channels
-    assert all(ints[3 + 3 * l + 2] == 1 for l in range(1, L))   # coarse: diagonal
+    assert len(ptrs) == 11 + 6 * L + 6 * (L - 1) and ptrs[11 + 2] == 0
+    assert ints[:5] == [tpcg._MAX_BLOCKS, L, 3, 3, 99] and len(ints) == 5 + 3 * L
+    assert ints[5:8] == [shape[0], shape[1], 0]                 # fine: 9 channels
+    assert all(ints[5 + 3 * l + 2] == 1 for l in range(1, L))   # coarse: diagonal
     assert len(w2s) == 4 * L and w2s[2] == pytest.approx(0.09)
     with pytest.raises(ValueError):
         tpcg._check_operands(x0, b, tol2, budget, coeffs, sids,
-                             [R.T for R in Rs], inv32, shapes)
+                             [R.T for R in Rs], inv32)
 
 
 def test_band_tables_reproduce_dense_transfers():
@@ -120,7 +143,7 @@ def test_band_tables_reproduce_dense_transfers():
     rng = np.random.default_rng(1)
     for n_f, n_c in [(256, 128), (64, 32), (37, 19), (48, 24), (23, 12)]:
         P = tmg._resize_matrix(n_f, n_c)
-        tab = tpcg._band_table(n_f, n_c)
+        tab = tcycle._band_table(n_f, n_c)
         rb, pb = tab[:2 * n_c].reshape(-1, 2), tab[2 * n_c:].reshape(-1, 2)
         v_f, v_c = rng.standard_normal(n_f), rng.standard_normal(n_c)
         restrict = [sum(P[s + a, j] * v_f[s + a] for a in range(c))
@@ -142,6 +165,21 @@ def test_solve_matches_reference(backend):
     xt, it = ft.solve(tp, ft.SolverConfig(tol=1e-4, backend=backend))
     assert bool(ij.converged) and bool(it.converged)
     assert float(it.rel_residual) <= 1e-4
+    _agree(xt, it.iterations, xj, ij.iterations)
+
+
+@pytest.mark.parametrize("change", [dict(mg_fine_operator="lumped"),
+                                    dict(mg_cycle="w"),
+                                    dict(mg_fine_operator="lumped", mg_cycle="w")], ids=str)
+def test_whole_cycle_solves_match_reference_pallas(change):
+    """The configurations whose cycle the reference runs as one kernel
+    (``fused_vcycle_2d`` / ``fused_wcycle_2d`` under the lumped fine
+    operator) or in the segment kernel (the W-cycle, wdepth 99), against
+    the reference's backend="pallas" solve in interpret mode."""
+    jp, tp = _pair()
+    xj, ij = fi.solve(jp, fi.SolverConfig(tol=1e-4, backend="pallas", **change))
+    xt, it = ft.solve(tp, ft.SolverConfig(tol=1e-4, **change))
+    assert bool(ij.converged) and bool(it.converged)
     _agree(xt, it.iterations, xj, ij.iterations)
 
 

@@ -39,10 +39,10 @@ def _oracle_rel(shape, weights_kw, pts, nrm, x):
     return np.linalg.norm(r) / np.linalg.norm(Atb)
 
 
-def _check_precise(shape, n, seed=0):
+def _check_precise(shape, n, seed=0, **change):
     w = dict(model_2=0.3)
     pts, nrm = _cloud(n, shape, seed)
-    cfg = dict(tol=1e-6, preconditioner="multigrid", maxiter=2000)
+    cfg = dict(tol=1e-6, preconditioner="multigrid", maxiter=2000, **change)
     xt, it = ft.sdf_from_points_precise(ft.Grid(shape), ft.Weights(**w),
                                         torch.as_tensor(pts), torch.as_tensor(nrm),
                                         config=ft.SolverConfig(**cfg))
@@ -62,6 +62,12 @@ def _check_precise(shape, n, seed=0):
 @pytest.mark.parametrize("seed", [0, 1])
 def test_sdf_from_points_precise_64(seed):
     _check_precise((64, 64), 100, seed)
+
+
+def test_sdf_from_points_precise_64_wcycle():
+    """The reference's W option (``mg_cycle="w"``): every inner solve is a
+    segment whose preconditioner is the W-cycle (wdepth 99)."""
+    _check_precise((64, 64), 100, mg_cycle="w")
 
 
 @pytest.mark.slow
