@@ -93,7 +93,39 @@ toolkit (``nvcc``). Phases, each fatal on failure:
     field's own problem; then ``sdf_from_points`` at 992², 4000 points, tol
     1e-4, ``fmg_start=1``, seed 0: converged, finite, of shape 992²; its
     496² guess launches the whole-cycle kernel, its fine level the apply,
-    multi-sweep and per-sweep kernels.
+    multi-sweep and per-sweep kernels;
+19. the per-sweep kernel's Chebyshev mode (kind 4, ν = 3, from zero and
+    from z) against its plain version within 2e-5·max|plain| on config 4's
+    cloud: the lumped 128³ fine level, the 64³ level with lumped data and
+    the 64³ Galerkin level (27 channels), each beside the kernel's
+    damped-Jacobi mode on the same level;
+20. the multi-sweep kernel's Chebyshev mode at 4096² (from zero and from
+    z) and at 1000×1030 with radius-3 weights (ν = 3 from z: two launches,
+    the second from the first's z_prev), and the per-sweep kernel's on
+    config 5's 512² diagonal level, as phase 19;
+21. the whole-cycle kernel's Chebyshev mode against ``mg_cycle_plain`` on
+    field A′'s operands (480², W and V), as phase 14, beside the
+    damped-Jacobi cycle kernel on the same problem;
+22. the segment kernel's Chebyshev mode against its plain version on the
+    headline's operands, with lumped and with Galerkin coarse levels, as
+    phase 4;
+23. H-cheb and H-gal: ``sdf_from_points_precise`` at 256², 1000 points, tol
+    1e-6, kind-4 Chebyshev (seeds 0..1) and with Galerkin coarse data too
+    (seed 0): true residual ≤ 1e-6, the reported within 2%, within ±2
+    iterations and 2e-3·max|x| of ``backend="xla"``, beside phase 5; the
+    segment kernel must launch in Chebyshev mode;
+24. field A′, the Chebyshev whole-cycle band: the apply kernel against its
+    plain version at 480²; ``sdf_from_points`` at 480², 2000 points, tol
+    1e-4, kind-4 Chebyshev, seed 0, against ``backend="xla"`` and beside
+    damped Jacobi; precise at 1e-6; the whole-cycle kernel must launch in
+    Chebyshev mode, the segment kernel not; a profile of one field;
+25. config 4-cg: config 4 with kind-4 Chebyshev and Galerkin coarse data,
+    seeds 0..1, each against ``backend="xla"``; the per-sweep kernel must
+    launch in Chebyshev mode; host clocks of a field's stages and a profile
+    of one field, as phase 9;
+26. config 5-cheb: config 5's proxy with kind-4 Chebyshev, seed 0, against
+    ``backend="xla"``; the multi-sweep and per-sweep kernels must launch in
+    Chebyshev mode.
 
 The lines before the last are the kernel record (JSON: per kernel its
 launches on its path, its error and time against its plain version, and
@@ -136,6 +168,14 @@ SEEDS_A = range(2)
 SEEDS_B = range(2)    # field B: the headline with SolverConfig(mg_cycle="w")
 SHAPE_C = (992, 992)  # field C: fmg_start=1 guesses on 496², in the band
 N_POINTS_C = 4000
+# The Chebyshev / Galerkin slice: the reference's kind-4 Chebyshev smoother
+# (its "strongest default candidate", weights.py:73-76), alone and with
+# Galerkin coarse data.
+CHEB = dict(mg_smoother="chebyshev4")
+GALERKIN = dict(mg_coarse_data="galerkin")
+SEEDS_HCHEB = range(2)
+SHAPE_A2 = (480, 480)  # field A′: the largest side of the Chebyshev whole-cycle band
+SEEDS4_CG = range(2)
 # The least time the card could take (bound_ms): bytes over HBM's rate, or
 # float32 operations over the peak outside the tensor cores (H100 SXM data
 # sheet, 700 W).
@@ -273,23 +313,26 @@ def apply_work(x, coeff, weights, ndim):
             apply_flops(weights, ndim, coeff.ndim == ndim) * x.numel())
 
 
-def sweep_work(r, coeff, weights, ndim, sweeps, from_zero):
-    """(bytes, operations) of ``sweeps`` damped-Jacobi sweeps in one call:
-    r, sid, the coefficients (and z) read once, z written once."""
+def sweep_work(r, coeff, weights, ndim, sweeps, from_zero, cheb=False):
+    """(bytes, operations) of ``sweeps`` damped-Jacobi sweeps (Chebyshev
+    sweeps with ``cheb``: four more operations per node) in one call: r,
+    sid, the coefficients (and z) read once, z written once (z_prev and the
+    [ν, 2] schedule are the kernels' own)."""
     n = r.numel()
     reads = 2 * n + coeff.numel() + (0 if from_zero else n)
-    per = apply_flops(weights, ndim, coeff.ndim == ndim) + 4
+    per = apply_flops(weights, ndim, coeff.ndim == ndim) + (8 if cheb else 4)
     return 4 * (reads + n), n * (per * sweeps - (per - 1 if from_zero else 0))
 
 
-def cycle_work(ops, nu_pre, nu_post, wdepth):
+def cycle_work(ops, nu_pre, nu_post, wdepth, cheb=False):
     """(bytes, operations, grid-barrier phases) of one whole cycle on
     ``ops`` = (coeffs, sids, Rs, inv_c, level weights): r read and z
     written, every operand read once (the Rs over their nonzeros); the
     operations and phases of csrc/mg_cycle2d.cuh's schedule (per visit of
     a level above the coarsest: max(ν_pre, 1) pre-sweep phases, the
     residual's apply, the restriction, one prolongation per child visit,
-    ν_post post-sweeps; one dense matvec per coarsest visit)."""
+    ν_post post-sweeps; one dense matvec per coarsest visit). A Chebyshev
+    sweep (``cheb``) does four more operations per node."""
     from field_interpolation_tpu_torch.ops.cycle import level_shapes
     coeffs, sids, Rs, inv_c, lw = ops[:5]
     sizes = [math.prod(sh) for sh in level_shapes(coeffs)]
@@ -301,7 +344,8 @@ def cycle_work(ops, nu_pre, nu_post, wdepth):
     for l in range(L - 1):
         a = apply_flops(lw[l], 2, coeffs[l].ndim == 2)
         twice = l < wdepth and l + 1 < L - 1
-        work = sizes[l] * ((nu_pre + nu_post) * (a + 4) + a + 2 * 6 * (1 + twice))
+        work = sizes[l] * ((nu_pre + nu_post) * (a + (8 if cheb else 4)) + a
+                          + 2 * 6 * (1 + twice))
         if twice:  # the W step's residual update on level l + 1
             work += sizes[l + 1] * (apply_flops(lw[l + 1], 2, True) + 1)
         flops += visits * work
@@ -368,15 +412,18 @@ def phase_apply(ft, device):
     return problem, ops, rec
 
 
-def phase_segment(problem, ops, device, wdepth=0):
+def phase_segment(problem, ops, device, wdepth=0, label=""):
+    """The segment kernel against its plain version at tol 1e-4 from x = 0
+    on ``ops`` (`build_fused_solver_operands`; their Chebyshev schedules,
+    if any, go to both)."""
     from field_interpolation_tpu_torch.ops.pcg import (fused_pcg_solve,
                                                        fused_pcg_solve_plain)
-    coeffs, sids, Rs, inv32, lw, _ = ops
+    coeffs, sids, Rs, inv32, lw, cfs = ops
     b = problem.b
     x0 = torch.zeros_like(b)
     tol2 = (1e-4 ** 2 * torch.sum(b * b)).reshape(1, 1)
     budget = torch.full((1, 1), 2000, dtype=torch.int32, device=device)
-    args = (x0, b, tol2, budget, coeffs, sids, Rs, inv32, lw, 3)
+    args = (x0, b, tol2, budget, coeffs, sids, Rs, inv32, lw, 3, cfs)
     xk, ik, rrk = fused_pcg_solve(*args, wdepth=wdepth)
     xp, ip, rrp = fused_pcg_solve_plain(*args, wdepth=wdepth)
     torch.cuda.synchronize()
@@ -390,10 +437,10 @@ def phase_segment(problem, ops, device, wdepth=0):
     # written; ik + 1 cycles, ik applies and CG updates; 3 + cycle phases
     # per iteration and for the start.
     n = b.numel()
-    cb, cf, cp = cycle_work(ops, 3, 3, wdepth)
+    cb, cf, cp = cycle_work(ops, 3, 3, wdepth, cheb=cfs is not None)
     work = (cb + 4 * n, (ik + 1) * cf + ik * n * (apply_flops(lw[0], 2, False) + 12))
     phases = (ik + 1) * (cp + 2)
-    print(f"segment tol 1e-4, wdepth {wdepth}: iterations kernel {ik} plain {ip}; "
+    print(f"segment{label} tol 1e-4, wdepth {wdepth}: iterations kernel {ik} plain {ip}; "
           f"max|x_kernel-x_plain| {err:.3e} (bar {2e-3 * scale:.3e}); "
           f"rr kernel {float(rrk.item()):.4e} plain {float(rrp.item()):.4e}; "
           f"kernel {ms:.3f} ms, back to back {dev_ms:.3f} ms ({1e3 * dev_ms / max(ik, 1):.1f} "
@@ -599,7 +646,7 @@ def phase_main3d(ft, device):
     for name in ("fused_normal_apply", "fused_smooth"):
         require(launches[name] > 0, f"{name} was not launched on the 3-D path")
     require(launches["fused_pcg_solve"] == 0, "the 3-D path launched fused_pcg_solve")
-    return launches
+    return launches, {seed: int(info.iterations) for seed, _, info, _ in fields}
 
 
 def busy_ms(intervals):
@@ -920,10 +967,13 @@ def field_a_inputs(seed, device, shape=SHAPE_A, n=N_POINTS_A):
             torch.as_tensor(nrm, device=device))
 
 
-def phase_cycle(ft, device):
-    """The whole-cycle kernel against mg_cycle_plain on field A's operands
-    (W, V, V with ν_pre ≠ ν_post) and a 256² lumped problem (V), each timed
-    beside one plain-torch cycle (the backend="xla" preconditioner).
+def phase_cycle(ft, device, shape=SHAPE_A, change=None):
+    """The whole-cycle kernel against mg_cycle_plain on the operands of
+    field A (``shape``, the default config; W, V, V with ν_pre ≠ ν_post)
+    and of a 256² lumped problem (V), each timed beside one plain-torch
+    cycle (the backend="xla" preconditioner). With ``change`` (the
+    Chebyshev options: field A′) the W and V cycles under it, each also
+    beside the damped-Jacobi cycle kernel on the same problem.
 
     Each case is checked twice at the reference's bar 3e-5·max|plain|: z on
     a standard-normal r, whose z is dominated by the coarse-grid correction
@@ -940,22 +990,24 @@ def phase_cycle(ft, device):
     from field_interpolation_tpu_torch.ops.stencil import fused_normal_apply_plain
     rng = np.random.default_rng(9)
     w = ft.Weights(model_2=0.3)
-    pa = ft.assemble_sdf(ft.Grid(SHAPE_A), w, *field_a_inputs(0, device))
-    p256 = ft.assemble_sdf(ft.Grid(SHAPE), w, *headline_inputs(0, device))
-    lumped = dict(mg_fine_operator="lumped")
+    pa = ft.assemble_sdf(ft.Grid(shape), w, *field_a_inputs(0, device, shape))
+    name_a = "field A′" if change else "field A"
+    v = dict(mg_cycle="v")
+    cases = [(f"{name_a}, W", pa, {}, 3, 3, 99), (f"{name_a}, V", pa, v, 3, 3, 0)]
+    if not change:
+        p256 = ft.assemble_sdf(ft.Grid(SHAPE), w, *headline_inputs(0, device))
+        cases += [("field A, V", pa, v, 2, 3, 0),
+                  ("256² lumped, V", p256, dict(mg_fine_operator="lumped"), 3, 3, 0)]
     rec, runs = None, []
     # The operands do not depend on ν: the ν_pre ≠ ν_post case (which the
     # route never plans) runs on the V-cycle's.
-    for label, p, cfg_kw, nu_pre, nu_post, wdepth in [
-            ("field A, W", pa, {}, 3, 3, 99),
-            ("field A, V", pa, dict(mg_cycle="v"), 3, 3, 0),
-            ("field A, V", pa, dict(mg_cycle="v"), 2, 3, 0),
-            ("256² lumped, V", p256, lumped, 3, 3, 0)]:
-        cfg = ft.SolverConfig(tol=1e-4, **cfg_kw)
+    for label, p, cfg_kw, nu_pre, nu_post, wdepth in cases:
+        cfg = ft.SolverConfig(tol=1e-4, **(change or {}), **cfg_kw)
         whole = tmg.whole_cycle_operands(p, cfg)
         require(whole is not None and (whole[1] > 0) == (wdepth > 0),
                 f"{label}: the route hands {whole and whole[1]} as wdepth")
-        ops = whole[0]
+        ops, _, cfs = whole
+        require((cfs is not None) == bool(change), f"{label}: schedules {cfs}")
         x = torch.as_tensor(rng.standard_normal(p.grid.shape).astype(np.float32),
                             device=device)
         c64 = ops[0][0].double()
@@ -967,28 +1019,38 @@ def phase_cycle(ft, device):
         r = torch.as_tensor(rng.standard_normal(p.grid.shape).astype(np.float32),
                             device=device)
 
-        def kernel(r=r):
+        def kernel(r=r, ops=ops, cfs=cfs):
             if wdepth:
-                return fused_wcycle_2d(r, *ops, nu_pre, wdepth=wdepth)
-            return fused_vcycle_2d(r, *ops, nu_pre, nu_post)
+                return fused_wcycle_2d(r, *ops, nu_pre, cheb_coefs=cfs, wdepth=wdepth)
+            return fused_vcycle_2d(r, *ops, nu_pre, nu_post, cheb_coefs=cfs)
+
+        def plain(r=r):
+            return mg_cycle_plain(r, *ops, nu_pre, nu_post, wdepth, cheb_coefs=cfs)
 
         name = (f"cycle {shape_str(p.grid.shape)} {label}, nu {nu_pre}/{nu_post}, "
-                f"wdepth {wdepth}, {len(ops[0])} levels")
+                f"wdepth {wdepth}, {len(ops[0])} levels"
+                + (f", {cfg.mg_smoother}" if change else ""))
         check_close(f"{name}, r = A·x, fine residual r - A·z",
-                    fine_residual(r_ax, kernel(r_ax)),
-                    fine_residual(r_ax, mg_cycle_plain(r_ax, *ops, nu_pre, nu_post, wdepth)),
+                    fine_residual(r_ax, kernel(r_ax)), fine_residual(r_ax, plain(r_ax)),
                     3e-5)
-        nbytes, flops, phases = cycle_work(ops, nu_pre, nu_post, wdepth)
-        got = compare(f"{name}, standard-normal r", kernel,
-                      lambda: mg_cycle_plain(r, *ops, nu_pre, nu_post, wdepth),
-                      3e-5, (nbytes, flops))
+        nbytes, flops, phases = cycle_work(ops, nu_pre, nu_post, wdepth,
+                                           cheb=cfs is not None)
+        got = compare(f"{name}, standard-normal r", kernel, plain, 3e-5, (nbytes, flops))
         dev_ms = batch_ms(kernel)
         xla = tmg.make_vcycle_preconditioner(p, ft.SolverConfig(
-            tol=1e-4, **cfg_kw, mg_pre_smooth=nu_pre, mg_post_smooth=nu_post))
+            tol=1e-4, **(change or {}), **cfg_kw, mg_pre_smooth=nu_pre,
+            mg_post_smooth=nu_post))
         xla_ms = cuda_ms(lambda: xla(r))
         print(f"  back to back {dev_ms:.4f} ms per launch; {phases} "
               f"grid-barrier phases, {1e3 * dev_ms / phases:.2f} us/phase; one plain-torch "
               f"cycle (backend='xla') {xla_ms:.3f} ms, {xla_ms / got['ms']:.1f}x the kernel")
+        if change:
+            jops = tmg.whole_cycle_operands(p, ft.SolverConfig(tol=1e-4, **cfg_kw))[0]
+            jac = (lambda: fused_wcycle_2d(r, *jops, nu_pre, wdepth=wdepth)) if wdepth \
+                else (lambda: fused_vcycle_2d(r, *jops, nu_pre, nu_post))
+            got["jacobi_ms"], got["jacobi_batch_ms"] = cuda_ms(jac), batch_ms(jac)
+            print(f"  the damped-Jacobi cycle kernel on the same problem: "
+                  f"{got['jacobi_ms']:.4f} ms, back to back {got['jacobi_batch_ms']:.4f} ms")
         rec = rec or dict(got, batch_ms=dev_ms, xla_cycle_ms=xla_ms, phases=phases)
         runs.append((dev_ms, phases))
     # The W-cycle's extra phases over the V-cycle's on the same operands all
@@ -996,23 +1058,29 @@ def phase_cycle(ft, device):
     # is the grid barrier's.
     (w_ms, w_phases), (v_ms, v_phases) = runs[:2]
     barrier_us = 1e3 * (w_ms - v_ms) / (w_phases - v_phases)
-    print(f"cycle: measured cost of a coarse-level phase (W minus V at 496², back to "
-          f"back) {barrier_us:.2f} us; W {w_phases} phases x {barrier_us:.2f} us = "
-          f"{w_phases * barrier_us / 1e3:.4f} ms, V {v_phases} x {barrier_us:.2f} us = "
-          f"{v_phases * barrier_us / 1e3:.4f} ms")
+    print(f"cycle: measured cost of a coarse-level phase (W minus V at "
+          f"{shape_str(shape)}, back to back) {barrier_us:.2f} us; W {w_phases} phases x "
+          f"{barrier_us:.2f} us = {w_phases * barrier_us / 1e3:.4f} ms, V {v_phases} x "
+          f"{barrier_us:.2f} us = {v_phases * barrier_us / 1e3:.4f} ms")
     return dict(rec, barrier_us=barrier_us)
 
 
 def counters_zero():
+    """Set every kernel's launch counts to 0; returns a function that reads
+    them: {name: launches, name_cheb: launches in Chebyshev mode}."""
     from field_interpolation_tpu_torch.ops.cycle import fused_vcycle_2d, fused_wcycle_2d
     from field_interpolation_tpu_torch.ops.pcg import fused_pcg_solve
     from field_interpolation_tpu_torch.ops.smooth import fused_smooth, fused_smooth_2d
     from field_interpolation_tpu_torch.ops.stencil import fused_normal_apply
     counters = (fused_normal_apply, fused_smooth, fused_smooth_2d, fused_pcg_solve,
                 fused_vcycle_2d, fused_wcycle_2d)
+    moded = counters[1:]  # every kernel but the apply has a Chebyshev mode
     for c in counters:
         c.launches = 0
-    return lambda: {c.__name__: c.launches for c in counters}
+    for c in moded:
+        c.cheb_launches = 0
+    return lambda: {**{c.__name__: c.launches for c in counters},
+                    **{c.__name__ + "_cheb": c.cheb_launches for c in moded}}
 
 
 def phase_field_a(ft, device):
@@ -1167,6 +1235,308 @@ def phase_field_c(ft, device):
     return launches, recs
 
 
+def smoothing_levels(p, cfg, nu):
+    """Per level li of p's cycle under cfg (0: the fine level): (the data
+    term the cycle smooths with, D⁻¹, τ·D⁻¹, the [ν, 2] Chebyshev schedule
+    for ρ̂_li, the level's weights)."""
+    from field_interpolation_tpu_torch import multigrid as tmg
+    levels = tmg.build_levels(p, cfg)
+    lump, fine_ddiag, taus, rhos = tmg.build_smoothing_setup(p, levels, cfg)
+    out = [((fine_ddiag if lump else p.coeff), p.diag, p.weights)]
+    out += [(l.data_diag if l.data_coeff is None else l.data_coeff, l.diag, l.weights)
+            for l in levels]
+    res = []
+    for li, (coeff, diag, w) in enumerate(out):
+        inv = tmg._inv_diag(diag)
+        res.append((coeff.contiguous(), inv.contiguous(), (taus[li] * inv).contiguous(),
+                    tmg.chebyshev_coefs(rhos[li], nu, cfg), w))
+    return res
+
+
+def compare_cheb(label, kernel, plain, lv, r, z, ndim, nu, fz):
+    """A smoothing kernel's Chebyshev mode against its plain version on
+    level operands ``lv`` (`smoothing_levels`), at the reference's bar
+    2e-5·max|plain| (tests/test_mg_options.py:346), beside the kernel's
+    damped-Jacobi mode on the same level. ``kernel(r, z, coeff, sid, w, nu,
+    fz, cf)``."""
+    coeff, inv, sid_j, cf, w = lv
+    rec = compare(f"{label}, {nu} Chebyshev sweeps, from_zero={fz}",
+                  lambda: kernel(r, z, coeff, inv, w, nu, fz, cf),
+                  lambda: plain(r, z, coeff, inv, w, ndim, nu, fz, cf), 2e-5,
+                  sweep_work(r, coeff, w, ndim, nu, fz, cheb=True))
+    def jacobi():
+        return kernel(r, z, coeff, sid_j, w, nu, fz, None)
+
+    rec.update(batch_ms=batch_ms(lambda: kernel(r, z, coeff, inv, w, nu, fz, cf)),
+               jacobi_ms=cuda_ms(jacobi), jacobi_batch_ms=batch_ms(jacobi))
+    print(f"  back to back {rec['batch_ms']:.4f} ms; the damped-Jacobi mode on the same "
+          f"level: {rec['jacobi_ms']:.4f} ms, back to back {rec['jacobi_batch_ms']:.4f} ms")
+    return rec
+
+
+def phase_cheb_sweep(ft, device):
+    """The per-sweep kernel's Chebyshev mode on config 4's cloud: the
+    lumped 128³ fine level, the 64³ level with lumped (diagonal) data and
+    the 64³ Galerkin level (27 channels), each from zero and from z."""
+    from field_interpolation_tpu_torch.ops.smooth import fused_smooth, fused_smooth_plain
+    rng = np.random.default_rng(12)
+    p128 = ft.assemble_sdf(ft.Grid(SHAPE3), ft.Weights(model_2=0.3),
+                           *sphere_inputs(0, device))
+    lv_c = smoothing_levels(p128, ft.SolverConfig(tol=1e-4, **CHEB), 3)
+    lv_cg = smoothing_levels(p128, ft.SolverConfig(tol=1e-4, **CHEB, **GALERKIN), 3)
+    del p128
+
+    def kernel(r, z, coeff, sid, w, nu, fz, cf):
+        return fused_smooth(r, z, coeff, sid, w, 3, nu, fz, cheb_coefs=cf)
+
+    recs = {}
+    for key, label, lv in [("fine", "lumped fine level, diag", lv_cg[0]),
+                           ("diag", "level, diag", lv_c[1]),
+                           ("galerkin", "Galerkin level, 27-channel", lv_cg[1])]:
+        shape = tuple(lv[1].shape)
+        require(lv[0].ndim == (4 if key == "galerkin" else 3), f"{label}: {lv[0].shape}")
+        r, z = (torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                                device=device) for _ in range(2))
+        for fz in (True, False):
+            recs[key] = compare_cheb(f"smooth {shape_str(shape)} config 4 {label}",
+                                     kernel, fused_smooth_plain, lv, r, z, 3, 3, fz)
+    return recs
+
+
+def phase_cheb5(ft, device):
+    """The multi-sweep kernel's Chebyshev mode on config 5's 4096² fine
+    level (the reference's fused_smooth_tiled) from zero and from z, and at
+    1000×1030 with radius-3 weights, ν = 3 from z (a 9-node halo: the phase
+    takes two launches, the second from the first's z_prev and schedule
+    row); the per-sweep kernel's on config 5's 512² diagonal level, from
+    zero and from z."""
+    from field_interpolation_tpu_torch.ops.smooth import (fused_smooth, fused_smooth_2d,
+                                                          fused_smooth_plain)
+    rng = np.random.default_rng(13)
+    cfg = ft.SolverConfig(**CFG5, **CHEB)
+
+    def rand(shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                               device=device)
+
+    def multi(r, z, coeff, sid, w, nu, fz, cf):
+        return fused_smooth_2d(r, z, coeff, sid, w, nu, fz, cheb_coefs=cf)
+
+    def per_sweep(r, z, coeff, sid, w, nu, fz, cf):
+        return fused_smooth(r, z, coeff, sid, w, 2, nu, fz, cheb_coefs=cf)
+
+    p5 = ft.assemble_sdf(ft.Grid(SHAPE5), ft.Weights(model_2=0.3), *circle5_inputs(0, device))
+    lv5 = smoothing_levels(p5, cfg, 3)
+    del p5
+    recs = {}
+    r, z = rand(SHAPE5), rand(SHAPE5)
+    for fz in (True, False):
+        recs["multi"] = compare_cheb(f"multi-sweep {shape_str(SHAPE5)} config 5 fine level",
+                                     multi, fused_smooth_plain, lv5[0], r, z, 2, 3, fz)
+    odd = (1000, 1030)
+    podd = ft.assemble_sdf(ft.Grid(odd), ft.Weights(**RADIUS3_WEIGHTS),
+                           *circle5_inputs(0, device, odd, 20_000))
+    lvo = smoothing_levels(podd, cfg, 3)[0]
+    del podd
+    r, z = rand(odd), rand(odd)
+    before = fused_smooth_2d.launches
+    multi(r, z, lvo[0], lvo[1], lvo[4], 3, False, lvo[3])
+    split = fused_smooth_2d.launches - before
+    print(f"multi-sweep {shape_str(odd)}, radius 3, 3 Chebyshev sweeps from z: {split} launches")
+    require(split == 2, f"the 9-node halo phase took {split} launches, not 2")
+    compare_cheb(f"multi-sweep {shape_str(odd)} radius-3 weights", multi, fused_smooth_plain,
+                 lvo, r, z, 2, 3, False)
+    lv = lv5[3]
+    shape = tuple(lv[1].shape)
+    r, z = rand(shape), rand(shape)
+    for fz in (True, False):
+        recs["diag"] = compare_cheb(f"smooth {shape_str(shape)} config 5 diagonal level",
+                                    per_sweep, fused_smooth_plain, lv, r, z, 2, 3, fz)
+    return recs
+
+
+def compare_path(label, x, info, xr, ir):
+    """A field against the same call under backend="xla": converged,
+    finite, within ±2 iterations and 2e-3·max|x|."""
+    it, itr = int(info.iterations), int(ir.iterations)
+    err, scale = float((x - xr).abs().max()), float(xr.abs().max())
+    print(f"{label} against backend='xla': iterations {it} (xla {itr}), rel "
+          f"{float(info.rel_residual):.3e}, max|x-x_xla| {err:.3e} (bar "
+          f"{2e-3 * scale:.3e}), finite {bool(torch.isfinite(x).all())}, shape "
+          f"{tuple(x.shape)}")
+    require(bool(info.converged), f"{label} did not converge")
+    require(bool(torch.isfinite(x).all()), f"{label}: field not finite")
+    require(bool(ir.converged), f"{label}: the xla solve did not converge")
+    require(abs(it - itr) <= 2, f"{label}: iterations {it} vs xla {itr}")
+    require(err <= 2e-3 * scale, f"{label}: {err} > 2e-3·{scale}")
+
+
+def require_launched(label, launches, names, absent=()):
+    for name in names:
+        require(launches[name] > 0, f"{name} was not launched on {label}")
+    for name in absent:
+        require(launches[name] == 0, f"{label} launched {name}")
+
+
+def phase_h_cheb(ft, device, v_ms, v_iters):
+    """H-cheb and H-gal: the headline (256², 1000 points, tol 1e-6) with
+    the kind-4 Chebyshev smoother, seeds 0..1, and with Galerkin coarse
+    data besides, seed 0: the segment kernel in Chebyshev mode (lumped,
+    then 9-channel coarse levels) and the apply kernel. Each field's true
+    residual ≤ 1e-6 with the reported within 2%, and within ±2 iterations
+    and 2e-3·max|x| of backend="xla"; beside phase 5's Jacobi fields."""
+    grid, weights = ft.Grid(SHAPE), ft.Weights(model_2=0.3)
+    out = {}
+    for name, change, seeds in [("H-cheb", CHEB, SEEDS_HCHEB),
+                                ("H-gal", {**CHEB, **GALERKIN}, range(1))]:
+        cfg = ft.SolverConfig(tol=TOL, maxiter=2000, **change)
+        inputs = {s: headline_inputs(s, device) for s in seeds}
+        ft.sdf_from_points_precise(grid, weights, *inputs[0], config=cfg)  # warm-up
+        torch.cuda.synchronize()
+        read = counters_zero()
+        fields = []
+        for seed in seeds:
+            (x, info), ms = timed(lambda: ft.sdf_from_points_precise(
+                grid, weights, *inputs[seed], config=cfg))
+            fields.append((seed, x, info, ms))
+        launches = read()
+        for seed, x, info, ms in fields:
+            true = check_precise(f"{name} seed {seed}", ft, grid, weights, *inputs[seed],
+                                 x, info, device)
+            xr, ir = ft.sdf_from_points_precise(grid, weights, *inputs[seed], config=ft.
+                                                SolverConfig(tol=TOL, maxiter=2000,
+                                                             backend="xla", **change))
+            compare_path(f"{name} seed {seed}", x, info, xr, ir)
+            print(f"{name} seed {seed}: iterations {int(info.iterations)} (Jacobi, phase 5: "
+                  f"{v_iters[seed]}), reported rel {float(info.rel_residual):.6e}, true rel "
+                  f"{true:.6e}, {ms:.3f} ms (Jacobi, phase 5: {v_ms[seed]:.3f} ms)")
+        print(f"{name}: launches {launches}")
+        require_launched(name, launches, ("fused_pcg_solve_cheb", "fused_normal_apply"),
+                         ("fused_wcycle_2d", "fused_vcycle_2d", "fused_smooth"))
+        out[name] = launches
+    return out
+
+
+def phase_field_a2(ft, device):
+    """Field A′, the Chebyshev whole-cycle band's main path: 480², 2000
+    points, tol 1e-4, kind-4 Chebyshev, seed 0, against backend="xla" and
+    beside the same field under damped Jacobi; precise at 1e-6. The apply
+    kernel against its plain version at 480² first; then the whole W-cycle
+    kernel in Chebyshev mode and the apply must launch, the segment not;
+    then torch.profiler over one field."""
+    from field_interpolation_tpu_torch.ops.stencil import (
+        fused_normal_apply, fused_normal_apply_plain)
+    grid, weights = ft.Grid(SHAPE_A2), ft.Weights(model_2=0.3)
+    cfg = ft.SolverConfig(tol=1e-4, **CHEB)
+    pts, nrm = field_a_inputs(0, device, SHAPE_A2)
+    p = ft.assemble_sdf(grid, weights, pts, nrm)
+    x = torch.as_tensor(np.random.default_rng(14).standard_normal(SHAPE_A2)
+                        .astype(np.float32), device=device)
+    apply_rec = compare(f"apply {shape_str(SHAPE_A2)} field A′, 9-channel (reference: "
+                        f"fused_normal_apply_striped)",
+                        lambda: fused_normal_apply(x, p.coeff, weights, 2),
+                        lambda: fused_normal_apply_plain(x, p.coeff, weights, 2), 1e-5,
+                        apply_work(x, p.coeff, weights, 2))
+    del p
+    ft.sdf_from_points(grid, weights, pts, nrm, config=cfg)  # warm-up
+    (xj, ij), ms_j = timed(lambda: ft.sdf_from_points(grid, weights, pts, nrm,
+                                                      config=ft.SolverConfig(tol=1e-4)))
+    read = counters_zero()
+    (x, info), ms = timed(lambda: ft.sdf_from_points(grid, weights, pts, nrm, config=cfg))
+    (xp, infop), msp = timed(lambda: ft.sdf_from_points_precise(
+        grid, weights, pts, nrm, config=ft.SolverConfig(tol=TOL, **CHEB)))
+    launches = read()
+    (xr, ir), ms_xla = timed(lambda: ft.sdf_from_points(
+        grid, weights, pts, nrm, config=ft.SolverConfig(tol=1e-4, backend="xla", **CHEB)))
+    compare_path("field A′ seed 0", x, info, xr, ir)
+    true = check_precise("field A′ precise", ft, grid, weights, pts, nrm, xp, infop, device)
+    print(f"field A′ seed 0: {ms:.3f} ms ({int(info.iterations)} iterations) against "
+          f"damped Jacobi {ms_j:.3f} ms ({int(ij.iterations)} iterations, rel "
+          f"{float(ij.rel_residual):.3e}) and backend='xla' {ms_xla:.3f} ms; precise: "
+          f"iterations {int(infop.iterations)}, reported rel {float(infop.rel_residual):.6e}, "
+          f"true rel {true:.6e}, {msp:.3f} ms; launches {launches}")
+    require_launched("field A′", launches, ("fused_wcycle_2d_cheb", "fused_normal_apply"),
+                     ("fused_pcg_solve", "fused_smooth", "fused_smooth_2d"))
+    profile_fields("field A′", [lambda: ft.sdf_from_points(
+        grid, weights, pts, nrm, config=cfg)], ("cycle kernel", "apply kernel"))
+    return launches, apply_rec
+
+
+def phase_main4cg(ft, device, iters_jacobi):
+    """Config 4-cg: BASELINE config 4 (128³, 4000 sphere points, tol 1e-4)
+    with kind-4 Chebyshev smoothing and Galerkin coarse data, seeds 0..1,
+    each against backend="xla": the per-sweep kernel in Chebyshev mode on
+    the lumped fine level and the 27-channel coarse levels, and the apply."""
+    grid, weights = ft.Grid(SHAPE3), ft.Weights(model_2=0.3)
+    change = {**CHEB, **GALERKIN}
+    cfg = ft.SolverConfig(tol=1e-4, **change)
+    inputs = {s: sphere_inputs(s, device) for s in SEEDS4_CG}
+    ft.sdf_from_points(grid, weights, *inputs[0], config=cfg)  # warm-up
+    torch.cuda.synchronize()
+    read = counters_zero()
+    fields = []
+    for seed in SEEDS4_CG:
+        (x, info), ms = timed(lambda: ft.sdf_from_points(grid, weights, *inputs[seed],
+                                                         config=cfg))
+        fields.append((seed, x, info, ms))
+    launches = read()
+    for seed, x, info, ms in fields:
+        xr, ir = ft.sdf_from_points(grid, weights, *inputs[seed], config=ft.SolverConfig(
+            tol=1e-4, backend="xla", **change))
+        compare_path(f"config 4-cg seed {seed}", x, info, xr, ir)
+        print(f"config 4-cg seed {seed}: {ms:.3f} ms, {int(info.iterations)} iterations "
+              f"(damped Jacobi, phase 8: {iters_jacobi.get(seed)})")
+        require(tuple(x.shape) == SHAPE3, f"config 4-cg: shape {tuple(x.shape)}")
+    print(f"config 4-cg: launches {launches} over {len(fields)} fields")
+    require_launched("config 4-cg", launches, ("fused_smooth_cheb", "fused_normal_apply"),
+                     ("fused_pcg_solve",))
+    from field_interpolation_tpu_torch import solver
+    clock = StageClock()
+    p = clock("assemble_sdf", lambda: ft.assemble_sdf(grid, weights, *inputs[0]))
+    apply_fn = solver._make_apply(p, cfg)
+    pc = clock("preconditioner setup (Galerkin levels)",
+               lambda: solver._make_precond(p, cfg, apply_fn))
+    clock("one cycle", lambda: pc(p.b))
+    clock("solve", lambda: ft.solve(p, cfg))
+    print(f"profile config 4-cg, host clocks after synchronize, seed 0: {clock.line()}")
+    del p, pc
+    profile_fields("config 4-cg", [lambda: ft.sdf_from_points(
+        grid, weights, *inputs[0], config=cfg)], ("sweep kernel", "apply kernel"))
+    return launches
+
+
+def phase_main5cheb(ft, device):
+    """Config 5-cheb: BASELINE config 5's proxy (4096², 100 000 points,
+    tol 1e-4, fmg_start=1) with kind-4 Chebyshev smoothing, seed 0, against
+    backend="xla": the multi-sweep kernel in Chebyshev mode on the 4096² and
+    2048² fine levels, the per-sweep one on the diagonal levels, the apply."""
+    from field_interpolation_tpu_torch import sdf as tsdf
+    grid, weights = ft.Grid(SHAPE5), ft.Weights(model_2=0.3)
+    cfg = ft.SolverConfig(**CFG5, **CHEB)
+    pts, nrm = circle5_inputs(0, device)
+    coarse, restore = record_solves(tsdf)
+    try:
+        read = counters_zero()
+        (x, info), ms = timed(lambda: ft.sdf_from_points(grid, weights, pts, nrm,
+                                                         config=cfg, fmg_start=FMG5))
+        launches = read()
+        its_c = [int(i.iterations) for i in coarse[:-1]]
+    finally:
+        restore()
+    (xr, ir), ms_xla = timed(lambda: ft.sdf_from_points(
+        grid, weights, pts, nrm, config=ft.SolverConfig(**{**CFG5, "backend": "xla"}, **CHEB),
+        fmg_start=FMG5))
+    compare_path("config 5-cheb seed 0", x, info, xr, ir)
+    print(f"config 5-cheb seed 0: {ms:.3f} ms (backend='xla' {ms_xla:.3f} ms), fine "
+          f"iterations {int(info.iterations)}, coarse (fmg) iterations {its_c}; launches "
+          f"{launches}")
+    require(tuple(x.shape) == SHAPE5, f"config 5-cheb: shape {tuple(x.shape)}")
+    require_launched("config 5-cheb", launches,
+                     ("fused_smooth_2d_cheb", "fused_smooth_cheb", "fused_normal_apply"),
+                     ("fused_pcg_solve",))
+    return launches
+
+
 def main():
     require(torch.cuda.is_available(), "torch.cuda.is_available() is False")
     import field_interpolation_tpu_torch as ft
@@ -1191,7 +1561,7 @@ def main():
     p128, p32, lvl1, apply3_rec = phase_apply3d(ft, device)
     sweep_rec = phase_sweep3d(ft, device, p128, p32, lvl1)
     del p128, p32, lvl1
-    launches3 = phase_main3d(ft, device)
+    launches3, iters3 = phase_main3d(ft, device)
     phase_profile3d(ft, device)
     p5, multi_rec, apply5_rec = phase_smooth2d(ft, device)
     sweep5_rec = phase_sweep2d(ft, device, p5)
@@ -1203,6 +1573,19 @@ def main():
     launches_a, apply_a_rec = phase_field_a(ft, device)
     phase_field_b(ft, device, v_ms, v_iters)
     launches_c, recs_c = phase_field_c(ft, device)
+    # The Chebyshev / Galerkin slice: each kernel's Chebyshev mode against
+    # its plain version, then its five paths.
+    from field_interpolation_tpu_torch.multigrid import build_fused_solver_operands
+    recs_cs = phase_cheb_sweep(ft, device)
+    recs_c5 = phase_cheb5(ft, device)
+    cycle_cheb_rec = phase_cycle(ft, device, SHAPE_A2, CHEB)
+    seg_recs = {name: phase_segment(problem, build_fused_solver_operands(
+        problem, ft.SolverConfig(tol=TOL, **change)), device, label=f" {name}")[0]
+        for name, change in [("H-cheb", CHEB), ("H-gal", {**CHEB, **GALERKIN})]}
+    launches_h = phase_h_cheb(ft, device, v_ms, v_iters)
+    launches_a2, apply_a2_rec = phase_field_a2(ft, device)
+    launches_4cg = phase_main4cg(ft, device, iters3)
+    launches_5c = phase_main5cheb(ft, device)
 
     src = "field_interpolation_tpu_torch/csrc/"
     ref = "field_interpolation_tpu/ops/pallas_stencil.py:"
@@ -1242,6 +1625,28 @@ def main():
              launches=launches_c["fused_smooth_2d"], **recs_c["multi"]),
         dict(name="jacobi_sweep_2d_field_c", route="cuda", source=src + "jacobi_sweep.cu",
              replaces=ref + "513", launches=launches_c["fused_smooth"], **recs_c["sweep"]),
+        # Chebyshev modes; launches in that mode on their path.
+        dict(name="jacobi_sweep_cheb", route="cuda", source=src + "jacobi_sweep.cu",
+             replaces=ref + "537,1813", launches=launches_4cg["fused_smooth_cheb"],
+             **recs_cs["diag"], lumped_fine=recs_cs["fine"], galerkin=recs_cs["galerkin"]),
+        dict(name="jacobi_sweep_cheb_2d_diag", route="cuda", source=src + "jacobi_sweep.cu",
+             replaces=ref + "537,1959", launches=launches_5c["fused_smooth_cheb"],
+             **recs_c5["diag"]),
+        dict(name="jacobi_multisweep_2d_cheb", route="cuda",
+             source=src + "jacobi_multisweep2d.cu", replaces=ref + "653,876",
+             launches=launches_5c["fused_smooth_2d_cheb"], **recs_c5["multi"]),
+        dict(name="mg_cycle2d_cheb", route="cuda", source=src + "mg_cycle2d.cu",
+             replaces=ref + "1052,1114,1192",
+             launches=launches_a2["fused_wcycle_2d_cheb"], **cycle_cheb_rec),
+        dict(name="fused_pcg_solve_cheb", route="cuda", source=src + "pcg_segment.cu",
+             replaces=ref + "1484", launches=launches_h["H-cheb"]["fused_pcg_solve_cheb"],
+             **seg_recs["H-cheb"]),
+        dict(name="fused_pcg_solve_cheb_galerkin", route="cuda",
+             source=src + "pcg_segment.cu", replaces=ref + "1484",
+             launches=launches_h["H-gal"]["fused_pcg_solve_cheb"], **seg_recs["H-gal"]),
+        dict(name="fused_normal_apply_2d_field_a2", route="cuda",
+             source=src + "normal_apply.cu", replaces=ref + "300",
+             launches=launches_a2["fused_normal_apply"], **apply_a2_rec),
     ]
     for k in kernels:
         k["library_ms"] = None  # no one PyTorch call computes any of these functions

@@ -2,10 +2,11 @@
 
 Scattered-data field interpolation and SDF reconstruction on 2-D and 3-D
 grids as a matrix-free normal-equations PCG, in PyTorch, with the operator
-apply, the damped-Jacobi sweep, the multi-sweep 2-D Jacobi smoother, the
-whole 2-D multigrid cycle and the whole 2-D multigrid-PCG segment as
-hand-written CUDA kernels for the H100 (``ops/``, ``csrc/``). On CPU tensors every kernel runs its plain PyTorch
-version.
+apply, the per-sweep smoother, the multi-sweep 2-D smoother (each in
+damped-Jacobi and Chebyshev form), the whole 2-D multigrid cycle and the
+whole 2-D multigrid-PCG segment as hand-written CUDA kernels for the H100
+(``ops/``, ``csrc/``); lumped or Galerkin coarse data. On CPU tensors every
+kernel runs its plain PyTorch version.
 The JAX package stays the reference; names here are its names. Entry points
 not ported yet are listed in ROADMAP.md.
 """

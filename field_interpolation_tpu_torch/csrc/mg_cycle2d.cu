@@ -1,13 +1,16 @@
 // The whole 2-D multigrid cycle for Hopper: z = M⁻¹ r, one symmetric
-// damped-Jacobi V- or W-cycle with the dense coarsest solve, in ONE
-// cooperative launch.
+// V- or W-cycle with damped-Jacobi or Chebyshev smoothing and the dense
+// coarsest solve, in ONE cooperative launch.
 //
 // Replaces three TPU kernels of field_interpolation_tpu/ops/pallas_stencil.py
 // that compute the same cycle:
 //   _vc_down_call (1052 → 1100) and _vc_up_call (1114 → 1161), the two
 //     halves of fused_vcycle_2d (1172), with the XLA coarsest matvec between
 //     them: wdepth = 0, ν_pre and ν_post apart;
-//   fused_wcycle_2d (1192 → 1238): wdepth > 0, ν_pre = ν_post.
+//   fused_wcycle_2d (1192 → 1238): wdepth > 0, ν_pre = ν_post;
+// each in its Jacobi and its Chebyshev mode (the per-level schedules of
+// cf_refs, 1059-1098, 1119-1159, 1204-1236), on lumped (diagonal) or
+// Galerkin (9-channel) coarse levels.
 // The reference splits its V-cycle in two calls only because Mosaic cannot
 // reshape (nc0, nc1) → (nc0·nc1, 1) in a kernel (pallas_stencil.py:
 // 1008-1013); here the coarsest matvec is one phase of the same launch.
@@ -50,8 +53,9 @@ mg_cycle2d_kernel(const __grid_constant__ Args a) {
 }  // namespace
 
 // Host tables, filled by field_interpolation_tpu_torch/ops/cycle.py:
-//   ptrs: r, z_out, inv; then the cycle's level and transfer pointers
-//         (mg_cycle2d.cuh:fill_cycle; level 0's r entry is 0: it is r).
+//   ptrs: r, z_out, inv; then the cycle's level, transfer and schedule
+//         pointers (mg_cycle2d.cuh:fill_cycle; level 0's r entry is 0: it
+//         is r).
 //   ints: L, nu_pre, nu_post, wdepth, then n0, n1, diag per level.
 //   w2s:  4 per level (w_k² for orders 0..3).
 extern "C" int fi_mg_cycle2d(const long long* ptrs, const int* ints, const float* w2s,

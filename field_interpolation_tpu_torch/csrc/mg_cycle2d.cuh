@@ -1,12 +1,22 @@
-// One symmetric damped-Jacobi multigrid cycle (V or W) on a 2-D hierarchy,
-// run by every block of a cooperative grid with grid barriers between
-// dependent phases. Shared by the PCG segment kernel (pcg_segment.cu), which
-// runs it as its preconditioner, and the whole-cycle kernel (mg_cycle2d.cu).
+// One symmetric multigrid cycle (V or W) on a 2-D hierarchy, damped-Jacobi
+// or Chebyshev smoothing, run by every block of a cooperative grid with grid
+// barriers between dependent phases. Shared by the PCG segment kernel
+// (pcg_segment.cu), which runs it as its preconditioner, and the whole-cycle
+// kernel (mg_cycle2d.cu).
 //
 // The cycle of field_interpolation_tpu/ops/pallas_stencil.py:_vcycle_refs
-// (1439-1481) with _smooth_inplace (1016-1027) and the in-kernel coarse
-// solve (1426-1436); with wdepth = 0 it is also _vc_down_call (1052) + the
-// dense coarsest matvec + _vc_up_call (1114) of fused_vcycle_2d (1172).
+// (1439-1481) with _lvl_smooth (1037-1049: _smooth_inplace 1016-1027 or
+// _cheb_inplace 483-507) and the in-kernel coarse solve (1426-1436); with
+// wdepth = 0 it is also _vc_down_call (1052) + the dense coarsest matvec +
+// _vc_up_call (1114) of fused_vcycle_2d (1172).
+//
+// Chebyshev (a level whose schedule pointer cf is set): sweep k is
+// z⁺ = z + c1_k·(z − z_prev) + c2_k·sid·(r − A z) with sid = D⁻¹ and the
+// [ν, 2] schedule read from device memory, the same row for every thread,
+// so the mode branch is uniform. z_prev needs no third buffer: the sweep
+// writes z⁺ into the ping-pong buffer that holds z_prev, each thread
+// reading z_prev at its own node before writing there, neighbours reading z.
+// Pre-smoothing starts from z = z_prev = 0, post-smoothing from z_prev = z.
 //
 // The W step (wdepth > 0): after level l's first child visit is prolonged
 // and added into z_l, r_{l+1} −= A_{l+1} z_{l+1} and level l+1 is visited
@@ -34,8 +44,9 @@ constexpr int kMaxLevels = 8;
 constexpr int kThreads = 256;  // power of two: block_sum's tree needs it
 
 struct Level {
-    ApplyOp op;         // this level's operator (level 0: full 9-channel data)
-    const float* sid;   // τ_l · D_l⁻¹
+    ApplyOp op;         // this level's operator (9-channel data or diagonal)
+    const float* sid;   // τ_l · D_l⁻¹ (Jacobi) or D_l⁻¹ (Chebyshev)
+    const float* cf;    // [ν, 2] Chebyshev schedule; null: damped Jacobi
     float* r;           // residual (level 0: the cycle's input, never written)
     float* za;          // ping-pong correction buffers
     float* zb;
@@ -85,16 +96,29 @@ static __device__ void write_partial(float* partials, float v, float* sh) {
     if (threadIdx.x == 0) partials[blockIdx.x] = s;
 }
 
-// z_out = z_in + sid·(r − A z_in); z_in == nullptr means z_in = 0, so the
-// first sweep from zero is z_out = sid·r (pallas_stencil.py:1019-1024).
-// Returns this thread's share of Σ r·z_out when want_dot.
-static __device__ float sweep(const Level& lv, const float* zin, float* zout, bool want_dot) {
+// Sweep k on level lv: z_out = z_in + sid·(r − A z_in) (Jacobi) or
+// z_in + c1_k·(z_in − z_prev) + c2_k·sid·(r − A z_in) (Chebyshev). z_in ==
+// nullptr means z_in = 0, so the first sweep from zero is z_out = sid·r
+// (c2_0·sid·r; pallas_stencil.py:1019-1024, 491-497); z_prev == nullptr
+// means z_prev = 0, and z_prev may be z_out. Returns this thread's share of
+// Σ r·z_out when want_dot.
+static __device__ float sweep(const Level& lv, const float* zin, const float* zprev,
+                              float* zout, int k, bool want_dot) {
     const int N = nodes(lv), n1 = lv.op.n1;
+    const bool cheb = lv.cf != nullptr;
+    const float c1 = cheb ? lv.cf[2 * k] : 0.f;
+    const float c2 = cheb ? lv.cf[2 * k + 1] : 1.f;
     float acc = 0.f;
     for (int i = gtid(); i < N; i += gstride()) {
         const float r = lv.r[i];
-        const float z = zin ? zin[i] + lv.sid[i] * (r - apply_at(lv.op, zin, i / n1, i % n1))
-                            : lv.sid[i] * r;
+        float z;
+        if (zin == nullptr) {
+            z = c2 * (lv.sid[i] * r);
+        } else {
+            const float zi = zin[i];
+            const float res = lv.sid[i] * (r - apply_at(lv.op, zin, i / n1, i % n1));
+            z = cheb ? zi + (c1 * (zi - (zprev ? zprev[i] : 0.f)) + c2 * res) : zi + res;
+        }
         zout[i] = z;
         if (want_dot) acc += r * z;
     }
@@ -190,11 +214,13 @@ static __device__ float* pre_smooth(const Level& lv, int nu, cg::grid_group& g) 
         g.sync();
         return lv.za;
     }
-    float* cur = nullptr;  // null: the first sweep reads no z
+    float* cur = nullptr;        // null: the first sweep reads no z
+    const float* prev = nullptr;  // Chebyshev's z_prev, 0 from zero
     for (int s = 0; s < nu; ++s) {
         float* nxt = cur ? other(lv, cur) : lv.za;
-        sweep(lv, cur, nxt, false);
+        sweep(lv, cur, prev, nxt, s, false);
         g.sync();
+        prev = cur;
         cur = nxt;
     }
     return cur;
@@ -233,12 +259,14 @@ static __device__ const float* cycle(const Cycle& c, cg::grid_group& g, float* s
             if (again) break;                             // W: visit level l+1 again
             const Level& lv = c.lv[l];
             float* cur = z[l];
+            const float* prev = cur;  // Chebyshev from z: z_prev = z
             for (int s = 0; s < c.nu_post; ++s) {
                 const bool want = l == 0 && s == c.nu_post - 1 && rz_partials;
                 float* nxt = other(lv, cur);
-                const float ds = sweep(lv, cur, nxt, want);
+                const float ds = sweep(lv, cur, prev, nxt, s, want);
                 if (want) write_partial(rz_partials, ds, sh);
                 g.sync();
+                prev = cur;
                 cur = nxt;
             }
             z[l] = cur;
@@ -255,7 +283,8 @@ T* as_ptr(long long v) { return reinterpret_cast<T*>(static_cast<uintptr_t>(v));
 
 // Fills c from the tables both entry points share (ops/cycle.py builds them):
 //   lp: 6 pointers per level (coeff, sid, r, za, zb, az; r of level 0 is 0,
-//       set by the caller), then 6 per transfer (R0, R1, rb0, rb1, pb0, pb1);
+//       set by the caller), then 6 per transfer (R0, R1, rb0, rb1, pb0, pb1),
+//       then 1 per level: its [ν, 2] Chebyshev schedule (0: damped Jacobi);
 //   li: L, nu_pre, nu_post, wdepth, then (n0, n1, diag) per level;
 //   w2s: 4 per level (w_k² for orders 0..3).
 // Returns false on counts the kernels do not take.
@@ -281,6 +310,7 @@ static inline bool fill_cycle(Cycle& c, const long long* lp, const int* li,
         lv.op.n1 = li[5 + 3 * l];
         lv.op.diag = li[6 + 3 * l];
         for (int o = 0; o < 4; ++o) lv.op.w2[o] = w2s[4 * l + o];
+        lv.cf = as_ptr<const float>(lp[12 * c.L - 6 + l]);
     }
     for (int t = 0; t < c.L - 1; ++t) {
         const long long* q = lp + 6 * c.L + 6 * t;

@@ -1,10 +1,12 @@
 // fused_pcg_solve for Hopper: one safeguarded CG segment with a symmetric
-// damped-Jacobi multigrid V- or W-cycle preconditioner, in ONE persistent
+// multigrid V- or W-cycle preconditioner (damped-Jacobi or Chebyshev
+// smoothing, lumped or Galerkin coarse levels), in ONE persistent
 // cooperative kernel per segment.
 //
 // Replaces field_interpolation_tpu/ops/pallas_stencil.py:fused_pcg_solve
 // (lines 1484-1629) with _vcycle_refs (1439-1481), _smooth_inplace
-// (1016-1027) and the coarse solve (1426-1436); the cycle is
+// (1016-1027) or _cheb_inplace (483-507) and the coarse solve (1426-1436);
+// the cycle is
 // mg_cycle2d.cuh's, shared with the whole-cycle kernel (mg_cycle2d.cu).
 //
 //   z = M(r); p = z
@@ -125,8 +127,9 @@ pcg_segment_kernel(const __grid_constant__ Params p) {
 
 // Host tables, filled by field_interpolation_tpu_torch/ops/pcg.py:
 //   ptrs: x_in, r_in, tol2, budget, x_out, iters_out, rr_out, rw, p,
-//         partials, inv; then the cycle's level and transfer pointers
-//         (mg_cycle2d.cuh:fill_cycle; level 0's r entry is 0: it is rw).
+//         partials, inv; then the cycle's level, transfer and schedule
+//         pointers (mg_cycle2d.cuh:fill_cycle; level 0's r entry is 0: it
+//         is rw).
 //   ints: capacity, then the cycle's ints (L, nu_pre, nu_post, wdepth, then
 //         n0, n1, diag per level).
 //   w2s:  4 per level (w_k² for orders 0..3).

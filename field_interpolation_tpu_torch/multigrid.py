@@ -10,13 +10,14 @@ Counterpart of ``field_interpolation_tpu.multigrid``:
   cached on the device per shape by `_restriction_tensor`) remain for the
   fused segment's and the whole-cycle kernel's operands.
 * coarse operators — rediscretized smoothness with energy-matched weights
-  ``w_k ← w_k · 2^{(D-2k)/2}`` per coarsening, plus the diagonally lumped
-  data term ``diag_c = Pᵀ² diag_f``.
+  ``w_k ← w_k · 2^{(D-2k)/2}`` per coarsening, plus the data term: the
+  diagonally lumped ``diag_c = Pᵀ² diag_f`` (``mg_coarse_data="lumped"``) or
+  the full Galerkin stencil PᵀAP folded back to 3^D channels
+  (``"galerkin"``, `galerkin_coarse_coeff`, built from banded per-axis
+  triple products).
+* smoothing — damped Jacobi, or Chebyshev (``mg_smoother="chebyshev"`` /
+  ``"chebyshev4"``) with the per-level schedule of `chebyshev_coefs`.
 * coarsest level — a dense inverse built at setup, one small matvec per cycle.
-
-Only the lumped coarse data, the damped-Jacobi smoother and the dense or
-Jacobi coarsest solve are ported; Galerkin coarse data and Chebyshev
-smoothing raise ``NotImplementedError`` (ROADMAP.md).
 
 With ``kernels=True`` (the reference's ``pallas_smooth``) the cycle runs
 through the port's kernels, at any size, on CPU and CUDA tensors alike:
@@ -39,6 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import math
 
 import numpy as np
@@ -52,17 +54,6 @@ from .ops import _policy
 from .ops._policy import fits_vmem
 from .ops.smooth import fused_smooth, fused_smooth_2d
 from .weights import SolverConfig, Weights
-
-
-def _require_ported(config: SolverConfig) -> None:
-    if config.mg_coarse_data != "lumped":
-        raise NotImplementedError(
-            "mg_coarse_data='galerkin' is not ported (ROADMAP queue 1, "
-            "Chebyshev / Galerkin)")
-    if config.mg_smoother != "jacobi":
-        raise NotImplementedError(
-            f"mg_smoother={config.mg_smoother!r} is not ported (ROADMAP "
-            "queue 1, Chebyshev / Galerkin)")
 
 
 @functools.lru_cache(maxsize=None)
@@ -179,6 +170,131 @@ def restrict_diag(diag_f: torch.Tensor, coarse_shape: tuple[int, ...]) -> torch.
 
 
 @functools.lru_cache(maxsize=None)
+def _galerkin_axis_bands(n_c: int, n_f: int):
+    """The reference's per-axis triple-product transfer (multigrid.py:268-290)
+    in banded form: T[p, j, o, a] = Σ P[a, j]·P[a+o, j+p] (p ∈ −2..2, o ∈
+    −1..1) is nonzero only where P[a, j] ≠ 0, i.e. for a in a window of W
+    fine nodes around coarse node j. Returns (start [n_c] int64, the first
+    fine node of row j's window, and T_band [5, 3, W, n_c] float64 with
+    T_band[p, o, w, j] = T[p, j, o, start[j] + w]). The dense [5, n_c, 3,
+    n_f] tensor is never formed: at 4096² it would be ~0.5 GB per axis."""
+    P = _resize_matrix(n_f, n_c)  # prolongation [n_f, n_c]
+    nz = P != 0
+    first = np.argmax(nz, axis=0)
+    last = n_f - 1 - np.argmax(nz[::-1], axis=0)
+    W = int((last - first).max()) + 1
+    start = np.minimum(first, n_f - W).astype(np.int64)
+    T = np.zeros((5, 3, W, n_c))
+    for a in range(n_f):
+        for j in np.flatnonzero(nz[a]):
+            pa = P[a, j]
+            for oi, o in enumerate((-1, 0, 1)):
+                b = a + o
+                if 0 <= b < n_f:
+                    for j2 in np.flatnonzero(nz[b]):
+                        T[j2 - j + 2, oi, a - start[j], j] += pa * P[b, j2]
+    start.setflags(write=False)
+    T.setflags(write=False)
+    return start, T
+
+
+@functools.lru_cache(maxsize=None)
+def _galerkin_band_tensors(n_c: int, n_f: int, dtype: torch.dtype,
+                           device: torch.device):
+    """`_galerkin_axis_bands` on ``device``: (rows [W, n_c] int64, the fine
+    node of window term w of coarse node j; T_band [5, 3, W, n_c]). Made once
+    per key."""
+    start, T = _galerkin_axis_bands(n_c, n_f)
+    rows = start[None, :] + np.arange(T.shape[2])[:, None]
+    return (torch.tensor(rows, dtype=torch.int64, device=device),
+            torch.tensor(T, dtype=dtype, device=device))
+
+
+def _galerkin_axis(x: torch.Tensor, d: int, ndim: int, n_c: int) -> torch.Tensor:
+    """Contract the stencil pair of axis d of x [(3,)*D, *fine] with the
+    banded triple product: the offset axis d (3 wide) becomes p (5 wide),
+    the node axis D + d becomes the coarse one. The reference's tensordot
+    (multigrid.py:315-318) over the nonzeros only: 3·W gathers of n_c rows."""
+    rows, T = _galerkin_band_tensors(n_c, x.shape[ndim + d], x.dtype, x.device)
+    node_ax = ndim + d - 1  # the node axis once the offset axis is selected
+    out = None
+    for o in range(3):
+        xo = x.select(d, o)
+        for w in range(rows.shape[0]):
+            g = torch.index_select(xo, node_ax, rows[w]).unsqueeze(0)
+            t = T[:, o, w].reshape((5,) + (1,) * node_ax + (n_c,)
+                                   + (1,) * (g.ndim - node_ax - 2))
+            out = t * g if out is None else out + t * g
+    return out.movedim(0, d)
+
+
+def galerkin_coarse_coeff(coeff: torch.Tensor,
+                          coarse_shape: tuple[int, ...]) -> torch.Tensor:
+    """Full Galerkin transfer of a [3^D, *fine] data stencil to [3^D,
+    *coarse] (the reference's multigrid.py:293-342): per-axis contractions
+    with the banded triple products give the exact PᵀAP as a radius-2
+    stencil; the |p| = 2 entries the endpoint-aligned transfers leave on
+    non-dyadic grids are then folded SPD-safely, as the reference does:
+    each symmetric pair is dropped and |e| added to both row diagonals,
+    A_fold = PᵀAP + Σ |e|·(e_j ∓ e_{j+p})(e_j ∓ e_{j+p})ᵀ ⪰ PᵀAP. (The
+    reference found that a row-sum-preserving inward fold makes the
+    stencil indefinite and breaks CG; do not fold inward.)"""
+    ndim = len(coarse_shape)
+    fine_shape = tuple(coeff.shape[-ndim:])
+    x = coeff.reshape((3,) * ndim + fine_shape)
+    widths = []
+    for d, (n_f, n_c) in enumerate(zip(fine_shape, coarse_shape)):
+        if n_f == n_c:
+            widths.append(3)
+            continue
+        x = _galerkin_axis(x, d, ndim, n_c)
+        widths.append(5)
+    kept, extra = {}, None
+    for idx in itertools.product(*[range(w) for w in widths]):
+        p = tuple(i - w // 2 for i, w in zip(idx, widths))
+        if all(abs(c) <= 1 for c in p):
+            kept[p] = x[idx]
+        else:
+            extra = x[idx].abs() if extra is None else extra + x[idx].abs()
+    center = (0,) * ndim
+    chans = []
+    for off in offset_list(ndim):
+        p = tuple(int(v) for v in off)
+        chans.append(kept[p] + extra if extra is not None and p == center
+                     else kept[p])
+    return torch.stack(chans)
+
+
+def chebyshev_coefs(rho: torch.Tensor, nu: int, config: SolverConfig) -> torch.Tensor:
+    """[ν, 2] float32 Chebyshev schedule on D⁻¹A for the Gershgorin bound
+    ``rho`` (a 0-dim tensor; the schedule stays on its device, nothing is
+    read back), the reference's multigrid.py:345-380 op for op. The
+    recurrence z⁺ = z + c1_k·(z − z_prev) + c2_k·D⁻¹(r − A z) starts from
+    z_prev = z (or 0 from zero). "chebyshev": the first-kind polynomial on
+    [ρ̂/mg_cheb_ratio, ρ̂]; "chebyshev4": the fourth-kind one on (0, ρ̂],
+    c1_k = (2k−3)/(2k+1), c2_k = (8k−4)/((2k+1)·ρ̂), k = 1..ν."""
+    if nu <= 0:
+        return torch.zeros((0, 2), dtype=torch.float32, device=rho.device)
+    if config.mg_smoother == "chebyshev4":
+        rows = [torch.stack([torch.full_like(rho, (2.0 * k - 3.0) / (2.0 * k + 1.0)),
+                             (8.0 * k - 4.0) / ((2.0 * k + 1.0) * rho)])
+                for k in range(1, nu + 1)]
+        return torch.stack(rows).to(torch.float32)
+    lmax = rho
+    lmin = rho / config.mg_cheb_ratio
+    theta = 0.5 * (lmax + lmin)
+    delta = 0.5 * (lmax - lmin)
+    sigma = theta / delta
+    rows = [torch.stack([torch.zeros_like(theta), 1.0 / theta])]
+    rho_prev = 1.0 / sigma
+    for _ in range(1, nu):
+        rho_k = 1.0 / (2.0 * sigma - rho_prev)
+        rows.append(torch.stack([rho_k * rho_prev, 2.0 * rho_k / delta]))
+        rho_prev = rho_k
+    return torch.stack(rows).to(torch.float32)
+
+
+@functools.lru_cache(maxsize=None)
 def _smoothness_dense_matrix(shape: tuple[int, ...], weights: Weights) -> np.ndarray:
     """Dense matrix of the smoothness normal operator on a (small) grid;
     problem-independent, so the coarsest operator assembles as
@@ -259,7 +375,9 @@ class _Level:
     diag: torch.Tensor        # diag of this level's operator [*shape]
     shape: tuple[int, ...]
     weights: Weights
-    data_coeff: torch.Tensor | None = None  # full stencil (degenerate hierarchy)
+    # The full 3^D-channel stencil (Galerkin coarse data, or the degenerate
+    # hierarchy's fine level); None = the lumped diagonal data_diag.
+    data_coeff: torch.Tensor | None = None
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         s = stencils.smoothness_apply(x, self.weights, len(self.shape))
@@ -298,20 +416,27 @@ def level_shapes(fine_shape: tuple[int, ...],
 
 def build_levels(problem: Problem, config: SolverConfig) -> list[_Level]:
     """Level hierarchy below the fine problem (level 0 IS the problem), with
-    the diagonally lumped coarse data term."""
-    _require_ported(config)
+    the diagonally lumped coarse data term or, under
+    ``mg_coarse_data="galerkin"``, the full Galerkin stencil of each level
+    (``data_coeff``; ``data_diag`` is then its center channel)."""
     levels: list[_Level] = []
     weights = problem.weights
     ndim = problem.grid.ndim
+    galerkin = config.mg_coarse_data == "galerkin"
     ddiag = data_diag(problem.coeff, ndim)
+    dcoeff = problem.coeff if galerkin else None
     for coarse_shape in level_shapes(problem.grid.shape, config.mg_min_size,
                                      config.mg_coarse_solver):
         weights = _coarsen_weights(weights, ndim)
-        ddiag = restrict_diag(ddiag, coarse_shape)
+        if galerkin:
+            dcoeff = galerkin_coarse_coeff(dcoeff, coarse_shape)
+            ddiag = data_diag(dcoeff, ndim)
+        else:
+            ddiag = restrict_diag(ddiag, coarse_shape)
         diag = stencils.smoothness_diag(coarse_shape, weights, dtype=ddiag.dtype,
                                         device=ddiag.device) + ddiag
         levels.append(_Level(shape=coarse_shape, weights=weights,
-                             data_diag=ddiag, diag=diag))
+                             data_diag=ddiag, diag=diag, data_coeff=dcoeff))
     return levels
 
 
@@ -324,8 +449,8 @@ def _rho_bound(row_abs: torch.Tensor, diag: torch.Tensor) -> torch.Tensor:
 def build_smoothing_setup(problem: Problem, levels: list, config) -> tuple:
     """(lump, fine_ddiag, taus, rhos): the fine-level lumping decision, the
     per-level damped-Jacobi steps τ_l = 2·mg_omega/ρ̂(D_l⁻¹A_l) and the
-    Gershgorin bounds ρ̂_l. Shared by the plain V-cycle and the fused
-    operands, as in the reference."""
+    Gershgorin bounds ρ̂_l (the Chebyshev schedules' λmax). Shared by the
+    plain V-cycle and the fused operands, as in the reference."""
     ndim = problem.grid.ndim
     dtype, dev = problem.diag.dtype, problem.diag.device
     lump = config.mg_fine_operator == "lumped"
@@ -342,7 +467,11 @@ def build_smoothing_setup(problem: Problem, levels: list, config) -> tuple:
     for lvl in levels:
         rowabs = stencils.smoothness_row_abs_sum(lvl.shape, lvl.weights,
                                                  lvl.diag.dtype, dev)
-        rhos.append(_rho_bound(rowabs + lvl.data_diag, lvl.diag))
+        if lvl.data_coeff is not None:
+            rowabs = rowabs + torch.sum(torch.abs(lvl.data_coeff), dim=0)
+        else:
+            rowabs = rowabs + lvl.data_diag
+        rhos.append(_rho_bound(rowabs, lvl.diag))
     taus = [2.0 * config.mg_omega / r for r in rhos]
     return lump, fine_ddiag, taus, rhos
 
@@ -351,37 +480,58 @@ def _inv_diag(diag: torch.Tensor) -> torch.Tensor:
     return torch.where(diag > 0, 1.0 / diag, torch.ones_like(diag))
 
 
+def _is_cheb(config: SolverConfig) -> bool:
+    return config.mg_smoother.startswith("chebyshev")
+
+
+def _level_coeffs(problem: Problem, levels) -> list[torch.Tensor]:
+    """Per level the data term the fused kernels take: the fine [3^D,
+    *shape] stencil, then each coarse level's full Galerkin stencil or its
+    [*shape] diagonal (the kernels tell them apart by rank)."""
+    return [problem.coeff] + [l.data_diag if l.data_coeff is None else l.data_coeff
+                              for l in levels]
+
+
 def _fused_vcycle_operands(problem, levels, taus, fine_inv_diag, inv_diags,
-                           coarse_dense, config):
-    """The per-level operands of the fused segment kernel: (coeffs, sids, Rs
-    per-axis restriction matrices, inv32 dense coarsest inverse, level
-    Weights, None). coeffs[l] is the fine [3^D, *shape] stencil or a coarse
-    [*shape] diagonal; sids = τ_l·D_l⁻¹. None if the working set exceeds the
+                           coarse_dense, config, rhos):
+    """The per-level operands of the fused segment and whole-cycle kernels
+    (the reference's multigrid.py:599-640): (coeffs, sids, Rs per-axis
+    restriction matrices, inv32 dense coarsest inverse, level Weights,
+    cfs). coeffs as `_level_coeffs`. Jacobi: sids = τ_l·D_l⁻¹, cfs None;
+    Chebyshev: sids = D_l⁻¹ unscaled, cfs[l] the [ν, 2] schedule of
+    `chebyshev_coefs` for ρ̂_l. None if the working set exceeds the
     reference's 12 MB VMEM budget (TPU policy, kept for parity)."""
+    if not _fused_operands_fit(problem, levels, config):
+        return None
     ndim = problem.grid.ndim
     f32 = torch.float32
     shapes_all = [problem.grid.shape] + [l.shape for l in levels]
-    # Contiguous: the segment kernel reads every operand by flat index.
-    coeffs = [c.to(f32).contiguous()
-              for c in [problem.coeff] + [l.data_diag for l in levels]]
+    # Contiguous: the kernels read every operand by flat index.
+    coeffs = [c.to(f32).contiguous() for c in _level_coeffs(problem, levels)]
     lw = [problem.weights] + [l.weights for l in levels]
     inv_all = [fine_inv_diag] + list(inv_diags)
-    sids = [(t * d).to(f32).contiguous() for t, d in zip(taus, inv_all)]
+    cfs = None
+    if _is_cheb(config):
+        sids = [d.to(f32).contiguous() for d in inv_all]
+        cfs = [chebyshev_coefs(r, config.mg_pre_smooth, config) for r in rhos]
+    else:
+        sids = [(t * d).to(f32).contiguous() for t, d in zip(taus, inv_all)]
     dev = problem.coeff.device
     Rs = [_restriction_tensor(shapes_all[i][d], shapes_all[i + 1][d], dev)
           for i in range(len(shapes_all) - 1) for d in range(ndim)]
     inv32 = coarse_dense.to(f32).contiguous()
-    if not _fused_operands_fit(problem, levels):
-        return None
-    return coeffs, sids, Rs, inv32, lw, None
+    return coeffs, sids, Rs, inv32, lw, cfs
 
 
-def _fused_operands_fit(problem: Problem, levels) -> bool:
+def _fused_operands_fit(problem: Problem, levels, config: SolverConfig) -> bool:
     """The reference's 12 MB VMEM budget for the fused-cycle operands
-    (multigrid.py:636-639; TPU policy, kept for parity)."""
+    (multigrid.py:635-639; TPU policy, kept for parity): every level's data
+    term (a Galerkin level's 3^D channels), the dense coarsest inverse and
+    3 fine arrays of scratch, 4 under Chebyshev (z_prev)."""
     n_c = math.prod(levels[-1].shape)
-    est = (problem.coeff.numel() + sum(l.data_diag.numel() for l in levels)
-           + n_c * n_c + 3 * problem.grid.num_nodes) * 4
+    scratch = 4 if _is_cheb(config) else 3
+    est = (sum(c.numel() for c in _level_coeffs(problem, levels)) + n_c * n_c
+           + scratch * problem.grid.num_nodes) * 4
     return est <= 12 * 1024 * 1024
 
 
@@ -402,13 +552,13 @@ def build_fused_solver_operands(problem: Problem, config: SolverConfig):
         return None
     if not all(fits_vmem(l.shape) for l in levels):
         return None
-    lump, _, taus, _ = build_smoothing_setup(problem, levels, config)
+    lump, _, taus, rhos = build_smoothing_setup(problem, levels, config)
     if lump:
         return None  # the fused kernel smooths with the full data stencil
     coarse_dense = _coarse_dense_inverse(levels[-1])
     return _fused_vcycle_operands(problem, levels, taus, _inv_diag(problem.diag),
                                   [_inv_diag(l.diag) for l in levels],
-                                  coarse_dense, config)
+                                  coarse_dense, config, rhos)
 
 
 def resolve_wdepth(config: SolverConfig, fine_shape: tuple[int, ...]) -> int:
@@ -461,79 +611,81 @@ def kernel_plan(problem: Problem, config: SolverConfig, levels, lump: bool):
     coarsest solve and ν_pre = ν_post, inside the fused-operand budget."""
     shapes = [problem.grid.shape] + [l.shape for l in levels]
     radius = max(stencils.max_stencil_radius(problem.weights), 1)
-    plan = smoother_plan(shapes, [lump] + [True] * len(levels), radius,
-                         max(config.mg_pre_smooth, config.mg_post_smooth))
+    plan = smoother_plan(shapes, [lump] + [l.data_coeff is None for l in levels],
+                         radius, max(config.mg_pre_smooth, config.mg_post_smooth))
     whole = None
     if (problem.grid.ndim == 2 and config.mg_coarse_solver == "dense" and levels
             and math.prod(levels[-1].shape) <= 4096
             and all(n is not None for n in plan)
             and config.mg_pre_smooth == config.mg_post_smooth
-            and _fused_operands_fit(problem, levels)):
+            and _fused_operands_fit(problem, levels, config)):
         whole = ("fused_wcycle_2d" if resolve_wdepth(config, problem.grid.shape)
                  else "fused_vcycle_2d")
     return plan, whole
 
 
-def _kernel_smoother(coeff, sid, weights: Weights, ndim: int):
+def _kernel_smoother(coeff, sid, weights: Weights, ndim: int, schedule=None):
     """smooth(r, z, sweeps, from_zero) on one level through a smoothing
     kernel; ``coeff`` is the level's full stencil or diagonal data term. A
     2-D full stencil goes to the multi-sweep kernel, everything else to the
-    per-sweep one."""
+    per-sweep one. ``schedule``: None (damped Jacobi, sid = τ·D⁻¹) or a
+    function of the sweep count giving its [ν, 2] Chebyshev schedule
+    (sid = D⁻¹)."""
     c32 = coeff.to(torch.float32).contiguous()
     s32 = sid.to(torch.float32).contiguous()
 
-    if ndim == 2 and c32.ndim == 3:
-        def smooth(r, z, sweeps, from_zero):
+    def smooth(r, z, sweeps, from_zero):
+        cf = None if schedule is None else schedule(sweeps)
+        if ndim == 2 and c32.ndim == 3:
             return fused_smooth_2d(r.contiguous(), z.contiguous(), c32, s32,
-                                   weights, sweeps, from_zero)
-    else:
-        def smooth(r, z, sweeps, from_zero):
-            return fused_smooth(r.contiguous(), z.contiguous(), c32, s32,
-                                weights, ndim, sweeps, from_zero)
+                                   weights, sweeps, from_zero, cheb_coefs=cf)
+        return fused_smooth(r.contiguous(), z.contiguous(), c32, s32, weights,
+                            ndim, sweeps, from_zero, cheb_coefs=cf)
     return smooth
 
 
 def whole_cycle_operands(problem: Problem, config: SolverConfig, levels=None,
                          setup=None):
-    """((coeffs, sids, Rs, inv32, lw), wdepth) that the whole-cycle route
-    hands its kernel (the reference's route, multigrid.py:1017-1042), or
-    None where `kernel_plan` names no whole-cycle kernel. The operands are
-    `_fused_vcycle_operands` with the cycle's own taus: under
+    """((coeffs, sids, Rs, inv32, lw), wdepth, cfs) that the whole-cycle
+    route hands its kernel (the reference's route, multigrid.py:1017-1042),
+    or None where `kernel_plan` names no whole-cycle kernel. The operands
+    are `_fused_vcycle_operands` with the cycle's own taus and ρ̂: under
     ``mg_fine_operator="lumped"`` those are the lumped fine level's while
-    coeffs[0] stays the full 9-channel stencil, as in the reference.
-    ``levels`` and ``setup`` (`build_smoothing_setup`'s result) are reused
-    when given."""
+    coeffs[0] stays the full 9-channel stencil, as in the reference; cfs
+    are the Chebyshev schedules (None under Jacobi). ``levels`` and
+    ``setup`` (`build_smoothing_setup`'s result) are reused when given."""
     levels = build_levels(problem, config) if levels is None else levels
-    lump, _, taus, _ = (build_smoothing_setup(problem, levels, config)
-                        if setup is None else setup)
+    lump, _, taus, rhos = (build_smoothing_setup(problem, levels, config)
+                           if setup is None else setup)
     if kernel_plan(problem, config, levels, lump)[1] is None:
         return None
-    coeffs, sids, Rs, inv32, lw, _ = _fused_vcycle_operands(
+    coeffs, sids, Rs, inv32, lw, cfs = _fused_vcycle_operands(
         problem, levels, taus, _inv_diag(problem.diag),
-        [_inv_diag(l.diag) for l in levels], _coarse_dense_inverse(levels[-1]), config)
-    return (coeffs, sids, Rs, inv32, lw), resolve_wdepth(config, problem.grid.shape)
+        [_inv_diag(l.diag) for l in levels], _coarse_dense_inverse(levels[-1]),
+        config, rhos)
+    return ((coeffs, sids, Rs, inv32, lw), resolve_wdepth(config, problem.grid.shape),
+            cfs)
 
 
-def _whole_cycle(ops, wdepth: int, config: SolverConfig):
+def _whole_cycle(ops, wdepth: int, cfs, config: SolverConfig):
     """The cycle as one whole-cycle kernel call on `whole_cycle_operands`'
     result: the W-cycle wrapper when ``wdepth > 0``, else the V-cycle's."""
     from .ops import cycle  # ops.cycle imports this module
     if wdepth > 0:
         return lambda r: cycle.fused_wcycle_2d(r.contiguous(), *ops, config.mg_pre_smooth,
-                                               wdepth=wdepth)
+                                               cheb_coefs=cfs, wdepth=wdepth)
     return lambda r: cycle.fused_vcycle_2d(r.contiguous(), *ops, config.mg_pre_smooth,
-                                           config.mg_post_smooth)
+                                           config.mg_post_smooth, cheb_coefs=cfs)
 
 
 def make_vcycle_preconditioner(problem: Problem, config: SolverConfig,
                                apply_fn=None, kernels: bool = False):
     """Returns z = M⁻¹ r: one symmetric multigrid cycle with damped-Jacobi
-    smoothing. ``apply_fn`` overrides the fine-level operator apply.
-    ``kernels`` (the reference's ``pallas_smooth``): run the cycle as one
-    whole-cycle kernel call where the reference does
-    (`whole_cycle_operands`), else smooth every level through a smoothing kernel
-    (`_kernel_smoother`)."""
-    _require_ported(config)
+    or Chebyshev smoothing. ``apply_fn`` overrides the fine-level operator
+    apply. ``kernels`` (the reference's ``pallas_smooth``): run the cycle as
+    one whole-cycle kernel call where the reference does
+    (`whole_cycle_operands`), else smooth every level through a smoothing
+    kernel (`_kernel_smoother`)."""
     levels = build_levels(problem, config)
     nu = config.mg_pre_smooth
     ndim = problem.grid.ndim
@@ -553,7 +705,7 @@ def make_vcycle_preconditioner(problem: Problem, config: SolverConfig,
         whole = whole_cycle_operands(problem, config, levels, setup)
         if whole is not None:
             return _whole_cycle(*whole, config)
-    lump, fine_ddiag, taus, _ = setup
+    lump, fine_ddiag, taus, rhos = setup
     if lump:
         def fine_apply(x):
             return stencils.smoothness_apply(x, problem.weights, ndim) + fine_ddiag * x
@@ -568,15 +720,37 @@ def make_vcycle_preconditioner(problem: Problem, config: SolverConfig,
             and math.prod(levels[-1].shape) <= 4096):
         coarse_dense = _coarse_dense_inverse(levels[-1])
 
+    cheb = _is_cheb(config)
+
+    @functools.lru_cache(maxsize=None)
+    def schedule(li, iters):
+        # Made once per (level, sweep count), on the device of ρ̂_l.
+        return chebyshev_coefs(rhos[li], iters, config)
+
     smoothers = [None] * len(shapes)
     if kernels:
-        coeffs = [fine_ddiag if lump else problem.coeff] + [l.data_diag for l in levels]
+        coeffs = ([fine_ddiag if lump else problem.coeff]
+                  + _level_coeffs(problem, levels)[1:])
         weights = [problem.weights] + [l.weights for l in levels]
-        smoothers = [_kernel_smoother(c, t * d, w, ndim)
-                     for c, t, d, w in zip(coeffs, taus, inv_diags, weights)]
+        # Chebyshev reads its per-sweep scalars off the schedule, so the
+        # kernels get D⁻¹ unscaled there.
+        smoothers = [_kernel_smoother(c, d if cheb else t * d, w, ndim,
+                                      functools.partial(schedule, li) if cheb else None)
+                     for li, (c, t, d, w) in enumerate(zip(coeffs, taus, inv_diags,
+                                                           weights))]
 
     def smooth(li, r, z, iters):
-        # z None = from zero: the first sweep is sid·r.
+        # z None = from zero: the first sweep is sid·r (Jacobi).
+        if cheb:
+            # z⁺ = z + c1_k·(z − z_prev) + c2_k·D⁻¹(r − A z), z_prev = z at
+            # the start (the reference's multigrid.py:862-872).
+            cf = schedule(li, iters)
+            z = torch.zeros_like(r) if z is None else z
+            zp = z
+            for k in range(iters):
+                z, zp = (z + cf[k, 0] * (z - zp)
+                         + cf[k, 1] * inv_diags[li] * (r - applies[li](z))), z
+            return z
         for _ in range(iters):
             az = 0.0 if z is None else applies[li](z)
             z = (0.0 if z is None else z) + taus[li] * inv_diags[li] * (r - az)

@@ -35,13 +35,14 @@ _SIGNATURES = {
     # x, coeff, out, ndim, n0, n1, n2, w2_0..w2_3, diag, stream
     "fi_normal_apply": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P),
     # r, z (null: from zero), coeff, sid, out, ndim, n0, n1, n2, w2_0..w2_3,
-    # diag, stream
+    # diag, zprev (null: zeros), cf (null: Jacobi), k, stream
     "fi_jacobi_sweep": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F,
-                        _I, _P),
+                        _I, _P, _P, _I, _P),
     # r, z (null: from zero), coeff [9, n0, n1], sid, out, n0, n1, w2_0..w2_3,
-    # rho, sweeps, stream
+    # rho, sweeps, zprev (null: zeros), cf (null: Jacobi), k0, zprev_out
+    # (null: not wanted), stream
     "fi_jacobi_multisweep2d": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I,
-                               _I, _P),
+                               _I, _P, _P, _I, _P, _P),
     # the halo, in nodes, the multi-sweep kernel is built for
     "fi_jacobi_multisweep2d_max_halo": (),
     # pointer table, int table, w2 table (all host), stream

@@ -2,7 +2,9 @@
 
 One CUDA kernel (``csrc/mg_cycle2d.cu``) stands in for three TPU kernels of
 ``field_interpolation_tpu/ops/pallas_stencil.py`` that compute the same
-symmetric damped-Jacobi cycle on a 2-D hierarchy:
+symmetric cycle on a 2-D hierarchy, with damped-Jacobi smoothing or, given
+per-level [ν, 2] schedules (``cheb_coefs``), Chebyshev smoothing, and with
+lumped (diagonal) or Galerkin (9-channel) coarse levels:
 
 * `fused_vcycle_2d` — ``_vc_down_call`` (1052 → 1100) and ``_vc_up_call``
   (1114 → 1161), the two halves of the reference's ``fused_vcycle_2d``
@@ -22,7 +24,9 @@ nodes.
 
 Each wrapper launches the kernel for CUDA tensors and runs `mg_cycle_plain`
 for CPU tensors, and counts its launches in ``fused_vcycle_2d.launches`` /
-``fused_wcycle_2d.launches``. Chebyshev smoothing is not ported (ROADMAP.md).
+``fused_wcycle_2d.launches``, those in Chebyshev mode also in
+``.cheb_launches``. The schedules stay on the device: the kernel reads them
+there.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import torch
 from ..multigrid import _resize_matrix
 from ..weights import Weights
 from . import _build
+from .smooth import check_schedule, fused_smooth_plain
 from .stencil import fused_normal_apply_plain, order_w2
 
 MAX_LEVELS = 8  # csrc/mg_cycle2d.cuh: kMaxLevels
@@ -48,12 +53,15 @@ def level_shapes(coeffs: list[torch.Tensor]) -> list[tuple[int, int]]:
 
 
 def mg_cycle_plain(r, coeffs, sids, Rs, inv_c, level_weights: list[Weights],
-                   nu_pre: int, nu_post: int, wdepth: int = 0) -> torch.Tensor:
-    """One symmetric damped-Jacobi cycle z = M⁻¹ r in plain torch ops, on the
-    operands of `fused_vcycle_2d`: ν_pre sweeps from zero (the first is
-    sid·r and counts as one), residual, restriction R0·res·R1ᵀ, the coarser
-    visit, prolong-add, ν_post sweeps. A transition l < ``wdepth`` with
-    l + 1 above the coarsest level visits level l+1 a second time, on the
+                   nu_pre: int, nu_post: int, wdepth: int = 0,
+                   cheb_coefs=None) -> torch.Tensor:
+    """One symmetric cycle z = M⁻¹ r in plain torch ops, on the operands of
+    `fused_vcycle_2d`: ν_pre sweeps from zero (the first is sid·r, or
+    c2_0·sid·r under Chebyshev, and counts as one), residual, restriction
+    R0·res·R1ᵀ, the coarser visit, prolong-add, ν_post sweeps from z. The
+    sweeps are `fused_smooth_plain`'s, damped Jacobi or, with
+    ``cheb_coefs[l]``, Chebyshev. A transition l < ``wdepth`` with l + 1
+    above the coarsest level visits level l+1 a second time, on the
     residual the first visit leaves (the W-cycle of _vcycle_refs)."""
     L = len(coeffs)
 
@@ -61,10 +69,12 @@ def mg_cycle_plain(r, coeffs, sids, Rs, inv_c, level_weights: list[Weights],
         return fused_normal_apply_plain(v, coeffs[l], level_weights[l], 2)
 
     def smooth(l, r_l, z, sweeps):
-        # z None = from zero: the first sweep is z = sid·r.
-        for _ in range(sweeps):
-            z = sids[l] * r_l if z is None else z + sids[l] * (r_l - A(l, z))
-        return torch.zeros_like(r_l) if z is None else z
+        # z None = from zero; 0 sweeps from zero are zeros (_smooth_inplace).
+        if sweeps == 0:
+            return torch.zeros_like(r_l) if z is None else z
+        return fused_smooth_plain(r_l, z, coeffs[l], sids[l], level_weights[l], 2,
+                                  sweeps, z is None,
+                                  None if cheb_coefs is None else cheb_coefs[l])
 
     def cycle(r_l, l):
         if l == L - 1:
@@ -110,11 +120,23 @@ def _ok(t, device, shape, dtype=torch.float32) -> bool:
             and tuple(t.shape) == tuple(shape))
 
 
+def check_schedules(what: str, cheb_coefs, n_levels: int, nu: int, device) -> None:
+    """Raise ValueError unless ``cheb_coefs`` (not None) holds a Chebyshev
+    schedule for ``nu`` sweeps (`smooth.check_schedule`) for each level
+    that smooths, the first ``n_levels`` − 1."""
+    if isinstance(cheb_coefs, torch.Tensor) or len(cheb_coefs) < n_levels - 1:
+        raise ValueError(f"{what}: needs a list of per-level Chebyshev schedules, "
+                         f">= {n_levels - 1} for {n_levels} levels")
+    for l in range(n_levels - 1):
+        check_schedule(f"{what} level {l}", cheb_coefs[l], nu, device)
+
+
 def check_cycle_operands(what: str, device, coeffs, sids, Rs, inv_c,
                          bad: list[str]) -> None:
     """Raise ValueError unless the cycle's operands suit the CUDA kernels:
     2..MAX_LEVELS levels, contiguous float32 on ``device``, the fine level
-    with the [9, n0, n1] data stencil, the per-axis Rs [n_{l+1,d}, n_{l,d}]
+    with the [9, n0, n1] data stencil, each coarse level with its diagonal or
+    its [9, *shape] Galerkin stencil, the per-axis Rs [n_{l+1,d}, n_{l,d}]
     and the [Nc, Nc] coarsest inverse. ``bad``: what the caller found wrong
     with its own operands, reported with these."""
     L = len(coeffs)
@@ -143,11 +165,13 @@ def check_cycle_operands(what: str, device, coeffs, sids, Rs, inv_c,
                          + "; ".join(bad))
 
 
-def cycle_tables(coeffs, sids, Rs, level_weights, nu_pre, nu_post, wdepth, device):
+def cycle_tables(coeffs, sids, Rs, level_weights, nu_pre, nu_post, wdepth, device,
+                 cheb_coefs=None):
     """The cycle's part of the host tables of csrc/mg_cycle2d.cuh:fill_cycle,
     and the level buffers: (pointers, ints, w2s, scratch). Level 0's r
-    pointer is 0: each entry point sets it to its own residual. The caller
-    keeps ``scratch`` alive until the launch is queued."""
+    pointer is 0: each entry point sets it to its own residual; a level's
+    schedule pointer is 0 under damped Jacobi. The caller keeps ``scratch``
+    alive until the launch is queued."""
     shapes = level_shapes(coeffs)
     L = len(coeffs)
     # One allocation for every level's buffers: (r,) za, zb, az, level 0
@@ -166,6 +190,8 @@ def cycle_tables(coeffs, sids, Rs, level_weights, nu_pre, nu_post, wdepth, devic
         ptrs += [t.data_ptr() for t in tabs]                        # restriction
         ptrs += [t.data_ptr() + 4 * 2 * shapes[l + 1][d]            # prolongation
                  for d, t in enumerate(tabs)]
+    ptrs += [0 if cheb_coefs is None or l == L - 1 else cheb_coefs[l].data_ptr()
+             for l in range(L)]
     ints = [L, int(nu_pre), int(nu_post), int(wdepth)]
     for l, s in enumerate(shapes):
         ints += [s[0], s[1], int(coeffs[l].ndim == 2)]
@@ -186,16 +212,14 @@ def call_tables(lib_fn, ptrs, ints, w2s, device) -> int:
 
 def _cycle(name, counter, r, coeffs, sids, Rs, inv_c, level_weights, nu_pre,
            nu_post, wdepth, cheb_coefs):
-    if cheb_coefs is not None:
-        raise NotImplementedError(
-            f"{name}: Chebyshev smoothing is not ported (ROADMAP.md, the "
-            "Chebyshev slice: fused_smooth and the cycle kernels)")
     if min(int(nu_pre), int(nu_post), int(wdepth)) < 0:
         raise ValueError(f"{name}: nu_pre, nu_post and wdepth must be >= 0, got "
                          f"{nu_pre}, {nu_post}, {wdepth}")
+    if cheb_coefs is not None:
+        check_schedules(name, cheb_coefs, len(coeffs), max(nu_pre, nu_post), r.device)
     if r.device.type == "cpu":
         return mg_cycle_plain(r, coeffs, sids, Rs, inv_c, level_weights, nu_pre,
-                              nu_post, wdepth)
+                              nu_post, wdepth, cheb_coefs)
     if r.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {r.device}")
     shape0 = level_shapes(coeffs)[0]
@@ -205,11 +229,12 @@ def _cycle(name, counter, r, coeffs, sids, Rs, inv_c, level_weights, nu_pre,
     lib = _build.library()
     z = torch.empty_like(r)
     lp, li, w2s, _scratch = cycle_tables(coeffs, sids, Rs, level_weights, nu_pre,
-                                         nu_post, wdepth, r.device)
+                                         nu_post, wdepth, r.device, cheb_coefs)
     rc = call_tables(lib.fi_mg_cycle2d, [r.data_ptr(), z.data_ptr(), inv_c.data_ptr()]
                      + lp, li, w2s, r.device)
     _build.check(rc, name)
     counter.launches += 1
+    counter.cheb_launches += cheb_coefs is not None
     return z
 
 
@@ -218,10 +243,13 @@ def fused_vcycle_2d(r, coeffs, sids, Rs, inv_c, level_weights: list[Weights],
     """One symmetric V-cycle z = M⁻¹ r (pallas_stencil.py:1172) in one launch.
 
     r: [n0, n1] float32 residual. coeffs[l]: the [9, n0, n1] data stencil
-    (fine level) or the [*shape_l] diagonal; sids[l] = τ_l·D_l⁻¹; Rs: per
-    transition the two per-axis restriction matrices [n_{l+1,d}, n_{l,d}]
-    (the transposes of ``multigrid._resize_matrix``, read by the kernel only
-    over their bands); inv_c: the dense inverse of the coarsest operator."""
+    (fine level; Galerkin coarse levels) or the [*shape_l] diagonal; sids[l]
+    = τ_l·D_l⁻¹ (Jacobi) or D_l⁻¹ (Chebyshev, with ``cheb_coefs[l]`` the
+    level's [≥ ν, 2] float32 schedule on r's device, for every level but
+    the coarsest); Rs: per transition the two per-axis restriction matrices
+    [n_{l+1,d}, n_{l,d}] (the transposes of ``multigrid._resize_matrix``,
+    read by the kernel only over their bands); inv_c: the dense inverse of
+    the coarsest operator."""
     return _cycle("fused_vcycle_2d", fused_vcycle_2d, r, coeffs, sids, Rs, inv_c,
                   level_weights, nu_pre, nu_post, 0, cheb_coefs)
 
@@ -235,5 +263,5 @@ def fused_wcycle_2d(r, coeffs, sids, Rs, inv_c, level_weights: list[Weights],
                   level_weights, nu, nu, wdepth, cheb_coefs)
 
 
-fused_vcycle_2d.launches = 0
-fused_wcycle_2d.launches = 0
+fused_vcycle_2d.launches = fused_vcycle_2d.cheb_launches = 0
+fused_wcycle_2d.launches = fused_wcycle_2d.cheb_launches = 0

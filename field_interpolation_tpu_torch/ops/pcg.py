@@ -2,20 +2,23 @@
 
 Replaces ``field_interpolation_tpu/ops/pallas_stencil.py:fused_pcg_solve``
 (lines 1484-1629, with ``_vcycle_refs`` 1439-1481 and ``_smooth_inplace``
-1016-1027). The CUDA kernel is ``csrc/pcg_segment.cu``: a persistent
-cooperative kernel whose CG loop runs on the device, phases separated by
-grid barriers. Its preconditioner is the V- or W-cycle of
-``csrc/mg_cycle2d.cuh``, the device code of the whole-cycle kernel
-(`ops.cycle`). On the H100 the barriers bound it, not memory: a V-cycle is
-~40 dependent phases, most on coarse levels of a few hundred nodes. Its
-design keeps the whole segment in one launch, takes every loop decision from
-dot products summed in a fixed order (same exit in every block, same
-iteration count on every run), ping-pongs the Jacobi sweeps and reads the
-transfers only over their bands.
+1016-1027 or ``_cheb_inplace`` 483-507). The CUDA kernel is
+``csrc/pcg_segment.cu``: a persistent cooperative kernel whose CG loop runs
+on the device, phases separated by grid barriers. Its preconditioner is the
+V- or W-cycle of ``csrc/mg_cycle2d.cuh``, the device code of the
+whole-cycle kernel (`ops.cycle`), with damped-Jacobi or Chebyshev smoothing
+and lumped or Galerkin coarse levels. On the H100 the barriers bound it,
+not memory: a V-cycle is ~40 dependent phases, most on coarse levels of a
+few hundred nodes. Its design keeps the whole segment in one launch, takes
+every loop decision from dot products summed in a fixed order (same exit in
+every block, same iteration count on every run), ping-pongs the sweeps and
+reads the transfers only over their bands.
 
 ``fused_pcg_solve`` launches the kernel for CUDA tensors and runs
 ``fused_pcg_solve_plain`` (the same segment in torch ops on the same
-operands, its cycle `ops.cycle.mg_cycle_plain`) for CPU tensors.
+operands, its cycle `ops.cycle.mg_cycle_plain`) for CPU tensors, and
+counts its launches in ``fused_pcg_solve.launches``, those in Chebyshev mode
+also in ``.cheb_launches``.
 """
 
 from __future__ import annotations
@@ -24,8 +27,8 @@ import torch
 
 from ..weights import Weights
 from . import _build
-from .cycle import (_ok, call_tables, check_cycle_operands, cycle_tables,
-                    mg_cycle_plain)
+from .cycle import (_ok, call_tables, check_cycle_operands, check_schedules,
+                    cycle_tables, mg_cycle_plain)
 from .stencil import fused_normal_apply_plain
 
 # Upper bound on the kernel's grid; the C entry point never launches more
@@ -37,14 +40,9 @@ def fused_pcg_solve_plain(x, r, tol2, iter_budget, coeffs, sids, Rs, inv_c,
                           level_weights: list[Weights], nu: int,
                           cheb_coefs=None, wdepth: int = 0):
     """The segment in plain torch ops; same contract as `fused_pcg_solve`."""
-    if cheb_coefs is not None:
-        raise NotImplementedError(
-            "fused_pcg_solve: Chebyshev smoothing is not ported "
-            "(ROADMAP.md, the Chebyshev slice: fused_smooth / fused_pcg_solve)")
-
     def precond(v):
         return mg_cycle_plain(v, coeffs, sids, Rs, inv_c, level_weights, nu, nu,
-                              wdepth)
+                              wdepth, cheb_coefs)
 
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
     xo, rw = x.clone(), r.clone()
@@ -86,7 +84,7 @@ def _check_operands(x, r, tol2, iter_budget, coeffs, sids, Rs, inv_c) -> None:
 
 
 def _launch_tables(x, r, tol2, iter_budget, coeffs, sids, Rs, inv_c,
-                   level_weights, nu, wdepth):
+                   level_weights, nu, wdepth, cheb_coefs=None):
     """Outputs, scratch and the host tables of csrc/pcg_segment.cu's
     ``fi_pcg_segment`` (layout documented there): pointers, ints, w_k².
     Returns (outputs, ptrs, ints, w2s, scratch); the caller keeps
@@ -99,7 +97,7 @@ def _launch_tables(x, r, tol2, iter_budget, coeffs, sids, Rs, inv_c,
     p = torch.empty_like(x)
     partials = torch.empty(3 * _MAX_BLOCKS, dtype=torch.float32, device=dev)
     lp, li, w2s, bufs = cycle_tables(coeffs, sids, Rs, level_weights, nu, nu,
-                                     wdepth, dev)
+                                     wdepth, dev, cheb_coefs)
     ptrs = [t.data_ptr() for t in (x, r, tol2, iter_budget, x_out, iters, rr,
                                    rw, p, partials, inv_c)] + lp
     return ((x_out, iters, rr), ptrs, [_MAX_BLOCKS] + li, w2s,
@@ -113,33 +111,37 @@ def fused_pcg_solve(x, r, tol2, iter_budget, coeffs, sids, Rs, inv_c,
 
     x, r: current iterate and its TRUE residual [n0, n1] float32. tol2,
     iter_budget: (1,1) float32 / int32. coeffs[l]: the [9, n0, n1] data
-    stencil (fine level) or the [*shape_l] diagonal; sids[l] = τ_l·D_l⁻¹;
-    Rs: per transition the two per-axis restriction matrices [n_c, n_f]
-    (the transposes of ``multigrid._resize_matrix``, which the kernel reads
-    only over their bands); inv_c: dense inverse of the coarsest operator;
-    wdepth: the transitions whose coarser level the cycle visits twice (0: a
-    V-cycle, 99: the textbook W-cycle). Returns (x_out, iters (1,1) int32, rr (1,1) float32)."""
+    stencil (fine level; Galerkin coarse levels) or the [*shape_l] diagonal;
+    sids[l] = τ_l·D_l⁻¹ (Jacobi) or D_l⁻¹ (Chebyshev, with ``cheb_coefs``
+    the per-level [≥ ν, 2] float32 schedules on x's device, as
+    `ops.cycle.fused_vcycle_2d`); Rs: per transition the two per-axis
+    restriction matrices [n_c, n_f] (the transposes of
+    ``multigrid._resize_matrix``, which the kernel reads only over their
+    bands); inv_c: dense inverse of the coarsest operator; wdepth: the
+    transitions whose coarser level the cycle visits twice (0: a V-cycle,
+    99: the textbook W-cycle). Returns (x_out, iters (1,1) int32, rr (1,1)
+    float32)."""
+    if int(nu) < 0 or int(wdepth) < 0:
+        raise ValueError(f"fused_pcg_solve: nu and wdepth must be >= 0, got {nu}, "
+                         f"{wdepth}")
+    if cheb_coefs is not None:
+        check_schedules("fused_pcg_solve", cheb_coefs, len(coeffs), nu, x.device)
     if x.device.type == "cpu":
         return fused_pcg_solve_plain(x, r, tol2, iter_budget, coeffs, sids, Rs,
                                      inv_c, level_weights, nu, cheb_coefs,
                                      wdepth)
     if x.device.type != "cuda":
         raise ValueError(f"fused_pcg_solve: no kernel for device {x.device}")
-    if cheb_coefs is not None:
-        raise NotImplementedError(
-            "fused_pcg_solve: the CUDA kernel runs damped-Jacobi cycles; Chebyshev "
-            "smoothing is the next slice (ROADMAP.md: fused_smooth Chebyshev)")
-    if int(nu) < 0 or int(wdepth) < 0:
-        raise ValueError(f"fused_pcg_solve: nu and wdepth must be >= 0, got {nu}, "
-                         f"{wdepth}")
     _check_operands(x, r, tol2, iter_budget, coeffs, sids, Rs, inv_c)
     lib = _build.library()
     outs, ptrs, ints, w2s, _scratch = _launch_tables(
-        x, r, tol2, iter_budget, coeffs, sids, Rs, inv_c, level_weights, nu, wdepth)
+        x, r, tol2, iter_budget, coeffs, sids, Rs, inv_c, level_weights, nu, wdepth,
+        cheb_coefs)
     rc = call_tables(lib.fi_pcg_segment, ptrs, ints, w2s, x.device)
     _build.check(rc, "fused_pcg_solve")
     fused_pcg_solve.launches += 1
+    fused_pcg_solve.cheb_launches += cheb_coefs is not None
     return outs
 
 
-fused_pcg_solve.launches = 0
+fused_pcg_solve.launches = fused_pcg_solve.cheb_launches = 0

@@ -1,35 +1,44 @@
-"""Kernels 3 and 4: damped-Jacobi smoothing, ``z ← z + sid·(r − A z)``.
+"""Kernels 3 and 4: multigrid smoothing, damped Jacobi or Chebyshev.
 
-Two CUDA kernels stand in for the Jacobi smoothers of
-``field_interpolation_tpu/ops/pallas_stencil.py``.
+    damped Jacobi:  z ← z + sid·(r − A z)                          (sid = τ·D⁻¹)
+    Chebyshev:      z ← z + c1_k·(z − z_prev) + c2_k·sid·(r − A z)  (sid = D⁻¹)
+
+with (c1_k, c2_k) row k of a [ν, 2] schedule (``multigrid.chebyshev_coefs``)
+that stays on the device: the kernels read it there, so a Chebyshev phase
+copies nothing to the host. Two CUDA kernels stand in for the smoothers of
+``field_interpolation_tpu/ops/pallas_stencil.py``, each with both modes.
 
 ``csrc/jacobi_sweep.cu``, one sweep per launch:
 
-* `fused_smooth` — ``fused_smooth`` in its Jacobi form (513 → 559): ν sweeps
-  on a level, 2-D or 3-D, launched as ν sweeps of the kernel; the multigrid
-  cycle sends it the diagonal-data levels and 3-D full-data levels;
+* `fused_smooth` — ``fused_smooth`` (513) in its Jacobi form (→ 559) and
+  its Chebyshev form (→ 537): ν sweeps on a level, 2-D or 3-D, launched as
+  ν sweeps of the kernel; the multigrid cycle sends it the diagonal-data
+  levels and 3-D full-data levels, the Chebyshev mode included where the
+  reference runs Jacobi launches plus XLA axpys (1813, 1959);
 * `fused_sweep` — ``fused_sweep_striped2_3d`` (1813) and
-  ``fused_sweep_striped_diag`` (1959): ONE sweep with a diagonal data term
-  (the lumped fine level of a large 3-D grid; the 1024²/2048² coarse levels
-  of a large 2-D grid), which is `fused_smooth` with one sweep from z.
+  ``fused_sweep_striped_diag`` (1959): ONE damped-Jacobi sweep with a
+  diagonal data term (the lumped fine level of a large 3-D grid; the
+  1024²/2048² coarse levels of a large 2-D grid), which is `fused_smooth`
+  with one sweep from z.
 
 ``csrc/jacobi_multisweep2d.cu``, several sweeps per launch:
 
 * `fused_smooth_2d` — ``fused_smooth_striped`` (653) and
-  ``fused_smooth_tiled`` (876), and the 2-D full-data form of
-  ``fused_smooth`` (513): ν sweeps on a 2-D level with the 9-channel data
-  term, each block running all of them on a shared-memory tile, so the
-  coefficients come from memory once per smoothing phase.
+  ``fused_smooth_tiled`` (876), each with its Chebyshev mode, and the 2-D
+  full-data form of ``fused_smooth`` (513): ν sweeps on a 2-D level with the
+  9-channel data term, each block running all of them on a shared-memory
+  tile, so the coefficients come from memory once per smoothing phase.
 
 The TPU kernels update z in place inside one program; across CUDA blocks an
 in-place sweep would race, so the sweeps ping-pong two buffers: in
 `fused_smooth` the launch boundary is the barrier between sweeps, in
-`fused_smooth_2d` a block barrier. On the H100 both are bound by memory.
-Each wrapper launches its kernel for CUDA tensors and runs
-`fused_smooth_plain` for CPU tensors, and counts its launches in
-``fused_smooth.launches`` (the launches of `fused_sweep` included) and
-``fused_smooth_2d.launches``. Chebyshev smoothing (pallas_stencil.py:537) is
-not ported (ROADMAP.md).
+`fused_smooth_2d` a block barrier. Chebyshev's z_prev rides in the buffer
+that z⁺ overwrites (per-sweep kernel) or in registers (multi-sweep kernel).
+On the H100 both kernels are bound by memory. Each wrapper launches its
+kernel for CUDA tensors and runs `fused_smooth_plain` for CPU tensors, and
+counts its launches in ``fused_smooth.launches`` (the launches of
+`fused_sweep` included) and ``fused_smooth_2d.launches``, those in
+Chebyshev mode also in ``.cheb_launches``.
 """
 
 from __future__ import annotations
@@ -42,14 +51,43 @@ from . import _build
 from .stencil import (check_operands, fused_normal_apply_plain, kernel_dims,
                       order_w2)
 
+
+def check_schedule(what: str, cf, rows: int, device) -> None:
+    """Raise ValueError unless ``cf`` is a Chebyshev schedule for ``rows``
+    sweeps: a contiguous float32 [≥ rows, 2] tensor on ``device``."""
+    if not (isinstance(cf, torch.Tensor) and cf.ndim == 2 and cf.shape[1] == 2
+            and cf.shape[0] >= rows and cf.dtype == torch.float32
+            and cf.device == torch.device(device) and cf.is_contiguous()):
+        got = (f"{tuple(cf.shape)} {cf.dtype} on {cf.device}"
+               if isinstance(cf, torch.Tensor) else type(cf).__name__)
+        raise ValueError(f"{what}: a Chebyshev schedule must be a contiguous float32 "
+                         f"[>= {rows}, 2] tensor on {device}; got {got}")
+
+
 def fused_smooth_plain(r: torch.Tensor, z: torch.Tensor, coeff: torch.Tensor,
                        scaled_inv_diag: torch.Tensor, weights: Weights,
-                       ndim: int, sweeps: int,
-                       from_zero: bool = False) -> torch.Tensor:
-    """``sweeps`` damped-Jacobi sweeps in plain torch ops, with the
-    reference kernel's semantics (pallas_stencil.py:547-557): with
+                       ndim: int, sweeps: int, from_zero: bool = False,
+                       cheb_coefs: torch.Tensor | None = None) -> torch.Tensor:
+    """``sweeps`` smoothing sweeps in plain torch ops, with the reference
+    kernel's semantics. Damped Jacobi (pallas_stencil.py:547-557): with
     ``from_zero`` the first sweep is z = sid·r (z is not read) and counts as
-    one of the ``sweeps``, so 0 sweeps from zero still return sid·r."""
+    one of the ``sweeps``, so 0 sweeps from zero still return sid·r.
+    Chebyshev (``cheb_coefs``, the [ν, 2] schedule; _cheb_inplace 483-507):
+    from zero, z = c2_0·sid·r with z_prev = 0 and 0 sweeps return zeros;
+    from z, z_prev = z, so the c1 term of the first sweep vanishes."""
+    if cheb_coefs is not None:
+        cf = cheb_coefs
+        if from_zero:
+            if sweeps == 0:
+                return torch.zeros_like(r)
+            out, prev, start = cf[0, 1] * (scaled_inv_diag * r), torch.zeros_like(r), 1
+        else:
+            out, prev, start = z, z, 0
+        for k in range(start, sweeps):
+            az = fused_normal_apply_plain(out, coeff, weights, ndim)
+            out, prev = out + (cf[k, 0] * (out - prev)
+                               + cf[k, 1] * (scaled_inv_diag * (r - az))), out
+        return out
     if from_zero:
         out, n = scaled_inv_diag * r, sweeps - 1
     else:
@@ -61,19 +99,24 @@ def fused_smooth_plain(r: torch.Tensor, z: torch.Tensor, coeff: torch.Tensor,
 
 
 def _smoothing_call(name, launch, r, z, coeff, scaled_inv_diag, weights, ndim,
-                    sweeps, from_zero):
-    """The part both kernel wrappers share: the plain version for CPU
-    tensors; for CUDA tensors the sweeps to run (the from-zero step counts
-    as one, so it runs even at 0), the operand checks, and
-    ``launch(count, diag, lib, w2, stream)`` on r's device."""
+                    sweeps, from_zero, cheb_coefs):
+    """The part both kernel wrappers share: the checks of the counts and
+    the schedule, the plain version for CPU tensors; for CUDA tensors the
+    sweeps to run (a Jacobi from-zero step counts as one, so it runs even
+    at 0), the operand checks, and ``launch(count, diag, lib, w2, stream)``
+    on r's device."""
     if sweeps < 0:
         raise ValueError(f"{name}: sweeps must be >= 0, got {sweeps}")
+    if cheb_coefs is not None:
+        check_schedule(name, cheb_coefs, sweeps, r.device)
     if r.device.type == "cpu":
         return fused_smooth_plain(r, z, coeff, scaled_inv_diag, weights, ndim,
-                                  sweeps, from_zero)
+                                  sweeps, from_zero, cheb_coefs)
     if r.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {r.device}")
-    count = max(sweeps, 1) if from_zero else sweeps
+    if cheb_coefs is not None and from_zero and sweeps == 0:
+        return torch.zeros_like(r)
+    count = max(sweeps, 1) if from_zero and cheb_coefs is None else sweeps
     if count == 0:
         return z
     diag = check_operands(name, r, coeff, ndim, z, scaled_inv_diag)
@@ -82,30 +125,39 @@ def _smoothing_call(name, launch, r, z, coeff, scaled_inv_diag, weights, ndim,
                       _build.stream_handle(r.device))
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def fused_smooth(r: torch.Tensor, z: torch.Tensor, coeff: torch.Tensor,
                  scaled_inv_diag: torch.Tensor, weights: Weights, ndim: int,
-                 sweeps: int, from_zero: bool = False) -> torch.Tensor:
-    """``sweeps`` damped-Jacobi sweeps on (S + data) z = r, one kernel launch
-    per sweep into the other of two buffers. ``scaled_inv_diag`` = τ·D⁻¹;
-    ``coeff`` is the [3^D, *grid] data stencil or a [*grid] diagonal (read
-    off the rank). With ``from_zero`` the first launch reads no z. Semantics
-    of `fused_smooth_plain`."""
+                 sweeps: int, from_zero: bool = False,
+                 cheb_coefs: torch.Tensor | None = None) -> torch.Tensor:
+    """``sweeps`` damped-Jacobi sweeps, or Chebyshev sweeps on the schedule
+    ``cheb_coefs``, on (S + data) z = r, one kernel launch per sweep into
+    the other of two buffers. ``scaled_inv_diag`` = τ·D⁻¹ (Jacobi) or D⁻¹
+    (Chebyshev); ``coeff`` is the [3^D, *grid] data stencil or a [*grid]
+    diagonal (read off the rank). With ``from_zero`` the first launch reads
+    no z. Semantics of `fused_smooth_plain`."""
     def launch(count, diag, lib, w2, stream):
         bufs = [torch.empty_like(r) for _ in range(min(count, 2))]
         dims = kernel_dims(tuple(r.shape))
-        src = None if from_zero else z
+        # Chebyshev: z_prev is 0 from zero and z from z; from the third sweep
+        # on it is the buffer the sweep writes.
+        src = prev = None if from_zero else z
         for k in range(count):
             dst = bufs[k % 2]
-            rc = lib.fi_jacobi_sweep(r.data_ptr(),
-                                     None if src is None else src.data_ptr(),
-                                     coeff.data_ptr(), scaled_inv_diag.data_ptr(),
-                                     dst.data_ptr(), *dims, *w2, int(diag), stream)
+            rc = lib.fi_jacobi_sweep(r.data_ptr(), _ptr(src), coeff.data_ptr(),
+                                     scaled_inv_diag.data_ptr(), dst.data_ptr(), *dims,
+                                     *w2, int(diag), _ptr(prev), _ptr(cheb_coefs), k,
+                                     stream)
             _build.check(rc, "fused_smooth")
             fused_smooth.launches += 1
-            src = dst
+            fused_smooth.cheb_launches += cheb_coefs is not None
+            src, prev = dst, src
         return src
     return _smoothing_call("fused_smooth", launch, r, z, coeff, scaled_inv_diag,
-                           weights, ndim, sweeps, from_zero)
+                           weights, ndim, sweeps, from_zero, cheb_coefs)
 
 
 def fused_sweep(r: torch.Tensor, z: torch.Tensor, cdiag: torch.Tensor,
@@ -130,14 +182,17 @@ def multisweep_max_halo() -> int:
 
 def fused_smooth_2d(r: torch.Tensor, z: torch.Tensor, coeff: torch.Tensor,
                     scaled_inv_diag: torch.Tensor, weights: Weights,
-                    sweeps: int, from_zero: bool = False) -> torch.Tensor:
-    """``sweeps`` damped-Jacobi sweeps on (S + data) z = r on a 2-D grid with
-    the [9, n0, n1] data stencil, several sweeps per launch of
+                    sweeps: int, from_zero: bool = False,
+                    cheb_coefs: torch.Tensor | None = None) -> torch.Tensor:
+    """``sweeps`` damped-Jacobi sweeps, or Chebyshev sweeps on the schedule
+    ``cheb_coefs``, on (S + data) z = r on a 2-D grid with the [9, n0, n1]
+    data stencil, several sweeps per launch of
     ``csrc/jacobi_multisweep2d.cu``: the counterpart of
     ``fused_smooth_striped``, ``fused_smooth_tiled`` and the 2-D full-data
     ``fused_smooth``. A launch takes as many sweeps as fit its halo
     (`multisweep_max_halo`, in nodes, over the operator radius ρ), so a
-    longer phase (ν·ρ > 8 from z) is several launches. Semantics of
+    longer phase (ν·ρ > 8 from z) is several launches; under Chebyshev each
+    hands the next its z_prev and schedule row. Semantics of
     `fused_smooth_plain`, ``from_zero`` included."""
     def launch(left, diag, lib, w2, stream):
         if diag:
@@ -146,22 +201,26 @@ def fused_smooth_2d(r: torch.Tensor, z: torch.Tensor, coeff: torch.Tensor,
         rho = max(max_stencil_radius(weights), 1)
         per_launch = lib.fi_jacobi_multisweep2d_max_halo() // rho
         n0, n1 = r.shape
-        src = None if from_zero else z
+        src = prev = None if from_zero else z
+        row = 0  # the schedule row of the launch's first sweep
         while left:
             # The from-zero step reads no neighbours, so it costs no halo.
             k = min(left, per_launch + (1 if src is None else 0))
             dst = torch.empty_like(r)
+            prev_out = (torch.empty_like(r) if cheb_coefs is not None and left > k
+                        else None)
             rc = lib.fi_jacobi_multisweep2d(
-                r.data_ptr(), None if src is None else src.data_ptr(),
-                coeff.data_ptr(), scaled_inv_diag.data_ptr(), dst.data_ptr(),
-                n0, n1, *w2, rho, k, stream)
+                r.data_ptr(), _ptr(src), coeff.data_ptr(), scaled_inv_diag.data_ptr(),
+                dst.data_ptr(), n0, n1, *w2, rho, k, _ptr(prev), _ptr(cheb_coefs), row,
+                _ptr(prev_out), stream)
             _build.check(rc, "fused_smooth_2d")
             fused_smooth_2d.launches += 1
-            src, left = dst, left - k
+            fused_smooth_2d.cheb_launches += cheb_coefs is not None
+            src, prev, left, row = dst, prev_out, left - k, row + k
         return src
     return _smoothing_call("fused_smooth_2d", launch, r, z, coeff, scaled_inv_diag,
-                           weights, 2, sweeps, from_zero)
+                           weights, 2, sweeps, from_zero, cheb_coefs)
 
 
-fused_smooth.launches = 0
-fused_smooth_2d.launches = 0
+fused_smooth.launches = fused_smooth.cheb_launches = 0
+fused_smooth_2d.launches = fused_smooth_2d.cheb_launches = 0

@@ -11,7 +11,7 @@ Counterpart of ``field_interpolation_tpu.solver``:
   the `fits_vmem` gate) each CG segment is one `fused_pcg_solve` and each
   exit check one `fused_normal_apply`: the CUDA kernels for CUDA tensors,
   their plain versions for CPU tensors.
-* Elsewhere (3-D, large 2-D grids, other multigrid options) `pcg` runs with
+* Elsewhere (3-D, large 2-D grids, ν_pre ≠ ν_post, ...) `pcg` runs with
   the apply kernel at every size (`_make_apply`; it stands in for the
   reference's whole-array, striped and two-axis applies and its XLA apply
   alike) and the multigrid cycle runs through the kernels
@@ -21,11 +21,11 @@ Counterpart of ``field_interpolation_tpu.solver``:
   operator), else level by level through the multi-sweep kernel on 2-D
   levels with the 9-channel data term and the per-sweep one elsewhere.
 
-The reference's ``lax.while_loop``s are Python loops here that read one
-scalar per segment (fused path), per iteration (plain `pcg`) or per round.
-A CUDA problem whose configuration needs a kernel not ported yet raises
-``NotImplementedError`` instead of running plain ops, unless the caller asked
-for plain ops with ``backend="xla"``.
+Every multigrid option of the reference (damped-Jacobi or Chebyshev
+smoothing, lumped or Galerkin coarse data, V or W cycles) runs through the
+kernels on CUDA tensors. The reference's ``lax.while_loop``s are Python loops
+here that read one scalar per segment (fused path), per iteration (plain
+`pcg`) or per round.
 """
 
 from __future__ import annotations
@@ -35,8 +35,8 @@ from typing import Callable, Optional
 
 import torch
 
-from .multigrid import (_require_ported, build_fused_solver_operands,
-                        make_vcycle_preconditioner, resolve_wdepth)
+from .multigrid import (build_fused_solver_operands, make_vcycle_preconditioner,
+                        resolve_wdepth)
 from .operators import Problem
 from .ops.pcg import fused_pcg_solve
 from .ops.stencil import fused_normal_apply
@@ -201,8 +201,6 @@ def _check_config(config: SolverConfig) -> None:
     if config.debug:
         raise NotImplementedError("SolverConfig(debug=True) is not ported "
                                   "(ROADMAP queue 1, tooling)")
-    if config.preconditioner == "multigrid":
-        _require_ported(config)
 
 
 def solve(

@@ -4,8 +4,8 @@
 Same fields, same defaults (tests/test_torch_config.py holds them equal), so
 one configuration drives either package. The reference's comments explain
 how each default was chosen; the port documents only what each field does
-here. Options whose kernels are not ported yet raise ``NotImplementedError``
-where the solver reads them (see ROADMAP.md).
+here. Every multigrid option runs on the port's kernels; only
+``debug=True`` raises ``NotImplementedError`` (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -53,9 +53,9 @@ class SolverConfig:
     backend: str = "auto"
     mg_pre_smooth: int = 3
     mg_post_smooth: int = 3
-    mg_smoother: str = "jacobi"      # "jacobi" (ported) | "chebyshev" | "chebyshev4"
+    mg_smoother: str = "jacobi"      # "jacobi" | "chebyshev" | "chebyshev4"
     mg_cheb_ratio: float = 20.0
-    mg_coarse_data: str = "lumped"   # "lumped" (ported) | "galerkin"
+    mg_coarse_data: str = "lumped"   # "lumped" | "galerkin"
     mg_cycle: str = "auto"           # "auto" | "v" | "w"
     mg_wcycle_depth: int = 99        # transitions that double (mg_cycle="w")
     pcg_chunk: int = 1               # read by the reference's TPU kernel only

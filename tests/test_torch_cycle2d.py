@@ -164,27 +164,43 @@ def test_wcycle_is_symmetric():
 
 
 def test_wrappers_refuse_chebyshev_and_negative_counts():
+    """A Chebyshev schedule of the wrong shape, type or count raises
+    ValueError before any work (on CPU tensors too), as do negative counts."""
     _, t_ops = _operands("scattered 48x40")
     r = torch.as_tensor(_residual((48, 40)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cycle.fused_wcycle_2d(r, *t_ops, 3, cheb_coefs=[np.zeros((3, 2))])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cycle.fused_vcycle_2d(r, *t_ops, 3, 3, cheb_coefs=[np.zeros((3, 2))])
+    L = len(t_ops[0])
+    good = [torch.zeros((3, 2)) for _ in range(L)]
+    for bad in ([torch.zeros((2, 2))] * L,              # fewer rows than ν = 3
+                [torch.zeros((3, 3))] * L,              # not [ν, 2]
+                [np.zeros((3, 2), np.float32)] * L,     # not a tensor
+                [torch.zeros((3, 2), dtype=torch.float64)] * L,
+                good[:L - 2],                           # a level without one
+                torch.zeros((3, 2))):                   # not a list
+        with pytest.raises(ValueError, match="Chebyshev schedule"):
+            cycle.fused_wcycle_2d(r, *t_ops, 3, cheb_coefs=bad)
+        with pytest.raises(ValueError, match="Chebyshev schedule"):
+            cycle.fused_vcycle_2d(r, *t_ops, 3, 3, cheb_coefs=bad)
     with pytest.raises(ValueError):
         cycle.fused_vcycle_2d(r, *t_ops, -1, 3)
 
 
 def test_cycle_tables_match_kernel_layout():
     """The host tables have the lengths csrc/mg_cycle2d.cuh:fill_cycle reads
-    (6 pointers per level, level 0's r left 0, 6 per transfer; ints L, ν_pre,
-    ν_post, wdepth, then 3 per level; 4 w² per level), checked without a
-    card; the operands pass the CUDA wrappers' checks."""
+    (6 pointers per level, level 0's r left 0, 6 per transfer, then one
+    Chebyshev schedule per level, 0 under Jacobi and on the coarsest level;
+    ints L, ν_pre, ν_post, wdepth, then 3 per level; 4 w² per level),
+    checked without a card; the operands pass the CUDA wrappers' checks."""
     _, (coeffs, sids, Rs, inv32, lw) = _operands("scattered 48x40")
     L = len(coeffs)
     ptrs, ints, w2s, _ = cycle.cycle_tables(coeffs, sids, Rs, lw, 2, 3, 99,
                                             torch.device("cpu"))
-    assert len(ptrs) == 6 * L + 6 * (L - 1) and ptrs[2] == 0
-    assert all(p != 0 for i, p in enumerate(ptrs) if i != 2)
+    n_tab = 6 * L + 6 * (L - 1)
+    assert len(ptrs) == n_tab + L and ptrs[2] == 0
+    assert all(p != 0 for i, p in enumerate(ptrs[:n_tab]) if i != 2)
+    assert ptrs[n_tab:] == [0] * L
+    cfs = [torch.zeros((3, 2)) for _ in range(L)]
+    cheb = cycle.cycle_tables(coeffs, sids, Rs, lw, 2, 3, 99, torch.device("cpu"), cfs)[0]
+    assert cheb[n_tab:] == [cf.data_ptr() for cf in cfs[:-1]] + [0]
     assert ints[:4] == [L, 2, 3, 99] and len(ints) == 4 + 3 * L
     assert ints[4:7] == [48, 40, 0]                            # fine: 9 channels
     assert all(ints[4 + 3 * l + 2] == 1 for l in range(1, L))  # coarse: diagonal
@@ -210,8 +226,9 @@ def test_whole_cycle_operands_are_the_references(change, wdepth):
     if wdepth is None:
         assert got is None
         return
-    (coeffs, sids, Rs, inv32, lw), wd = got
+    (coeffs, sids, Rs, inv32, lw), wd, cfs = got
     assert wd == wdepth == jmg.resolve_wdepth(fi.SolverConfig(**change), (48, 64))
+    assert cfs is None
     j_coeffs, j_sids, j_Rs, j_inv32, j_lw, _ = jmg.build_fused_solver_operands(
         jp, fi.SolverConfig(**change))
     assert len(coeffs) == len(j_coeffs) == len(lw) == len(j_lw)

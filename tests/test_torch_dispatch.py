@@ -10,7 +10,9 @@
   the reference called (multigrid.py:934-1042). The 128³ plan (BASELINE
   config 4) and the 4096², 2048² and 440² plans (config 5's grid, its
   nested-iteration grid, and a grid whose whole cycle is still one reference
-  kernel) are checked from their shapes.
+  kernel) are checked from their shapes. Under Chebyshev smoothing and
+  Galerkin coarse data the plans match the reference's calls at 64², and
+  the whole-cycle band shrinks as the reference's operand budget says.
 * The port's cycle at 72³, the smallest cube whose lumped fine level is past
   the reference's whole-array gate, smooths every level through
   `fused_smooth` and equals the plain cycle; at 64² with ν_pre ≠ ν_post the
@@ -168,6 +170,51 @@ def _check_plan(monkeypatch, shape, change):
 ], ids=str)
 def test_smoother_plan_matches_reference_calls(monkeypatch, shape, change):
     _check_plan(monkeypatch, shape, change)
+
+
+@pytest.mark.parametrize("shape,change", [
+    ((64, 64), dict(mg_smoother="chebyshev4", mg_pre_smooth=2)),
+    ((64, 64), dict(mg_coarse_data="galerkin", mg_pre_smooth=2)),  # 9-channel coarse
+    ((64, 64), dict(mg_smoother="chebyshev", mg_coarse_data="galerkin",
+                    mg_fine_operator="lumped")),                     # whole V-cycle
+], ids=str)
+def test_chebyshev_galerkin_plans_match_reference_calls(monkeypatch, shape, change):
+    """Galerkin coarse levels carry the full stencil, so the plan takes
+    each level's own diagonal-or-full flag; Chebyshev picks the same
+    kernels as Jacobi."""
+    _check_plan(monkeypatch, shape, change)
+
+
+CHEB4, GALERKIN = dict(mg_smoother="chebyshev4"), dict(mg_coarse_data="galerkin")
+
+
+@pytest.mark.parametrize("change,side,whole", [
+    (CHEB4, 440, "fused_wcycle_2d"), (CHEB4, 480, "fused_wcycle_2d"),
+    (CHEB4, 488, None), (CHEB4, 496, None),
+    (GALERKIN, 448, "fused_wcycle_2d"), (GALERKIN, 456, None),
+    ({**CHEB4, **GALERKIN}, 440, "fused_wcycle_2d"), ({**CHEB4, **GALERKIN}, 448, None),
+    ({**CHEB4, **GALERKIN}, 256, "fused_vcycle_2d"),
+], ids=str)
+def test_whole_cycle_band_under_chebyshev_and_galerkin(change, side, whole):
+    """The reference's 12 MB fused-operand budget counts every level's data
+    term (9 channels on a Galerkin level) and one more fine array of
+    scratch under Chebyshev (multigrid.py:635-639), so the whole-cycle band
+    (440²-496² under Jacobi with lumped coarse data) shrinks to 440²-480²
+    under Chebyshev, 440²-448² under Galerkin and 440² under both. The
+    expected names are the kernels the reference's cycle calls at these
+    sides (recorded with `_reference_calls`: its whole-cycle kernel, or
+    fused_smooth_striped and fused_smooth level by level); at 256² both
+    options still take the fused segment."""
+    shape = (side, side)
+    _, tp = _pair(shape)
+    cfg = ft.SolverConfig(**change)
+    levels = tmg.build_levels(tp, cfg)
+    assert tmg.kernel_plan(tp, cfg, levels, False)[1] == whole
+    fused = tmg.build_fused_solver_operands(tp, cfg)
+    assert (fused is not None) == ps.fits_vmem(shape)
+    if fused is not None:
+        cfs = fused[5]
+        assert len(cfs) == len(levels) + 1 and all(tuple(c.shape) == (3, 2) for c in cfs)
 
 
 def _reference_chain(shapes, radius, nu_max):

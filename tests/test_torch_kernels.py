@@ -252,14 +252,31 @@ def test_smooth_kernel_configs_run_on_card(cuda, change):
     assert fused_smooth.launches > before
 
 
-@pytest.mark.parametrize("shape,change", [
-    ((64, 64), dict(mg_smoother="chebyshev")),
-    ((24, 24, 24), dict(mg_smoother="chebyshev")),
-])
-def test_unported_cuda_configs_raise(cuda, shape, change):
+@pytest.mark.parametrize("shape,change,counter", [
+    ((64, 64), dict(mg_smoother="chebyshev"), fused_pcg_solve),
+    ((64, 64), dict(mg_smoother="chebyshev4", mg_coarse_data="galerkin"), fused_pcg_solve),
+    ((64, 64), dict(mg_smoother="chebyshev4", mg_pre_smooth=2), fused_smooth_2d),
+    ((64, 64), dict(mg_coarse_data="galerkin", mg_fine_operator="lumped"), fused_vcycle_2d),
+    ((24, 24, 24), dict(mg_smoother="chebyshev"), fused_smooth),
+    ((24, 24, 24), dict(mg_smoother="chebyshev4", mg_coarse_data="galerkin"), fused_smooth),
+], ids=["64-cheb", "64-cheb4-galerkin", "64-cheb4-levels", "64-galerkin-lumped",
+        "24-cheb", "24-cheb4-galerkin"])
+def test_unported_cuda_configs_raise(cuda, shape, change, counter):
+    """The Chebyshev and Galerkin configurations, once refused on the card,
+    launch their kernels (the segment, the multi-sweep or per-sweep
+    smoother, the whole cycle) and match the same solve on CPU tensors."""
     problem = _problem(shape, cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ft.solve(problem, ft.SolverConfig(tol=1e-4, **change))
+    cfg = ft.SolverConfig(tol=1e-4, **change)
+    before = counter.launches
+    x, info = ft.solve(problem, cfg)
+    torch.cuda.synchronize()
+    assert counter.launches > before
+    cpu = ft.Problem(coeff=problem.coeff.cpu(), b=problem.b.cpu(), diag=problem.diag.cpu(),
+                     grid=problem.grid, weights=problem.weights)
+    xc, ic = ft.solve(cpu, cfg)
+    assert bool(info.converged) and bool(ic.converged)
+    assert abs(int(info.iterations) - int(ic.iterations)) <= 2
+    assert float((x.cpu() - xc).abs().max()) <= 2e-3 * float(xc.abs().max())
 
 
 @pytest.mark.parametrize("shape,n,change,counter", [
@@ -423,3 +440,116 @@ def test_multisweep_kernel_matches_plain(cuda, shape, radius, sweeps, from_zero)
     assert fused_smooth_2d.launches == before + launches
     err = float((got - want).abs().max())
     assert err <= 2e-5 * float(want.abs().max()), err
+
+
+def _schedule(sweeps, kind="chebyshev4", rho=2.3, device=None):
+    """A [ν, 2] Chebyshev schedule (multigrid.chebyshev_coefs) on the card."""
+    return tmg.chebyshev_coefs(torch.tensor(rho, device=device), sweeps,
+                               ft.SolverConfig(mg_smoother=kind))
+
+
+@pytest.mark.parametrize("shape", [(64, 48), (24, 20, 18)])
+@pytest.mark.parametrize("diag", [False, True])
+@pytest.mark.parametrize("from_zero", [False, True])
+@pytest.mark.parametrize("sweeps,kind", [(1, "chebyshev4"), (3, "chebyshev4"),
+                                         (4, "chebyshev")])
+def test_sweep_kernel_chebyshev_matches_plain(cuda, shape, diag, from_zero, sweeps, kind):
+    """The per-sweep kernel's Chebyshev mode, one launch per sweep, z⁺
+    written over z_prev's buffer from the third sweep on."""
+    r, z, coeff, sid, w = _sweep_operands(shape, cuda, diag)
+    cf = _schedule(sweeps, kind, device=cuda)
+    nd = len(shape)
+    before = fused_smooth.launches
+    got = fused_smooth(r, z, coeff, sid, w, nd, sweeps, from_zero, cheb_coefs=cf)
+    want = fused_smooth_plain(r, z, coeff, sid, w, nd, sweeps, from_zero, cheb_coefs=cf)
+    torch.cuda.synchronize()
+    assert fused_smooth.launches == before + sweeps
+    err = float((got - want).abs().max())
+    assert err <= 2e-5 * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("shape", [(100, 130), (37, 201), (5, 7)])
+@pytest.mark.parametrize("radius", [1, 2, 3])
+@pytest.mark.parametrize("sweeps", [1, 2, 3, 4])
+@pytest.mark.parametrize("from_zero", [False, True])
+def test_multisweep_kernel_chebyshev_matches_plain(cuda, shape, radius, sweeps, from_zero):
+    """The multi-sweep kernel's Chebyshev mode at odd sizes; where the halo
+    splits a phase into several launches (ν·ρ > 8), each launch hands the
+    next its z_prev and schedule row."""
+    r, z, coeff, sid, w = _sweep_operands(shape, cuda, False, MULTISWEEP_WEIGHTS[radius])
+    cf = _schedule(sweeps, device=cuda)
+    per_launch = multisweep_max_halo() // radius
+    first = per_launch + (1 if from_zero else 0)
+    launches = 1 + math.ceil(max(sweeps - first, 0) / per_launch)
+    before = fused_smooth_2d.launches
+    got = fused_smooth_2d(r, z, coeff, sid, w, sweeps, from_zero, cheb_coefs=cf)
+    want = fused_smooth_plain(r, z, coeff, sid, w, 2, sweeps, from_zero, cheb_coefs=cf)
+    torch.cuda.synchronize()
+    assert fused_smooth_2d.launches == before + launches
+    err = float((got - want).abs().max())
+    assert err <= 2e-5 * float(want.abs().max()), err
+
+
+def _cheb_cycle_operands(shape, cuda, change):
+    problem = _problem(shape, cuda, n=300)
+    coeffs, sids, Rs, inv32, lw, cfs = tmg.build_fused_solver_operands(
+        problem, ft.SolverConfig(**change))
+    assert cfs is not None
+    return (coeffs, sids, Rs, inv32, lw), cfs
+
+
+@pytest.mark.parametrize("shape", [(45, 61), (97, 130)])
+@pytest.mark.parametrize("change", [dict(mg_smoother="chebyshev4"),
+                                    dict(mg_smoother="chebyshev"),
+                                    dict(mg_smoother="chebyshev4", mg_coarse_data="galerkin")],
+                         ids=["cheb4", "cheb", "cheb4-galerkin"])
+@pytest.mark.parametrize("wdepth,nu_pre,nu_post", [(0, 3, 3), (0, 2, 3), (1, 3, 3),
+                                                   (99, 1, 1), (99, 3, 3)])
+def test_cycle_kernel_chebyshev_matches_plain(cuda, shape, change, wdepth, nu_pre, nu_post):
+    """The cycle kernel's Chebyshev mode, as test_cycle_kernel_matches_plain:
+    z on a standard-normal r and the float64 fine residual on r = A·x."""
+    ops, cfs = _cheb_cycle_operands(shape, cuda, dict(change, mg_pre_smooth=3,
+                                                      mg_post_smooth=3))
+    rng = np.random.default_rng(7)
+    x, r = (torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=cuda)
+            for _ in range(2))
+    r_ax = fused_normal_apply_plain(x, ops[0][0], ops[4][0], 2)
+
+    def fine_residual(z):
+        return r_ax.double() - fused_normal_apply_plain(z.double(), ops[0][0].double(),
+                                                        ops[4][0], 2)
+
+    counter = fused_wcycle_2d if wdepth else fused_vcycle_2d
+    for rhs, seen in ((r, lambda z: z), (r_ax, fine_residual)):
+        before = counter.launches
+        if wdepth:
+            got = fused_wcycle_2d(rhs, *ops, nu_pre, cheb_coefs=cfs, wdepth=wdepth)
+        else:
+            got = fused_vcycle_2d(rhs, *ops, nu_pre, nu_post, cheb_coefs=cfs)
+        want = mg_cycle_plain(rhs, *ops, nu_pre, nu_post, wdepth, cheb_coefs=cfs)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        got, want = seen(got), seen(want)
+        err = float((got - want).abs().max())
+        assert err <= 3e-5 * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("change", [dict(mg_smoother="chebyshev4"),
+                                    dict(mg_smoother="chebyshev4", mg_coarse_data="galerkin"),
+                                    dict(mg_coarse_data="galerkin")], ids=str)
+@pytest.mark.parametrize("wdepth", [0, 99])
+def test_segment_chebyshev_galerkin_matches_plain(cuda, change, wdepth):
+    problem = _problem((97, 130), cuda, n=300)
+    coeffs, sids, Rs, inv32, lw, cfs = tmg.build_fused_solver_operands(
+        problem, ft.SolverConfig(**change))
+    b = problem.b
+    tol2 = (1e-4 ** 2 * torch.sum(b * b)).reshape(1, 1)
+    budget = torch.full((1, 1), 2000, dtype=torch.int32, device=cuda)
+    args = (torch.zeros_like(b), b, tol2, budget, coeffs, sids, Rs, inv32, lw, 3)
+    before = fused_pcg_solve.launches
+    xk, ik, rrk = fused_pcg_solve(*args, cheb_coefs=cfs, wdepth=wdepth)
+    xp, ip, _ = fused_pcg_solve_plain(*args, cheb_coefs=cfs, wdepth=wdepth)
+    torch.cuda.synchronize()
+    assert fused_pcg_solve.launches == before + 1
+    assert abs(int(ik) - int(ip)) <= 2 and float(rrk) <= float(tol2)
+    assert float((xk - xp).abs().max()) <= 2e-3 * float(xp.abs().max())

@@ -141,7 +141,22 @@ def test_transfers_are_transposes():
 
 
 def test_unported_options_raise():
-    _, tp = _pair((32, 32))
+    """Galerkin coarse data and Chebyshev smoothing, once refused, build
+    the reference's levels: the Galerkin stencil on every coarse level
+    (its center channel the data diagonal), the lumped diagonal under
+    Chebyshev, with the reference's τ_l and ρ̂_l."""
+    jp, tp = _pair((32, 32))
     for change in [dict(mg_coarse_data="galerkin"), dict(mg_smoother="chebyshev")]:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmg.build_levels(tp, ft.SolverConfig(**change))
+        cfg_j, cfg_t = fi.SolverConfig(**change), ft.SolverConfig(**change)
+        jl, tl = jmg.build_levels(jp, cfg_j), tmg.build_levels(tp, cfg_t)
+        assert [l.shape for l in tl] == [l.shape for l in jl] and tl
+        for a, b in zip(tl, jl):
+            assert (a.data_coeff is None) == (b.data_coeff is None)
+            if b.data_coeff is not None:
+                _rel(a.data_coeff, b.data_coeff)
+            _rel(a.data_diag, b.data_diag)
+            _rel(a.diag, b.diag)
+        _, _, taus_t, rhos_t = tmg.build_smoothing_setup(tp, tl, cfg_t)
+        _, _, taus_j, rhos_j = jmg.build_smoothing_setup(jp, jl, cfg_j)
+        _rel([float(t) for t in taus_t], [float(t) for t in taus_j])
+        _rel([float(r) for r in rhos_t], [float(r) for r in rhos_j])

@@ -114,9 +114,9 @@ def test_segment_budget_and_exit_semantics():
 def test_launch_tables_match_kernel_layout(shape):
     """The operands the port builds pass the CUDA wrapper's checks, and the
     host tables have the lengths csrc/pcg_segment.cu reads (11 + 6L + 6(L−1)
-    pointers, level 0's r left 0; 5 + 3L ints: the grid cap, then the
-    cycle's L, ν_pre, ν_post, wdepth and 3 per level; 4L weights), checked
-    here without a card."""
+    + L pointers, level 0's r left 0, the L schedule pointers 0 under damped
+    Jacobi; 5 + 3L ints: the grid cap, then the cycle's L, ν_pre, ν_post,
+    wdepth and 3 per level; 4L weights), checked here without a card."""
     jp, tp = _pair(shape)
     coeffs, sids, Rs, inv32, lw, _ = tmg.build_fused_solver_operands(
         tp, ft.SolverConfig())
@@ -127,7 +127,9 @@ def test_launch_tables_match_kernel_layout(shape):
     _, ptrs, ints, w2s, _ = tpcg._launch_tables(x0, b, tol2, budget, coeffs,
                                                 sids, Rs, inv32, lw, 3, 99)
     L = len(coeffs)
-    assert len(ptrs) == 11 + 6 * L + 6 * (L - 1) and ptrs[11 + 2] == 0
+    n_tab = 11 + 6 * L + 6 * (L - 1)
+    assert len(ptrs) == n_tab + L and ptrs[11 + 2] == 0
+    assert ptrs[n_tab:] == [0] * L
     assert ints[:5] == [tpcg._MAX_BLOCKS, L, 3, 3, 99] and len(ints) == 5 + 3 * L
     assert ints[5:8] == [shape[0], shape[1], 0]                 # fine: 9 channels
     assert all(ints[5 + 3 * l + 2] == 1 for l in range(1, L))   # coarse: diagonal
