@@ -16,7 +16,7 @@ toolkit (``nvcc``). Phases, each fatal on failure:
    operands at tol 1e-4 from x = 0: iterations within ±2, x within
    2e-3·max|x|;
 5. the 2-D main path: ``sdf_from_points_precise`` at 256², 1000 points,
-   tol 1e-6, seeds 0..7: every field converged, its true float64 residual
+   tol 1e-6, seeds 0..3: every field converged, its true float64 residual
    (the port's plain float64 operator) ≤ 1e-6, the reported residual within
    2% of it, and both kernels launched by this phase;
 6. the apply kernel on 3-D grids against its plain version, within
@@ -29,15 +29,15 @@ toolkit (``nvcc``). Phases, each fatal on failure:
    zero and from z on the 64³ level, ν = 3 on the 32³ problem's full
    27-channel data;
 8. the 3-D main path, BASELINE config 4 (bench.py:217-227):
-   ``sdf_from_points`` at 128³, 4000 points, tol 1e-4, seeds 0..3, each
+   ``sdf_from_points`` at 128³, 4000 points, tol 1e-4, seeds 0..1, each
    field converged, finite, of shape 128³ and within ±2 iterations and
    2e-3·max|x| of the same solve under ``backend="xla"``; then
-   ``sdf_from_points_precise`` at tol 1e-6, seeds 0..1, true float64
+   ``sdf_from_points_precise`` at tol 1e-6, seed 0, true float64
    residual ≤ 1e-6 and reported within 2%. The apply and sweep kernels
    must be launched in this phase, the PCG segment kernel not;
 9. where the time of a config-4 field goes: synchronized host clocks of its
    stages (assembly, preconditioner setup, one cycle, one apply, the solve)
-   over seeds 0..2, then ``torch.profiler`` over two fields: the device's
+   of seed 0, then ``torch.profiler`` over one field: the device's
    busy and idle share, kernel launches, host→device copies and stream
    synchronizations per field, and device time per kind of work. The
    profiler must see the apply and sweep kernels on the card;
@@ -56,7 +56,7 @@ toolkit (``nvcc``). Phases, each fatal on failure:
     at 512² (its whole-level fused_smooth);
 12. BASELINE config 5's single-chip proxy (bench.py:272-315):
     ``sdf_from_points`` at 4096², 100 000 points, tol 1e-4, maxiter 500,
-    ``fmg_start=1``, seeds 0..1, each converged, finite, of shape 4096²,
+    ``fmg_start=1``, seed 0, converged, finite, of shape 4096²,
     seed 0 within ±2 iterations and 2e-3·max|x| of the same call under
     ``backend="xla"``; ``sdf_from_points_precise`` at tol 1e-6, seed 0, true
     float64 residual ≤ 1e-6 and reported within 2%. The apply, per-sweep
@@ -77,14 +77,14 @@ toolkit (``nvcc``). Phases, each fatal on failure:
 16. field A, the whole-cycle band's main path: the apply kernel against its
     plain version on the field's 9-channel 496² problem, within
     1e-5·max|plain|; ``sdf_from_points`` at 496²,
-    2000 circle points, the default config (tol 1e-4), seeds 0..1, each
+    2000 circle points, the default config (tol 1e-4), seed 0,
     converged, finite, of shape 496², seed 0 within ±2 iterations and
     2e-3·max|x| of ``backend="xla"``; ``sdf_from_points_precise`` at tol
     1e-6, seed 0, true float64 residual ≤ 1e-6 and reported within 2%. The
     whole W-cycle kernel and the apply kernel must launch, the segment
     kernel not; then ``torch.profiler`` over one field;
 17. field B: ``sdf_from_points_precise`` at 256², 1000 points, tol 1e-6,
-    ``mg_cycle="w"`` (the segment kernel with the W-cycle), seeds 0..1,
+    ``mg_cycle="w"`` (the segment kernel with the W-cycle), seed 0,
     true residual ≤ 1e-6, reported within 2%, beside phase 5's V-cycle
     iterations and times;
 18. field C: the apply kernel (1e-5·max|plain|), the multi-sweep kernel
@@ -110,7 +110,7 @@ toolkit (``nvcc``). Phases, each fatal on failure:
     headline's operands, with lumped and with Galerkin coarse levels, as
     phase 4;
 23. H-cheb and H-gal: ``sdf_from_points_precise`` at 256², 1000 points, tol
-    1e-6, kind-4 Chebyshev (seeds 0..1) and with Galerkin coarse data too
+    1e-6, kind-4 Chebyshev (seed 0) and with Galerkin coarse data too
     (seed 0): true residual ≤ 1e-6, the reported within 2%, within ±2
     iterations and 2e-3·max|x| of ``backend="xla"``, beside phase 5; the
     segment kernel must launch in Chebyshev mode;
@@ -120,14 +120,27 @@ toolkit (``nvcc``). Phases, each fatal on failure:
     damped Jacobi; precise at 1e-6; the whole-cycle kernel must launch in
     Chebyshev mode, the segment kernel not; a profile of one field;
 25. config 4-cg: config 4 with kind-4 Chebyshev and Galerkin coarse data,
-    seeds 0..1, each against ``backend="xla"``; the per-sweep kernel must
+    seed 0, against ``backend="xla"``; the per-sweep kernel must
     launch in Chebyshev mode; host clocks of a field's stages and a profile
     of one field, as phase 9;
 26. config 5-cheb: config 5's proxy with kind-4 Chebyshev, seed 0, against
     ``backend="xla"``; the multi-sweep and per-sweep kernels must launch in
-    Chebyshev mode.
+    Chebyshev mode;
+27. S1, the sharded apply's kernels block by block in one process
+    (``phase_ext``): config 5's 9-channel 4096² field cut 2 x 2 and 1 x 8
+    through the striped form, a 27-channel 256³ field cut 2 x 2 through the
+    whole form, the diagonal form on the 512² and 64³ multigrid levels; each
+    stitched within 1e-5·max|plain| of the plain version and of the
+    whole-grid apply kernel, one block timed beside its bound;
+28-30. S2-S4 (``phase_sharded``): four ranks sharing the card, halos via
+    gloo through host memory: config 5 sharded on a 2 x 2 mesh (4096²,
+    ``solve_sharded``), S3 ``solve_refined_sharded`` to a TRUE 1e-6, S4 the
+    3-D half at 192³ (then as one rank: the sharded code without the
+    sharing); each against the port's unsharded solve (±2 iterations,
+    2e-3·max|x|), both ext kernels launched on every rank.
 
-The lines before the last are the kernel record (JSON: per kernel its
+Each phase's wall time follows it in brackets. The lines before the last
+are the kernel record (JSON: per kernel its
 launches on its path, its error and time against its plain version, and
 its bound: the bytes it must move over 3.35 TB/s or its float32 operations
 over 67 TFLOP/s, whichever is longer) and the card; the last line is
@@ -149,23 +162,24 @@ import torch
 SHAPE = (256, 256)
 N_POINTS = 1000
 TOL = 1e-6
-SEEDS = range(8)
+SEEDS = range(4)
 REPS = 20
+PLAIN_REPS = 3  # plain versions and plain-torch cycles: hundreds of ms a call
 SHAPE3 = (128, 128, 128)  # BASELINE config 4
 N_POINTS3 = 4000
-SEEDS3 = range(4)
-SEEDS3_PRECISE = range(2)
+SEEDS3 = range(2)
+SEEDS3_PRECISE = range(1)
 RADIUS3_WEIGHTS = dict(model_2=0.5, model_3=0.8)
-PROFILE_SEEDS = range(3)
+PROFILE_SEEDS = range(1)
 SHAPE5 = (4096, 4096)  # BASELINE config 5's single-chip proxy
 N_POINTS5 = 100_000
-SEEDS5 = range(2)
+SEEDS5 = range(1)
 CFG5 = dict(tol=1e-4, preconditioner="multigrid", backend="auto", maxiter=500)
 FMG5 = 1  # bench.py's default depth for 2-D grids (bench.py:259-271)
 SHAPE_A = (496, 496)  # field A: the largest side of the whole-cycle band
 N_POINTS_A = 2000     # the headline's density, ~1.8 points per unit of arc
-SEEDS_A = range(2)
-SEEDS_B = range(2)    # field B: the headline with SolverConfig(mg_cycle="w")
+SEEDS_A = range(1)
+SEEDS_B = range(1)    # field B: the headline with SolverConfig(mg_cycle="w")
 SHAPE_C = (992, 992)  # field C: fmg_start=1 guesses on 496², in the band
 N_POINTS_C = 4000
 # The Chebyshev / Galerkin slice: the reference's kind-4 Chebyshev smoother
@@ -173,9 +187,9 @@ N_POINTS_C = 4000
 # Galerkin coarse data.
 CHEB = dict(mg_smoother="chebyshev4")
 GALERKIN = dict(mg_coarse_data="galerkin")
-SEEDS_HCHEB = range(2)
+SEEDS_HCHEB = range(1)
 SHAPE_A2 = (480, 480)  # field A′: the largest side of the Chebyshev whole-cycle band
-SEEDS4_CG = range(2)
+SEEDS4_CG = range(1)
 # The least time the card could take (bound_ms): bytes over HBM's rate, or
 # float32 operations over the peak outside the tensor cores (H100 SXM data
 # sheet, 700 W).
@@ -372,7 +386,7 @@ def compare(name, kernel, plain, bar, work=None):
     ``work`` = (bytes, operations) when given."""
     err = check_close(name, kernel(), plain(), bar)
     ms = cuda_ms(kernel)
-    plain_ms = cuda_ms(plain)
+    plain_ms = cuda_ms(plain, PLAIN_REPS)
     print(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
     if work is not None:
@@ -432,7 +446,7 @@ def phase_segment(problem, ops, device, wdepth=0, label=""):
     scale = float(xp.abs().max())
     ms = cuda_ms(lambda: fused_pcg_solve(*args, wdepth=wdepth))
     dev_ms = batch_ms(lambda: fused_pcg_solve(*args, wdepth=wdepth))
-    plain_ms = cuda_ms(lambda: fused_pcg_solve_plain(*args, wdepth=wdepth))
+    plain_ms = cuda_ms(lambda: fused_pcg_solve_plain(*args, wdepth=wdepth), PLAIN_REPS)
     # The segment's work: the cycle's operands and x, r read once, x
     # written; ik + 1 cycles, ik applies and CG updates; 3 + cycle phases
     # per iteration and for the start.
@@ -680,6 +694,20 @@ class StageClock:
                          for k, v in self.stages.items())
 
 
+def trace_events(prof):
+    """(device type, name, start µs, end µs) of each of the profile's trace
+    events. Reads the raw events of the private ``prof.profiler.kineto_results``
+    (building prof.events()' annotated event tree takes ~100 s for a config-5
+    field's ~600k events) and falls back to prof.events() on a torch release
+    without that field."""
+    kineto = getattr(getattr(prof, "profiler", None), "kineto_results", None)
+    if kineto is not None:
+        return [(e.device_type(), e.name(), e.start_ns() / 1e3, e.end_ns() / 1e3)
+                for e in kineto.events()]
+    return [(e.device_type, e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events()]
+
+
 def profile_fields(label, fields, must_see):
     """``torch.profiler`` over ``fields`` (callables, one field each): the
     device's busy and idle share, kernels, launches, host->device copies and
@@ -694,28 +722,27 @@ def profile_fields(label, fields, must_see):
             field()
         torch.cuda.synchronize()
         span = 1e3 * (time.perf_counter() - t0)
-    events = list(prof.events())
-    dev = [e for e in events if e.device_type == DeviceType.CUDA]
-    host = [e for e in events if e.device_type == DeviceType.CPU]
-    busy = busy_ms((e.time_range.start, e.time_range.end) for e in dev)
+    events = trace_events(prof)
+    dev = [e for e in events if e[0] == DeviceType.CUDA]
+    host = [e for e in events if e[0] == DeviceType.CPU]
+    busy = busy_ms((e[2], e[3]) for e in dev)
     n = len(fields)
     # The segment and cycle kernels go through cudaLaunchCooperativeKernel.
-    launch = [e for e in host if re.match(r"cudaLaunch(Cooperative)?Kernel", e.name)]
-    syncs = sum(e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize")
-                for e in host)
-    kernels = [e for e in dev if not re.search(r"Memcpy|Memset", e.name)]
-    launch_ms = sum(e.self_cpu_time_total for e in launch) / n / 1e3
+    launch = [e for e in host if re.match(r"cudaLaunch(Cooperative)?Kernel", e[1])]
+    syncs = sum(e[1] in ("cudaStreamSynchronize", "cudaDeviceSynchronize") for e in host)
+    kernels = [e for e in dev if not re.search(r"Memcpy|Memset", e[1])]
+    launch_ms = sum(e[3] - e[2] for e in launch) / n / 1e3
     print(f"profile {label}, torch.profiler over {n} field(s): span {span:.3f} ms, "
           f"device busy {busy:.3f} ms, device idle share {1 - busy / span:.3f}; per "
           f"field: {len(kernels) / n:.0f} kernels on the device, {len(launch) / n:.0f} "
           f"cudaLaunch(Cooperative)Kernel calls ({launch_ms:.3f}"
-          f" ms host), {sum('HtoD' in e.name for e in dev) / n:.0f} host->device "
+          f" ms host), {sum('HtoD' in e[1] for e in dev) / n:.0f} host->device "
           f"copies, {syncs / n:.0f} stream synchronizations")
     totals, counts = {}, {}
-    for e in dev:
-        kind = next((k for k, pat in DEVICE_KINDS if re.search(pat, e.name)),
+    for _, name, t0, t1 in dev:
+        kind = next((k for k, pat in DEVICE_KINDS if re.search(pat, name)),
                     "plain elementwise and reduction ops")
-        totals[kind] = totals.get(kind, 0.0) + (e.time_range.end - e.time_range.start)
+        totals[kind] = totals.get(kind, 0.0) + t1 - t0
         counts[kind] = counts.get(kind, 0) + 1
     for kind, us in sorted(totals.items(), key=lambda kv: -kv[1]):
         print(f"  device {kind}: {us / n / 1e3:.3f} ms/field, "
@@ -740,7 +767,7 @@ def phase_profile3d(ft, device):
         clock("solve", lambda: ft.solve(p, cfg))
     print(f"profile config 4, host clocks after synchronize, seeds "
           f"{PROFILE_SEEDS.start}..{PROFILE_SEEDS.stop - 1}: {clock.line()}")
-    inputs = [sphere_inputs(s, device) for s in range(2)]
+    inputs = [sphere_inputs(s, device) for s in range(1)]
     profile_fields("config 4", [
         lambda pts=pts, nrm=nrm: ft.sdf_from_points(grid, weights, pts, nrm, config=cfg)
         for pts, nrm in inputs], ("sweep kernel", "apply kernel"))
@@ -1040,7 +1067,7 @@ def phase_cycle(ft, device, shape=SHAPE_A, change=None):
         xla = tmg.make_vcycle_preconditioner(p, ft.SolverConfig(
             tol=1e-4, **(change or {}), **cfg_kw, mg_pre_smooth=nu_pre,
             mg_post_smooth=nu_post))
-        xla_ms = cuda_ms(lambda: xla(r))
+        xla_ms = cuda_ms(lambda: xla(r), PLAIN_REPS)
         print(f"  back to back {dev_ms:.4f} ms per launch; {phases} "
               f"grid-barrier phases, {1e3 * dev_ms / phases:.2f} us/phase; one plain-torch "
               f"cycle (backend='xla') {xla_ms:.3f} ms, {xla_ms / got['ms']:.1f}x the kernel")
@@ -1380,7 +1407,7 @@ def require_launched(label, launches, names, absent=()):
 
 def phase_h_cheb(ft, device, v_ms, v_iters):
     """H-cheb and H-gal: the headline (256², 1000 points, tol 1e-6) with
-    the kind-4 Chebyshev smoother, seeds 0..1, and with Galerkin coarse
+    the kind-4 Chebyshev smoother, seed 0, and with Galerkin coarse
     data besides, seed 0: the segment kernel in Chebyshev mode (lumped,
     then 9-channel coarse levels) and the apply kernel. Each field's true
     residual ≤ 1e-6 with the reported within 2%, and within ±2 iterations
@@ -1464,7 +1491,7 @@ def phase_field_a2(ft, device):
 
 def phase_main4cg(ft, device, iters_jacobi):
     """Config 4-cg: BASELINE config 4 (128³, 4000 sphere points, tol 1e-4)
-    with kind-4 Chebyshev smoothing and Galerkin coarse data, seeds 0..1,
+    with kind-4 Chebyshev smoothing and Galerkin coarse data, seed 0,
     each against backend="xla": the per-sweep kernel in Chebyshev mode on
     the lumped fine level and the 27-channel coarse levels, and the apply."""
     grid, weights = ft.Grid(SHAPE3), ft.Weights(model_2=0.3)
@@ -1536,6 +1563,304 @@ def phase_main5cheb(ft, device):
                      ("fused_pcg_solve",))
     return launches
 
+# ---- the sharded slice: phases 27-30 (S1-S4) --------------------------------
+# BASELINE config 5's sharded solve ("Sharded 2D 4096² / 3D 256³ across v5p-8
+# with halo exchange over ICI", BASELINE.json:11) as four ranks, one process
+# per shard, on a mesh of 2 x 2 (the reference's _spatial_mesh_shape(4)). The
+# tool gives one card, so the ranks share it and their halos go through host
+# memory under gloo: the times are the port's sharded path on one card, not
+# times for four cards.
+# S4 runs config 5's 3-D half (256³, 100 000 points, bench.py:317-326) cut
+# to 192³ with 56 250 points (the same density): with S2-S4 past 180 s at
+# 256³, the whole script would pass its time limit. S1 cuts the same field.
+SHAPE_S4 = (192, 192, 192)
+N_POINTS_S4 = 56_250
+MESH_S = (2, 2)
+RANKS = 4
+SHARDED = "4 ranks sharing one H100, halos via gloo through host memory"
+
+
+def sphere5_inputs(shape, n, seed=0):
+    """bench.py:320-326 at ``shape``: n oriented points on a sphere of radius
+    0.35·width around the center (127.5 + 89.6·u at 256³), as numpy."""
+    u = np.random.default_rng(seed).standard_normal((n, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    center = (np.asarray(shape, np.float64) - 1.0) / 2.0
+    return ((center + 0.35 * shape[0] * u).astype(np.float32), u.astype(np.float32))
+
+
+def ext_blocks(shape, shards, r):
+    """Per block of the layout: (its slices, the slices of its extended block
+    in the field padded by r on every axis, its global start)."""
+    import itertools
+    loc = [n // s for n, s in zip(shape, shards)]
+    for idx in itertools.product(*[range(s) for s in shards]):
+        gs = [i * n for i, n in zip(idx, loc)]
+        yield (tuple(slice(g, g + n) for g, n in zip(gs, loc)),
+               tuple(slice(g, g + n + 2 * r) for g, n in zip(gs, loc)), gs)
+
+
+def compare_blocks(label, shape, shards, r, whole, operands, kernel, plain, work):
+    """Each block's ``operands(blk, ext, gs)`` through ``kernel`` and its
+    ``plain`` version, stitched: the kernel within 1e-5·max|plain| of the
+    plain version and of the whole-grid apply kernel's output ``whole``;
+    then the last block's call alone timed (single, back to back, plain),
+    with GB/s of the bytes ``work`` = (bytes, operations) says it moves."""
+    got = torch.empty_like(whole)
+    want = torch.empty_like(whole)
+    for blk, ext, gs in ext_blocks(shape, shards, r):
+        args = operands(blk, ext, gs)
+        got[blk] = kernel(*args)
+        want[blk] = plain(*args)
+    loc = tuple(sl.stop - sl.start for sl in blk)
+    name = f"{label}: {shape_str(shape)} as {shape_str(shards)} blocks of {shape_str(loc)}"
+    err = check_close(f"{name}, stitched against the plain version", got, want, 1e-5)
+    check_close(f"{name}, stitched against the whole-grid apply kernel", got, whole, 1e-5)
+    ms, b2b = cuda_ms(lambda: kernel(*args)), batch_ms(lambda: kernel(*args))
+    plain_ms = cuda_ms(lambda: plain(*args), PLAIN_REPS)
+    nbytes, flops = work
+    rec = dict(max_abs_err=err, ms=ms, batch_ms=b2b, plain_ms=plain_ms, shape=shape_str(loc),
+               **bound(nbytes, flops))
+    print(f"  one block: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s), back to back "
+          f"{b2b:.4f} ms ({nbytes / b2b / 1e6:.0f} GB/s), plain {plain_ms:.4f} ms; bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}: {nbytes / 1e6:.1f} MB)")
+    return rec
+
+
+def phase_ext(ft, device):
+    """S1, one process: the two sharded-apply kernels block by block, at the
+    blocks S2 and S4 give them. A 9-channel 4096² field (config 5's problem)
+    cut 2 x 2 into 2048² blocks (S2's fine apply) and 1 x 8 into 4096 x 512
+    blocks (the reference's own case), both through the striped form at the
+    stripe the reference picks; S4's 27-channel 192³ field cut 2 x 2 into
+    96 x 96 x 192 blocks through the whole form; the diagonal form on S4's
+    lumped fine level and on every sharded level of S2's and S4's
+    hierarchies, cut 2 x 2. Each stitched against the plain version and the
+    whole-grid apply."""
+    from field_interpolation_tpu_torch import constraints as cons
+    from field_interpolation_tpu_torch.ops._policy import ext_fits_vmem, pick_stripe_ext
+    from field_interpolation_tpu_torch.ops.stencil import fused_normal_apply
+    from field_interpolation_tpu_torch.ops.stencil_ext import (
+        fused_normal_apply_ext, fused_normal_apply_ext_plain, fused_normal_apply_ext_striped,
+        fused_normal_apply_ext_striped_plain)
+    F = torch.nn.functional
+    rng = np.random.default_rng(30)
+    w, r = ft.Weights(model_2=0.3), 2
+    cfg = ft.SolverConfig(**CFG5)
+    recs = {}
+
+    def randn(shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=device)
+
+    p5 = ft.assemble_sdf(ft.Grid(SHAPE5), w, *circle5_inputs(0, device))
+    x = randn(SHAPE5)
+    xp = F.pad(x, (r,) * 4)
+    whole = fused_normal_apply(x, p5.coeff, w, 2)
+    for shards in [(2, 2), (1, 8)]:
+        loc = tuple(n // s for n, s in zip(SHAPE5, shards))
+        stripe = pick_stripe_ext(loc, r)
+        require(stripe is not None and not ext_fits_vmem(loc, r),
+                f"{shape_str(loc)} blocks take the striped form")
+
+        def striped(blk, ext, gs):
+            # x extended along axis 1 and the corner-filled axis-0 slabs.
+            rows, cols = ext
+            return (xp[rows.start + r:rows.stop - r, cols].contiguous(),
+                    xp[rows.start:rows.start + r, cols].contiguous(),
+                    xp[rows.stop - r:rows.stop, cols].contiguous(),
+                    p5.coeff[(slice(None),) + blk].contiguous(), gs, w, r, SHAPE5)
+
+        n = math.prod(loc)
+        recs[shards] = compare_blocks(
+            f"striped ext apply (stripe {stripe} on the reference)", SHAPE5, shards, r,
+            whole, striped, fused_normal_apply_ext_striped,
+            fused_normal_apply_ext_striped_plain,
+            (4 * ((loc[0] + 2 * r) * (loc[1] + 2 * r) + 10 * n), apply_flops(w, 2, False) * n))
+    del x, xp, whole
+    recs["diag2d"] = sharded_level_blocks(ft, p5, cfg, randn)
+    del p5
+
+    p3 = ft.assemble_sdf(ft.Grid(SHAPE_S4), w, *(torch.as_tensor(a, device=device)
+                                                 for a in sphere5_inputs(SHAPE_S4,
+                                                                         N_POINTS_S4)))
+    x3 = randn(SHAPE_S4)
+    xp3 = F.pad(x3, (r,) * 6)
+    whole3 = fused_normal_apply(x3, p3.coeff, w, 3)
+
+    def ext3(blk, ext, gs):
+        return (xp3[ext].contiguous(), p3.coeff[(slice(None),) + blk].contiguous(), gs, w, 3,
+                r, SHAPE_S4)
+
+    loc3 = tuple(n // s for n, s in zip(SHAPE_S4, MESH_S + (1,)))
+    n3 = math.prod(loc3)
+    recs["ext3d"] = compare_blocks(
+        "whole-form ext apply, 27 channels", SHAPE_S4, MESH_S + (1,), r, whole3, ext3,
+        fused_normal_apply_ext, fused_normal_apply_ext_plain,
+        (4 * (math.prod(n + 2 * r for n in loc3) + 28 * n3), apply_flops(w, 3, False) * n3))
+    del x3, xp3, whole3
+    recs["diag3d_fine"] = diag_blocks("lumped fine level", SHAPE_S4, w,
+                                      cons.data_diag(p3.coeff, 3).contiguous(), randn)
+    recs["diag3d"] = sharded_level_blocks(ft, p3, cfg, randn)
+    del p3
+    torch.cuda.empty_cache()
+    return recs
+
+
+def sharded_level_blocks(ft, p, cfg, randn):
+    """`diag_blocks` on every level of ``p``'s hierarchy that the distributed
+    multigrid keeps sharded on MESH_S (its own `_sharded_prefix`)."""
+    from field_interpolation_tpu_torch import multigrid as tmg
+    from field_interpolation_tpu_torch.parallel import sharded as tsh
+    levels = tmg.build_levels(p, cfg)
+    radii = tuple(max([k for k in l.weights.active_orders() if k > 0], default=0)
+                  for l in levels)
+    nd = p.grid.ndim
+    n_sh, _ = tsh._sharded_prefix((p.grid.shape,) + tuple(l.shape for l in levels),
+                                  MESH_S + (1,) * (nd - 2), radii)
+    require(n_sh > 0, f"{shape_str(p.grid.shape)}: no coarse level stays sharded")
+    return [diag_blocks(f"multigrid level {li + 1}", lv.shape, lv.weights,
+                        lv.data_diag.contiguous(), randn)
+            for li, lv in enumerate(levels[:n_sh])]
+
+
+def diag_blocks(label, shape, lw, dd, randn):
+    """The ext kernel's diagonal form (weights ``lw``, data diagonal ``dd``)
+    on a level of ``shape`` cut 2 x 2, against the whole-level apply
+    kernel's diagonal form."""
+    from field_interpolation_tpu_torch.ops.stencil import fused_normal_apply
+    from field_interpolation_tpu_torch.ops.stencil_ext import (
+        fused_normal_apply_ext, fused_normal_apply_ext_plain)
+    nd = len(shape)
+    r = max(k for k in lw.active_orders() if k > 0)
+    x = randn(shape)
+    xp = torch.nn.functional.pad(x, (r,) * (2 * nd))
+    shards = MESH_S + (1,) * (nd - 2)
+    loc = tuple(n // s for n, s in zip(shape, shards))
+
+    def call(blk, ext, gs):
+        return xp[ext].contiguous(), dd[blk].contiguous(), gs, lw, nd, r, shape
+
+    n = math.prod(loc)
+    return compare_blocks(f"diagonal-form ext apply, {label}", shape, shards, r,
+                          fused_normal_apply(x, dd, lw, nd), call, fused_normal_apply_ext,
+                          fused_normal_apply_ext_plain,
+                          (4 * (math.prod(m + 2 * r for m in loc) + 2 * n),
+                           apply_flops(lw, nd, True) * n))
+
+
+def unsharded_solve(ft, cloud, cfg, device):
+    """The port's unsharded solve of ``cloud`` on the card: (x on the host,
+    SolveInfo, ms)."""
+    p = cloud.problem(device)
+    torch.cuda.synchronize()
+    (x, info), ms = timed(lambda: ft.solve(p, cfg))
+    out = (x.cpu(), info, ms)
+    del p, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_launches(parts):
+    """{kernel: [launches on rank 0, 1, ...]} of the kernels a rank launched."""
+    names = [k for k in parts[0]["launches"] if any(p["launches"][k] for p in parts)]
+    return {k: [p["launches"][k] for p in parts] for k in names}
+
+
+def check_sharded(label, parts, ref, note=SHARDED):
+    """The stitched sharded field against the unsharded one: converged,
+    finite, ±2 iterations, max|x - x_unsharded| ≤ 2e-3·max|x|. Prints the
+    slowest rank's ms per solve and each rank's launches."""
+    from field_interpolation_tpu_torch.parallel.cases import stitch
+    x = stitch(parts, "x")
+    xr, ir, ms_r = ref
+    it, itr = parts[0]["iterations"], int(ir.iterations)
+    err, scale = float((x - xr).abs().max()), float(xr.abs().max())
+    slowest = max(p["ms"] for p in parts)
+    print(f"{label} ({note}): iterations {it} (unsharded {itr}), rel "
+          f"{parts[0]['rel_residual']:.3e}, max|x-x_unsharded| {err:.3e} (bar "
+          f"{2e-3 * scale:.3e}); ms/field, slowest rank: {slowest:.1f} (assembly and blocks "
+          f"{max(p['setup_ms'] for p in parts):.1f}); unsharded solve {ms_r:.1f} ms on the "
+          f"card alone; launches per rank {rank_launches(parts)}")
+    require(all(p["converged"] for p in parts), f"{label} did not converge")
+    require(bool(torch.isfinite(x).all()), f"{label}: field not finite")
+    require(bool(ir.converged), f"{label}: the unsharded solve did not converge")
+    require(abs(it - itr) <= 2, f"{label}: iterations {it} vs unsharded {itr}")
+    require(err <= 2e-3 * scale, f"{label}: {err} > 2e-3·{scale}")
+    return slowest
+
+
+def phase_sharded(ft, device, shape3=SHAPE_S4, n3=N_POINTS_S4, rank_device="cuda"):
+    """S2-S4: four ranks on the one card (`parallel.launch.run_ranks`, gloo),
+    one start for all three. S2: config 5 sharded, 2-D: 4096², the config-5
+    cloud, tol 1e-4, maxiter 500, multigrid; `assemble_sdf` → `shard_problem`
+    → `solve_sharded`, against the port's unsharded solve; both ext
+    kernels must launch on every rank. S3: `solve_refined_sharded` on the
+    same cloud's `assemble_precise` at tol 1e-6: the TRUE relative residual
+    of the stitched field (the plain float64 operator) ≤ 1e-6 and the
+    reported within 2%. S4: 3-D, 192³ (config 5's 256³ cut, `SHAPE_S4`),
+    56 250 sphere points, tol 1e-4, the mesh over dims 0 and 1 (96 x 96 x
+    192 blocks), against the unsharded solve; the whole-form ext kernel must
+    launch on every rank; then S4 as one rank (mesh 1 x 1), the same bars."""
+    from field_interpolation_tpu_torch.parallel.cases import Cloud, run_cases, stitch
+    from field_interpolation_tpu_torch.parallel.launch import run_ranks
+    w = ft.Weights(model_2=0.3)
+    cfg2 = ft.SolverConfig(**CFG5)
+    cfg3 = ft.SolverConfig(tol=1e-4, preconditioner="multigrid", maxiter=500)
+    pts5, nrm5 = (t.cpu().numpy() for t in circle5_inputs(0, device))
+    c2 = Cloud(SHAPE5, w, pts5, None, nrm5)
+    pts3, nrm3 = sphere5_inputs(shape3, n3)
+    c3 = Cloud(shape3, w, pts3, None, nrm3)
+    ref2 = unsharded_solve(ft, c2, cfg2, device)
+    ref3 = unsharded_solve(ft, c3, cfg3, device)
+    cases = [("sharded_solve", dict(cloud=c2, mesh_shape=MESH_S, config=cfg2)),
+             ("sharded_refined", dict(cloud=c2, mesh_shape=MESH_S,
+                                      config=ft.SolverConfig(**{**CFG5, "tol": TOL}))),
+             ("sharded_solve", dict(cloud=c3, mesh_shape=MESH_S, config=cfg3))]
+    t0 = time.perf_counter()
+    res = run_ranks(run_cases, RANKS, cases, device=rank_device)
+    print(f"sharded phases: {RANKS} ranks, {len(cases)} runs, "
+          f"{time.perf_counter() - t0:.1f} s from spawn to join")
+    s2, s3, s4 = ([r[k] for r in res] for k in range(3))
+    out = {"S2": check_sharded(f"S2 config 5 sharded 2-D {shape_str(SHAPE5)} on "
+                               f"{shape_str(MESH_S)}", s2, ref2)}
+    for name in ("fused_normal_apply_ext", "fused_normal_apply_ext_striped"):
+        require(all(p["launches"][name] > 0 for p in s2), f"S2: a rank did not launch {name}")
+    x64 = stitch(s3, "x")
+    pp = c2.precise(device)
+    true = float(torch.linalg.norm(pp.residual64(x64.to(device)))
+                 / torch.linalg.norm(pp.b64))
+    rep = s3[0]["rel_residual"]
+    print(f"S3 refined sharded {shape_str(SHAPE5)} ({SHARDED}): iterations "
+          f"{s3[0]['iterations']}, reported rel {rep:.6e}, true rel {true:.6e}, ms/field, "
+          f"slowest rank {max(p['ms'] for p in s3):.1f}; launches per rank "
+          f"{rank_launches(s3)}")
+    require(all(p["converged"] for p in s3), "S3 did not converge")
+    require(true <= TOL, f"S3: true residual {true} > {TOL}")
+    require(abs(true - rep) <= 0.02 * true, f"S3: reported {rep} vs true {true}")
+    del pp
+    out["S4"] = check_sharded(f"S4 sharded 3-D {shape_str(shape3)} on {shape_str(MESH_S)}",
+                              s4, ref3)
+    require(all(p["launches"]["fused_normal_apply_ext"] > 0 for p in s4),
+            "S4: a rank did not launch fused_normal_apply_ext")
+    # S4 as one rank (mesh 1 x 1): the sharded code's own cost, without four
+    # processes sharing the card.
+    one = [r[0] for r in run_ranks(run_cases, 1, [("sharded_solve", dict(
+        cloud=c3, mesh_shape=(1, 1), config=cfg3))], device=rank_device)]
+    out["S4_one_rank"] = check_sharded(f"S4 as one rank {shape_str(shape3)}", one, ref3,
+                                       "1 rank on the H100, no halo messages")
+    out["launches"] = {k: [p["launches"] for p in parts]
+                       for k, parts in (("S2", s2), ("S3", s3), ("S4", s4))}
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_phase(fn, *args, **kwargs):
+    """fn(*args, **kwargs), then its wall time on a line of its own."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    print(f"[{fn.__name__}: {time.perf_counter() - t0:.1f} s]")
+    return out
+
 
 def main():
     require(torch.cuda.is_available(), "torch.cuda.is_available() is False")
@@ -1555,37 +1880,40 @@ def main():
         if any(key in line for key in ("Used", "Compiling entry", "stack frame")):
             print("  ptxas:", line.strip())
 
-    problem, ops, apply_rec = phase_apply(ft, device)
-    seg_rec, _ = phase_segment(problem, ops, device)
-    launches, v_ms, v_iters = phase_main(ft, device)
-    p128, p32, lvl1, apply3_rec = phase_apply3d(ft, device)
-    sweep_rec = phase_sweep3d(ft, device, p128, p32, lvl1)
+    problem, ops, apply_rec = run_phase(phase_apply, ft, device)
+    seg_rec, _ = run_phase(phase_segment, problem, ops, device)
+    launches, v_ms, v_iters = run_phase(phase_main, ft, device)
+    p128, p32, lvl1, apply3_rec = run_phase(phase_apply3d, ft, device)
+    sweep_rec = run_phase(phase_sweep3d, ft, device, p128, p32, lvl1)
     del p128, p32, lvl1
-    launches3, iters3 = phase_main3d(ft, device)
-    phase_profile3d(ft, device)
-    p5, multi_rec, apply5_rec = phase_smooth2d(ft, device)
-    sweep5_rec = phase_sweep2d(ft, device, p5)
+    launches3, iters3 = run_phase(phase_main3d, ft, device)
+    run_phase(phase_profile3d, ft, device)
+    p5, multi_rec, apply5_rec = run_phase(phase_smooth2d, ft, device)
+    sweep5_rec = run_phase(phase_sweep2d, ft, device, p5)
     del p5
-    launches5 = phase_main5(ft, device)
-    phase_profile5(ft, device)
-    cycle_rec = phase_cycle(ft, device)
-    seg_w_rec, _ = phase_segment(problem, ops, device, wdepth=99)
-    launches_a, apply_a_rec = phase_field_a(ft, device)
-    phase_field_b(ft, device, v_ms, v_iters)
-    launches_c, recs_c = phase_field_c(ft, device)
+    launches5 = run_phase(phase_main5, ft, device)
+    run_phase(phase_profile5, ft, device)
+    cycle_rec = run_phase(phase_cycle, ft, device)
+    seg_w_rec, _ = run_phase(phase_segment, problem, ops, device, wdepth=99)
+    launches_a, apply_a_rec = run_phase(phase_field_a, ft, device)
+    run_phase(phase_field_b, ft, device, v_ms, v_iters)
+    launches_c, recs_c = run_phase(phase_field_c, ft, device)
     # The Chebyshev / Galerkin slice: each kernel's Chebyshev mode against
     # its plain version, then its five paths.
     from field_interpolation_tpu_torch.multigrid import build_fused_solver_operands
-    recs_cs = phase_cheb_sweep(ft, device)
-    recs_c5 = phase_cheb5(ft, device)
-    cycle_cheb_rec = phase_cycle(ft, device, SHAPE_A2, CHEB)
+    recs_cs = run_phase(phase_cheb_sweep, ft, device)
+    recs_c5 = run_phase(phase_cheb5, ft, device)
+    cycle_cheb_rec = run_phase(phase_cycle, ft, device, SHAPE_A2, CHEB)
     seg_recs = {name: phase_segment(problem, build_fused_solver_operands(
         problem, ft.SolverConfig(tol=TOL, **change)), device, label=f" {name}")[0]
         for name, change in [("H-cheb", CHEB), ("H-gal", {**CHEB, **GALERKIN})]}
-    launches_h = phase_h_cheb(ft, device, v_ms, v_iters)
-    launches_a2, apply_a2_rec = phase_field_a2(ft, device)
-    launches_4cg = phase_main4cg(ft, device, iters3)
-    launches_5c = phase_main5cheb(ft, device)
+    launches_h = run_phase(phase_h_cheb, ft, device, v_ms, v_iters)
+    launches_a2, apply_a2_rec = run_phase(phase_field_a2, ft, device)
+    launches_4cg = run_phase(phase_main4cg, ft, device, iters3)
+    launches_5c = run_phase(phase_main5cheb, ft, device)
+    # The sharded slice: the two ext kernels block by block, then four ranks.
+    ext_recs = run_phase(phase_ext, ft, device)
+    sharded = run_phase(phase_sharded, ft, device)
 
     src = "field_interpolation_tpu_torch/csrc/"
     ref = "field_interpolation_tpu/ops/pallas_stencil.py:"
@@ -1647,6 +1975,22 @@ def main():
         dict(name="fused_normal_apply_2d_field_a2", route="cuda",
              source=src + "normal_apply.cu", replaces=ref + "300",
              launches=launches_a2["fused_normal_apply"], **apply_a2_rec),
+        # The sharded slice: launches summed over the ranks of S2's last
+        # solve and S4 (the whole form) and of S2's (the striped form).
+        dict(name="fused_normal_apply_ext", route="cuda", source=src + "normal_apply_ext.cu",
+             replaces=ref + "378,462",
+             launches=sum(l["fused_normal_apply_ext"] for k in ("S2", "S4")
+                          for l in sharded["launches"][k]),
+             **{**ext_recs["ext3d"], "max_abs_err": max(
+                 rec["max_abs_err"] for rec in [ext_recs["ext3d"], ext_recs["diag3d_fine"]]
+                 + ext_recs["diag2d"] + ext_recs["diag3d"])},
+             diag_2d_levels=ext_recs["diag2d"], diag_3d_fine=ext_recs["diag3d_fine"],
+             diag_3d_levels=ext_recs["diag3d"]),
+        dict(name="fused_normal_apply_ext_striped", route="cuda",
+             source=src + "normal_apply_ext.cu", replaces=ref + "1282,1387",
+             launches=sum(l["fused_normal_apply_ext_striped"]
+                          for l in sharded["launches"]["S2"]),
+             **ext_recs[(2, 2)], blocks_4096x512=ext_recs[(1, 8)]),
     ]
     for k in kernels:
         k["library_ms"] = None  # no one PyTorch call computes any of these functions

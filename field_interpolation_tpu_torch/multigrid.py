@@ -128,6 +128,13 @@ def _apply_axis_resize(x: torch.Tensor, n_out: int, axis: int,
     avoid TPU gathers (multigrid.py:100-212); the card gathers well."""
     rows, w = _band_tensors(n_out, x.shape[axis], transpose, square, x.dtype,
                             x.device)
+    return apply_bands(x, rows, w, axis)
+
+
+def apply_bands(x: torch.Tensor, rows: torch.Tensor, w: torch.Tensor,
+                axis: int) -> torch.Tensor:
+    """Σ_t w[t, r] · x[rows[t·n_out + r]] along ``axis``: a banded matrix
+    (W = w.shape[0] terms per output row) applied with one gather."""
     terms = torch.index_select(x, axis, rows).unflatten(axis, tuple(w.shape))
     wshape = [1] * terms.ndim
     wshape[axis:axis + 2] = w.shape
@@ -414,16 +421,20 @@ def level_shapes(fine_shape: tuple[int, ...],
     return tuple(shapes)
 
 
-def build_levels(problem: Problem, config: SolverConfig) -> list[_Level]:
+def build_levels(problem: Problem, config: SolverConfig,
+                 ddiag: torch.Tensor | None = None) -> list[_Level]:
     """Level hierarchy below the fine problem (level 0 IS the problem), with
     the diagonally lumped coarse data term or, under
     ``mg_coarse_data="galerkin"``, the full Galerkin stencil of each level
-    (``data_coeff``; ``data_diag`` is then its center channel)."""
+    (``data_coeff``; ``data_diag`` is then its center channel). ``ddiag``
+    overrides the fine data diagonal the lumped levels coarsen (the sharded
+    solve gathers it from the ranks' blocks)."""
     levels: list[_Level] = []
     weights = problem.weights
     ndim = problem.grid.ndim
     galerkin = config.mg_coarse_data == "galerkin"
-    ddiag = data_diag(problem.coeff, ndim)
+    if ddiag is None:
+        ddiag = data_diag(problem.coeff, ndim)
     dcoeff = problem.coeff if galerkin else None
     for coarse_shape in level_shapes(problem.grid.shape, config.mg_min_size,
                                      config.mg_coarse_solver):
@@ -446,6 +457,28 @@ def _rho_bound(row_abs: torch.Tensor, diag: torch.Tensor) -> torch.Tensor:
     return torch.max(row_abs / safe)
 
 
+def fine_lumped(config: SolverConfig, fine_shape: tuple[int, ...]) -> bool:
+    """Whether the fine level smooths with its lumped operator (smoothness +
+    diagonal data); "auto" lumps 3-D grids past the `fits_vmem` gate."""
+    if config.mg_fine_operator == "auto":
+        return len(fine_shape) >= 3 and not fits_vmem(fine_shape)
+    return config.mg_fine_operator == "lumped"
+
+
+def level_rhos(levels) -> list[torch.Tensor]:
+    """The Gershgorin bound ρ̂_l of every coarse level."""
+    rhos = []
+    for lvl in levels:
+        rowabs = stencils.smoothness_row_abs_sum(lvl.shape, lvl.weights,
+                                                 lvl.diag.dtype, lvl.diag.device)
+        if lvl.data_coeff is not None:
+            rowabs = rowabs + torch.sum(torch.abs(lvl.data_coeff), dim=0)
+        else:
+            rowabs = rowabs + lvl.data_diag
+        rhos.append(_rho_bound(rowabs, lvl.diag))
+    return rhos
+
+
 def build_smoothing_setup(problem: Problem, levels: list, config) -> tuple:
     """(lump, fine_ddiag, taus, rhos): the fine-level lumping decision, the
     per-level damped-Jacobi steps τ_l = 2·mg_omega/ρ̂(D_l⁻¹A_l) and the
@@ -453,9 +486,7 @@ def build_smoothing_setup(problem: Problem, levels: list, config) -> tuple:
     plain V-cycle and the fused operands, as in the reference."""
     ndim = problem.grid.ndim
     dtype, dev = problem.diag.dtype, problem.diag.device
-    lump = config.mg_fine_operator == "lumped"
-    if config.mg_fine_operator == "auto":
-        lump = ndim >= 3 and not fits_vmem(problem.grid.shape)
+    lump = fine_lumped(config, problem.grid.shape)
     fine_ddiag = data_diag(problem.coeff, ndim)
     base = stencils.smoothness_row_abs_sum(problem.grid.shape, problem.weights,
                                            dtype, dev)
@@ -463,15 +494,7 @@ def build_smoothing_setup(problem: Problem, levels: list, config) -> tuple:
         fine_rowabs = base + fine_ddiag
     else:
         fine_rowabs = base + torch.sum(torch.abs(problem.coeff), dim=-(ndim + 1))
-    rhos = [_rho_bound(fine_rowabs, problem.diag)]
-    for lvl in levels:
-        rowabs = stencils.smoothness_row_abs_sum(lvl.shape, lvl.weights,
-                                                 lvl.diag.dtype, dev)
-        if lvl.data_coeff is not None:
-            rowabs = rowabs + torch.sum(torch.abs(lvl.data_coeff), dim=0)
-        else:
-            rowabs = rowabs + lvl.data_diag
-        rhos.append(_rho_bound(rowabs, lvl.diag))
+    rhos = [_rho_bound(fine_rowabs, problem.diag)] + level_rhos(levels)
     taus = [2.0 * config.mg_omega / r for r in rhos]
     return lump, fine_ddiag, taus, rhos
 

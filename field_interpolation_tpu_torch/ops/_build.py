@@ -34,6 +34,12 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # x, coeff, out, ndim, n0, n1, n2, w2_0..w2_3, diag, stream
     "fi_normal_apply": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P),
+    # x_ext, coeff, out, ndim, n0..n2 (local), g0..g2 (global start),
+    # N0..N2 (global extents), r, w2_0..w2_3, diag, stream
+    "fi_normal_apply_ext": (_P, _P, _P) + (_I,) * 11 + (_F,) * 4 + (_I, _P),
+    # x_ext1, from_top, from_bot, coeff, out, n0, n1, g0, g1, N0, N1, r,
+    # w2_0..w2_3, stream
+    "fi_normal_apply_ext_striped": (_P,) * 5 + (_I,) * 7 + (_F,) * 4 + (_P,),
     # r, z (null: from zero), coeff, sid, out, ndim, n0, n1, n2, w2_0..w2_3,
     # diag, zprev (null: zeros), cf (null: Jacobi), k, stream
     "fi_jacobi_sweep": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F,

@@ -6,9 +6,9 @@ They size blocks for a TPU core's VMEM and mean nothing on the H100; the
 port evaluates them only to decide, level by level and exactly as the
 reference does, WHICH reference kernel a call stands in for (the whole-array
 apply, the striped apply, the two-axis 3-D apply, the multi-sweep smoother,
-a per-sweep kernel, or plain ops). ``tests/test_torch_dispatch.py`` holds
-each function equal to the reference's. Re-deciding these rules on the H100
-is ROADMAP work.
+a per-sweep kernel, the sharded apply's whole or striped form, or plain
+ops). ``tests/test_torch_dispatch.py`` holds each function equal to the
+reference's. Re-deciding these rules on the H100 is ROADMAP work.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from __future__ import annotations
 import math
 
 _VMEM_BUDGET_BYTES = 8 * 1024 * 1024  # pallas_stencil.py:52
-_H_EXT = 8       # axis-0 halo block of the 2-D smoothers (1259)
+_H_EXT = 8       # axis-0 halo of the 2-D smoothers and the striped ext apply (1259)
 _W_EXT = 128     # axis-1 halo block of the 2-D tiled smoother (778)
 _H0_3D, _H1_3D = 4, 8  # halos of the two-axis 3-D kernels (1641)
 
@@ -31,6 +31,36 @@ def fits_vmem(shape: tuple[int, ...], diag_data: bool = False) -> bool:
     channels = 1 if diag_data else 3 ** len(shape)
     extra = 5 if diag_data else 2
     return n * (channels + extra) * 4 <= _VMEM_BUDGET_BYTES
+
+
+def ext_fits_vmem(local_shape: tuple[int, ...], radius: int,
+                  diag_data: bool = False) -> bool:
+    """Whole-extended-block gate of the sharded apply (359-372): the local
+    block extended by ``radius`` on every axis, its data term (3^D channels,
+    or one diagonal plane with ``diag_data``) and the output."""
+    if len(local_shape) < 2:
+        return False
+    ext = math.prod(n + 2 * radius for n in local_shape)
+    n = math.prod(local_shape)
+    channels = 1 if diag_data else 3 ** len(local_shape)
+    return (ext + (channels + 1) * n) * 4 <= _VMEM_BUDGET_BYTES
+
+
+def pick_stripe_ext(local_shape: tuple[int, ...], radius: int) -> int | None:
+    """Axis-0 stripe of the striped sharded apply, or None (1262-1276; 2-D,
+    radius ≤ 8)."""
+    if len(local_shape) != 2 or radius > _H_EXT:
+        return None
+    n0, n1 = local_shape
+    W = n1 + 2 * radius
+    h = _H_EXT
+    for T in (256, 128, 64, 32, 16, 8):
+        if n0 % T or T % h:
+            continue
+        est = (2 * 9 * T * n1 + 2 * (T + 2 * h) * W + 4 * h * W) * 4
+        if est <= _VMEM_BUDGET_BYTES:
+            return T
+    return None
 
 
 def halo(ndim: int, radius: int = 3) -> int:

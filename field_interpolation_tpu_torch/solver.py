@@ -69,6 +69,7 @@ def pcg(
     maxiter: int = 2000,
     recompute_every: int = 50,
     max_restarts: int = 8,
+    dot_fn: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = None,
 ) -> tuple[torch.Tensor, SolveInfo]:
     """Preconditioned CG on an SPD operator. Returns (x, SolveInfo).
 
@@ -77,25 +78,30 @@ def pcg(
     residual ``b − Ax``; if drift left it above tol, CG restarts from the
     verified residual (at most ``max_restarts`` segments sharing one
     ``maxiter`` budget), so ``converged`` is always backed by a true
-    residual."""
+    residual.
+
+    ``dot_fn`` overrides the inner product: the sharded solve passes one
+    summed across ranks, so every rank sees the same scalars and takes the
+    same branches."""
     if precond_fn is None:
         precond_fn = lambda r: r  # noqa: E731
+    dot = _dot if dot_fn is None else dot_fn
     x = torch.zeros_like(b) if x0 is None else x0
-    b_norm2 = _dot(b, b)
+    b_norm2 = dot(b, b)
     tol2 = tol * tol * torch.clamp_min(b_norm2, _tiny(b))
     zero = torch.zeros((), dtype=b.dtype, device=b.device)
 
     r = b - apply_fn(x)
     k, segments, progressed = 0, 0, True
-    while (bool(_dot(r, r) > tol2) and k < maxiter and segments < max_restarts
+    while (bool(dot(r, r) > tol2) and k < maxiter and segments < max_restarts
            and progressed):
         # ``r`` is a verified true residual: start a CG segment from it.
         k_start = k
         z = precond_fn(r)
-        p, rz = z, _dot(r, z)
+        p, rz = z, dot(r, z)
         while k < maxiter:
             Ap = apply_fn(p)
-            pAp = _dot(p, Ap)
+            pAp = dot(p, Ap)
             alpha = torch.where(pAp > 0, rz / pAp, zero)
             x = x + alpha * p
             if recompute_every > 0 and (k + 1) % recompute_every == 0:
@@ -103,16 +109,16 @@ def pcg(
             else:
                 r = r - alpha * Ap
             z = precond_fn(r)
-            rz_new = _dot(r, z)
+            rz_new = dot(r, z)
             beta = torch.where(rz > 0, rz_new / rz, zero)
             p, rz = z + beta * p, rz_new
             k += 1
-            if bool(_dot(r, r) <= tol2):
+            if bool(dot(r, r) <= tol2):
                 break
         r = b - apply_fn(x)  # verify the recurrence exit
         segments += 1
         progressed = k > k_start
-    rr = _dot(r, r)
+    rr = dot(r, r)
     rel = torch.sqrt(rr / torch.clamp_min(b_norm2, _tiny(b)))
     return x, SolveInfo(iterations=torch.tensor(k, dtype=torch.int32),
                         rel_residual=rel, converged=rr <= tol2)

@@ -400,3 +400,87 @@ def test_sizes_the_reference_runs_in_xla_go_through_the_wrappers(monkeypatch):
     _spy(monkeypatch, seen, tmg, ["fused_smooth"])
     tsolver.solve(tp, ft.SolverConfig(tol=1e-4, maxiter=2))
     assert {("fused_normal_apply", shape), ("fused_smooth", shape)} <= seen
+
+
+# ---- the sharded slice ------------------------------------------------------
+# Blocks of BASELINE config 5's sharded runs: 4096² on 2 x 2 and 1 x 8 (the
+# reference's own case, pallas_stencil.py:1249-1257), 256³ on 2 x 2 over dims
+# 0 and 1, and the sharded coarse levels of the 4096² hierarchy on 2 x 2.
+EXT_BLOCKS = [(2048, 2048), (4096, 512), (128, 128, 256), (1024, 1024), (512, 512),
+              (256, 256), (128, 128), (64, 64, 128), (32, 32, 64), (24, 20), (12, 20, 8)]
+
+
+@pytest.mark.parametrize("local", EXT_BLOCKS, ids=str)
+def test_ext_policy_matches_reference(local):
+    for radius in (1, 2, 3, 8, 9):
+        for diag in (False, True):
+            assert (_policy.ext_fits_vmem(local, radius, diag_data=diag)
+                    == ps.ext_fits_vmem(local, radius, diag_data=diag))
+        assert _policy.pick_stripe_ext(local, radius) == ps.pick_stripe_ext(local, radius)
+
+
+@pytest.mark.parametrize("grid,mesh,backend,want", [
+    ((4096, 4096), (2, 2), "auto", ("ext_striped", 32)),
+    ((4096, 4096), (1, 8), "auto", ("ext_striped", 128)),
+    ((4096, 4096), (8, 1), "auto", ("ext_striped", 16)),
+    ((256, 256, 256), (2, 2), "auto", ("ext", None)),
+    ((2048, 2048), (2, 2), "auto", ("ext_striped", 64)),
+    ((64, 64), (2, 2), "auto", ("ext", None)),
+    ((4096, 4096), (2, 2), "xla", ("sequential", None)),
+    ((48, 40), (1, 4), "xla", ("sequential", None)),
+    ((48, 40), (1, 8), "xla", ("sequential", None)),
+    ((256, 256, 256), (2, 2), "xla", ("sequential", None)),
+], ids=str)
+def test_sharded_apply_route(grid, mesh, backend, want):
+    """The striped kernel where the reference picks a stripe, the whole-form
+    ext kernel everywhere else (where the reference runs XLA past its gate,
+    too); the plain routes under backend="xla"."""
+    from field_interpolation_tpu_torch.parallel.mesh import Mesh
+    from field_interpolation_tpu_torch.parallel.sharded import apply_route
+    assert apply_route(grid, ft.Weights(model_2=0.3), Mesh(mesh), backend) == want
+
+
+@pytest.mark.parametrize("grid,shards,n_sh", [((4096, 4096), (2, 2), 5),
+                                              ((256, 256, 256), (2, 2, 1), 3),
+                                              ((160, 128), (2, 2), 1)], ids=str)
+def test_distributed_levels_of_the_sharded_runs(grid, shards, n_sh):
+    """S2's and S4's hierarchies: which levels stay sharded, each
+    transition's halos equal the reference's, and each level's route: the
+    ext kernel's diagonal form on every sharded level (the lumped 3-D fine
+    level too), the exact apply on the 2-D fine level, plain torch where the
+    level is replicated."""
+    from field_interpolation_tpu.parallel import sharded as jsh
+    from field_interpolation_tpu_torch.parallel import sharded as tsh
+    cfg = ft.SolverConfig(tol=1e-4, maxiter=500)
+    shapes = (grid,) + tmg.level_shapes(grid, cfg.mg_min_size, cfg.mg_coarse_solver)
+    assert shapes[1:] == tuple(jmg.level_shapes(grid, cfg.mg_min_size,
+                                                cfg.mg_coarse_solver))
+    radii = (2,) * (len(shapes) - 1)
+    got_n_sh, trans = tsh._sharded_prefix(shapes, shards, radii)
+    assert got_n_sh == n_sh
+    assert [t[0] for t in trans] == ["ss"] * n_sh + ["boundary"] + ["rr"] * (
+        len(trans) - n_sh - 1)
+    for (kind, changing, halos), S_f, S_c in zip(trans, shapes, shapes[1:]):
+        for d, h in zip(changing, halos):
+            assert h == jsh._transfer_band_halos(S_f[d], S_c[d], shards[d])
+    lump = tmg.fine_lumped(cfg, grid)
+    plan = tsh._MGPlan(shapes=shapes, fweights=ft.Weights(model_2=0.3), lweights=(),
+                       radii=radii, n_sh=got_n_sh, lump=lump, has_dense=True, trans=trans)
+    routes = tsh.level_routes(plan, "auto")
+    assert routes == (("ext",) if lump else ("apply",)) + ("ext",) * n_sh + (
+        "replicated",) * (len(shapes) - n_sh - 1)
+    assert set(tsh.level_routes(plan, "xla")[1:n_sh + 1]) == {"plain"}
+
+
+def test_pcg_without_dot_fn_is_unchanged():
+    """An existing caller: pcg with no dot_fn is the plain full sum, bit for
+    bit, and the solve keeps its iterations (the reference's own count)."""
+    jp, tp = _pair((32, 40))
+    apply_fn = tp.apply
+    x1, i1 = tsolver.pcg(apply_fn, tp.b, tol=1e-5, maxiter=500)
+    x2, i2 = tsolver.pcg(apply_fn, tp.b, tol=1e-5, maxiter=500,
+                         dot_fn=lambda a, b: torch.sum(a * b))
+    assert torch.equal(x1, x2) and int(i1.iterations) == int(i2.iterations)
+    from field_interpolation_tpu.solver import pcg as jpcg
+    _, ij = jpcg(jp.apply, jp.b, tol=1e-5, maxiter=500)
+    assert abs(int(i1.iterations) - int(ij.iterations)) <= 2

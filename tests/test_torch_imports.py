@@ -43,6 +43,23 @@ def test_port_imports_with_jax_blocked():
     assert out.stdout.strip() == "ok"
 
 
+def test_parallel_imports_without_jax_or_a_card():
+    """The sharded entry points import with JAX and Triton blocked, and the
+    import touches no CUDA device."""
+    code = BLOCK_JAX + (
+        "import torch\n"
+        "from field_interpolation_tpu_torch.parallel import (Mesh, shard_problem,\n"
+        "    solve_refined_sharded, solve_sharded)\n"
+        "from field_interpolation_tpu_torch.parallel import cases, launch\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "assert not any(m.split('.')[0] in ('jax', 'triton') for m in sys.modules)\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300, env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 @pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")), ids=lambda p: p.name)
 def test_no_file_imports_jax_or_the_reference(path):
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|field_interpolation_tpu)\b(?!_torch)",

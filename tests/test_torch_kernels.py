@@ -26,6 +26,9 @@ from field_interpolation_tpu_torch.ops.smooth import (fused_smooth, fused_smooth
                                                       multisweep_max_halo)
 from field_interpolation_tpu_torch.ops.stencil import (fused_normal_apply,
                                                        fused_normal_apply_plain)
+from field_interpolation_tpu_torch.ops.stencil_ext import (
+    fused_normal_apply_ext, fused_normal_apply_ext_plain, fused_normal_apply_ext_striped,
+    fused_normal_apply_ext_striped_plain)
 
 pytestmark = pytest.mark.gpu
 
@@ -553,3 +556,106 @@ def test_segment_chebyshev_galerkin_matches_plain(cuda, change, wdepth):
     assert fused_pcg_solve.launches == before + 1
     assert abs(int(ik) - int(ip)) <= 2 and float(rrk) <= float(tol2)
     assert float((xk - xp).abs().max()) <= 2e-3 * float(xp.abs().max())
+
+
+# ---- the sharded slice: the ext kernels and four ranks on the card ----------
+
+EXT_WEIGHTS = {1: dict(model_1=0.7, model_2=0.0), 2: dict(model_2=0.3),
+               3: dict(model_0=0.1, model_1=0.2, model_2=1.0, model_3=0.3)}
+
+
+def _blocks(shape, shards, r):
+    """(block slices, slices of its extended block in the field padded by r,
+    global start) per block of the layout."""
+    import itertools
+    loc = [n // s for n, s in zip(shape, shards)]
+    for idx in itertools.product(*[range(s) for s in shards]):
+        gs = [i * n for i, n in zip(idx, loc)]
+        yield (tuple(slice(g, g + n) for g, n in zip(gs, loc)),
+               tuple(slice(g, g + n + 2 * r) for g, n in zip(gs, loc)), gs)
+
+
+def _close(got, want, bar):
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    assert bool(torch.isfinite(got).all())
+    assert err <= bar * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("shape,shards", [((45, 61), (3, 1)), ((40, 62), (2, 2)),
+                                          ((20, 18, 22), (2, 2, 1)),
+                                          ((9, 14, 10), (1, 2, 2))], ids=str)
+@pytest.mark.parametrize("radius", [1, 2, 3])
+@pytest.mark.parametrize("diag", [False, True])
+def test_ext_kernel_matches_plain(cuda, shape, shards, radius, diag):
+    rng = np.random.default_rng(radius)
+    nd = len(shape)
+    w = ft.Weights(**EXT_WEIGHTS[radius])
+    x = torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=cuda)
+    cshape = shape if diag else (3 ** nd,) + shape
+    coeff = torch.as_tensor(rng.uniform(-1, 2, cshape).astype(np.float32), device=cuda)
+    xp = torch.nn.functional.pad(x, (radius,) * (2 * nd))
+    for blk, ext, gs in _blocks(shape, shards, radius):
+        c = coeff[blk if diag else (slice(None),) + blk].contiguous()
+        args = (xp[ext].contiguous(), c, gs, w, nd, radius, shape)
+        before = fused_normal_apply_ext.launches
+        got = fused_normal_apply_ext(*args)
+        assert fused_normal_apply_ext.launches == before + 1
+        _close(got, fused_normal_apply_ext_plain(*args), 1e-5)
+
+
+@pytest.mark.parametrize("shape,shards", [((64, 48), (4, 1)), ((36, 53), (3, 1)),
+                                          ((40, 62), (2, 2))], ids=str)
+@pytest.mark.parametrize("radius", [1, 2, 3])
+def test_ext_striped_kernel_matches_plain(cuda, shape, shards, radius):
+    """The three operands read where they lie: rows from the top slab, the
+    block and the bottom slab; on a 2 x 2 layout the axis-1 halo and the
+    slabs' corners are neighbour data."""
+    rng = np.random.default_rng(7 + radius)
+    w = ft.Weights(**EXT_WEIGHTS[radius])
+    r = radius
+    x = torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=cuda)
+    coeff = torch.as_tensor(rng.uniform(-1, 2, (9,) + shape).astype(np.float32),
+                            device=cuda)
+    xp = torch.nn.functional.pad(x, (r,) * 4)
+    for blk, (rows, cols), gs in _blocks(shape, shards, r):
+        args = (xp[rows.start + r:rows.stop - r, cols].contiguous(),
+                xp[rows.start:rows.start + r, cols].contiguous(),
+                xp[rows.stop - r:rows.stop, cols].contiguous(),
+                coeff[(slice(None),) + blk].contiguous(), gs, w, r, shape)
+        before = fused_normal_apply_ext_striped.launches
+        got = fused_normal_apply_ext_striped(*args)
+        assert fused_normal_apply_ext_striped.launches == before + 1
+        _close(got, fused_normal_apply_ext_striped_plain(*args), 1e-5)
+
+
+def test_sharded_solves_on_card_launch_the_ext_kernels(cuda):
+    """Four ranks on the card (gloo): a 1024² problem on a 2 x 2 mesh (512²
+    blocks: the striped form, the diagonal form on the sharded levels) and a
+    48³ one (the whole form), each within ±2 iterations and 2e-3·max|x| of
+    the unsharded solve on the card, every rank launching its kernels."""
+    from field_interpolation_tpu_torch.parallel.cases import Cloud, run_cases, stitch
+    from field_interpolation_tpu_torch.parallel.launch import run_ranks
+    clouds = []
+    for shape, n in [((1024, 1024), 4000), ((48, 48, 48), 1300)]:
+        rng = np.random.default_rng(0)
+        nd = len(shape)
+        nrm = rng.standard_normal((n, nd))
+        nrm = (nrm / np.linalg.norm(nrm, axis=1, keepdims=True)).astype(np.float32)
+        pts = ((np.asarray(shape) - 1) / 2.0 + 0.3 * min(shape) * nrm).astype(np.float32)
+        clouds.append(Cloud(shape, ft.Weights(model_2=0.3), pts, None, nrm))
+    cfg = ft.SolverConfig(tol=1e-4, maxiter=500)
+    res = run_ranks(run_cases, 4, [("sharded_solve", dict(cloud=c, mesh_shape=(2, 2),
+                                                          config=cfg)) for c in clouds],
+                    device="cuda")
+    for k, (c, kernels) in enumerate(zip(clouds, [
+            ("fused_normal_apply_ext_striped", "fused_normal_apply_ext"),
+            ("fused_normal_apply_ext",)])):
+        parts = [r[k] for r in res]
+        x = stitch(parts, "x")
+        xr, ir = ft.solve(c.problem(cuda), cfg)
+        assert all(p["converged"] for p in parts)
+        assert abs(parts[0]["iterations"] - int(ir.iterations)) <= 2
+        assert float((x - xr.cpu()).abs().max()) <= 2e-3 * float(xr.abs().max())
+        for name in kernels:
+            assert all(p["launches"][name] > 0 for p in parts), (name, parts[0]["launches"])
