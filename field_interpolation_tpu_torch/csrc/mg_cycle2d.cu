@@ -28,8 +28,9 @@
 // is two calls and an XLA matvec); the W step's residual update shares a
 // phase with the prolongation it follows; sweeps ping-pong two buffers so
 // each is one phase. No float atomics, no dot products: the result is the
-// same bits on every run. A block-local coarse tail (the bottom levels in
-// one block, without grid barriers) is later work.
+// same bits on every run. A coarse tail in one block or one thread-block
+// cluster, without grid barriers, measured no faster on the H100 (PERF.md
+// §6): a tail phase costs about what a grid phase does.
 #include "mg_cycle2d.cuh"
 
 namespace {

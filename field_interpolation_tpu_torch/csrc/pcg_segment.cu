@@ -28,8 +28,11 @@
 // block, so every block takes the same exit and the iteration count is
 // deterministic (no float atomics); Jacobi sweeps ping-pong two buffers so
 // each sweep is one phase; the transfers read the dense R only over its
-// band (≤ 4 entries per row) from host-built band tables. Fewer barriers
-// (fused phases, one block per coarse level) are later work.
+// band (≤ 4 entries per row) from host-built band tables. Fewer grid
+// barriers through a coarse tail on one thread-block cluster and merged
+// phases (25 an iteration instead of 40) measured slower on the H100
+// (PERF.md §6): a cluster phase costs about what a grid phase does, and the
+// larger kernel holds two blocks per SM instead of three.
 #include "mg_cycle2d.cuh"
 
 namespace {

@@ -370,6 +370,44 @@ def test_cycle_kernel_matches_plain(cuda, shape, wdepth, nu_pre, nu_post):
         assert err <= 3e-5 * float(want.abs().max()), err
 
 
+def _float64(ops):
+    coeffs, sids, Rs, inv32, lw = ops
+    return ([c.double() for c in coeffs], [s.double() for s in sids],
+            [R.double() for R in Rs], inv32.double(), lw)
+
+
+@pytest.mark.parametrize("shape", [(45, 61), (97, 130)])
+@pytest.mark.parametrize("nu_pre", [1, 3])
+def test_cycle_kernel_without_post_smoothing_near_float64(cuda, shape, nu_pre):
+    """A V-cycle with ν_post = 0 ends in the prolongation, so nothing smooths
+    the float32 rounding of the coarse levels out of the fine residual: at
+    97×130, ν_pre = 3, plain float32 itself sits ~3.1e-5·max from the
+    float64 cycle (tests/test_torch_cycle_float64.py). So the kernel's fine
+    residual on r = A·x is held to the float64 cycle's (float64 operands):
+    within 3e-5·max, or within twice plain float32's own distance where
+    that is larger; z on a standard-normal r within 3e-5·max|plain| of the
+    plain float32 cycle."""
+    ops, _ = _cycle_operands(shape, cuda)
+    ops64 = _float64(ops)
+    rng = np.random.default_rng(7)
+    x, r = (torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=cuda)
+            for _ in range(2))
+    r_ax = fused_normal_apply_plain(x, ops[0][0], ops[4][0], 2)
+
+    def fine_residual(z):
+        return r_ax.double() - fused_normal_apply_plain(z.double(), ops64[0][0], ops[4][0], 2)
+
+    want = fine_residual(mg_cycle_plain(r_ax.double(), *ops64, nu_pre, 0, 0))
+    plain = fine_residual(mg_cycle_plain(r_ax, *ops, nu_pre, 0, 0))
+    got = fine_residual(fused_vcycle_2d(r_ax, *ops, nu_pre, 0))
+    scale = float(want.abs().max())
+    gap = float((plain - want).abs().max())
+    err = float((got - want).abs().max())
+    assert err <= max(3e-5 * scale, 2 * gap), (err / scale, gap / scale)
+    z, zp = fused_vcycle_2d(r, *ops, nu_pre, 0), mg_cycle_plain(r, *ops, nu_pre, 0, 0)
+    assert float((z - zp).abs().max()) <= 3e-5 * float(zp.abs().max())
+
+
 def test_cycle_kernel_is_symmetric_and_deterministic(cuda):
     ops, _ = _cycle_operands((97, 130), cuda)
     rng = np.random.default_rng(8)
