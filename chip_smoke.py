@@ -24,10 +24,13 @@ toolkit (``nvcc``). Phases, each fatal on failure:
    27-channel data; the reference's striped apply), the same cloud with
    radius-3 weights (the reference's two-axis apply), a 32³ problem (its
    whole-array apply) and the 64³ multigrid level (diagonal data);
-7. the Jacobi sweep kernel against its plain version, within
-   2e-5·max|plain|: one sweep on the lumped 128³ fine level, ν = 3 from
-   zero and from z on the 64³ level, ν = 3 on the 32³ problem's full
-   27-channel data;
+7. the smoothing-phase kernel against its plain version, within
+   2e-5·max|plain| for z and 2e-5·max|r − A z| for the residual the call
+   writes, each call timed single and back to back: one sweep on the
+   lumped 128³ fine level, and the cycle's calls there (ν = 3 from zero
+   with the residual, ν = 3 from z), ν = 3 from zero and from z with the
+   residual on the 64³ level, ν = 3 with the residual on the 32³ problem's
+   full 27-channel data;
 8. the 3-D main path, BASELINE config 4 (bench.py:217-227):
    ``sdf_from_points`` at 128³, 4000 points, tol 1e-4, seeds 0..1, each
    field converged, finite, of shape 128³ and within ±2 iterations and
@@ -50,10 +53,11 @@ toolkit (``nvcc``). Phases, each fatal on failure:
     (the striped smoother) and ν = 2 with radius-3 weights at 1000×1030;
     each timed beside ν launches of the per-sweep kernel, with GB/s from
     the bytes each route must move;
-11. the per-sweep kernel against its plain version, within
-    2e-5·max|plain|, on config 5's diagonal levels: one sweep at 2048² and
-    1024² (the reference's fused_sweep_striped_diag), and ν = 3 from zero
-    at 512² (its whole-level fused_smooth);
+11. the smoothing-phase kernel against its plain version, as phase 7, on
+    config 5's diagonal levels: one sweep and the cycle's pre-smoothing
+    call (ν = 3 from zero with the residual) at 2048² and 1024² (the
+    reference's fused_sweep_striped_diag), the latter at 512² (its
+    whole-level fused_smooth);
 12. BASELINE config 5's single-chip proxy (bench.py:272-315):
     ``sdf_from_points`` at 4096², 100 000 points, tol 1e-4, maxiter 500,
     ``fmg_start=1``, seed 0, converged, finite, of shape 4096²,
@@ -94,15 +98,15 @@ toolkit (``nvcc``). Phases, each fatal on failure:
     1e-4, ``fmg_start=1``, seed 0: converged, finite, of shape 992²; its
     496² guess launches the whole-cycle kernel, its fine level the apply,
     multi-sweep and per-sweep kernels;
-19. the per-sweep kernel's Chebyshev mode (kind 4, ν = 3, from zero and
-    from z) against its plain version within 2e-5·max|plain| on config 4's
-    cloud: the lumped 128³ fine level, the 64³ level with lumped data and
-    the 64³ Galerkin level (27 channels), each beside the kernel's
-    damped-Jacobi mode on the same level;
+19. the smoothing-phase kernel's Chebyshev mode (kind 4, ν = 3, from zero
+    and from z, each with the residual) against its plain version as phase
+    7 on config 4's cloud: the lumped 128³ fine level, the 64³ level with
+    lumped data and the 64³ Galerkin level (27 channels), each beside the
+    kernel's damped-Jacobi mode on the same level;
 20. the multi-sweep kernel's Chebyshev mode at 4096² (from zero and from
     z) and at 1000×1030 with radius-3 weights (ν = 3 from z: two launches,
-    the second from the first's z_prev), and the per-sweep kernel's on
-    config 5's 512² diagonal level, as phase 19;
+    the second from the first's z_prev), and the smoothing-phase kernel's
+    on config 5's 512² diagonal level, as phase 19;
 21. the whole-cycle kernel's Chebyshev mode against ``mg_cycle_plain`` on
     field A′'s operands (480², W and V), as phase 14, beside the
     damped-Jacobi cycle kernel on the same problem;
@@ -190,6 +194,11 @@ GALERKIN = dict(mg_coarse_data="galerkin")
 SEEDS_HCHEB = range(1)
 SHAPE_A2 = (480, 480)  # field A′: the largest side of the Chebyshev whole-cycle band
 SEEDS4_CG = range(1)
+# Kernels per field that the previous smoothing design (one host call per
+# sweep, every residual of the cycle in plain torch) launched, counted by
+# torch.profiler in `cycle_ab.py --ab` on an NVIDIA H100 80GB HBM3 at 700 W;
+# the profiles of phases 9, 13 and 25 print them beside their own counts.
+PREVIOUS_KERNELS = {"config 4": 17367, "config 5": 199462, "config 4-cg": 52481}
 # The least time the card could take (bound_ms): bytes over HBM's rate, or
 # float32 operations over the peak outside the tensor cores (H100 SXM data
 # sheet, 700 W).
@@ -201,7 +210,7 @@ DEVICE_KINDS = [
     ("cycle kernel", r"mg_cycle2d"),
     ("segment kernel", r"pcg_segment"),
     ("multi-sweep kernel", r"jacobi_multisweep2d"),
-    ("sweep kernel", r"jacobi_sweep_kernel"),
+    ("sweep kernel", r"smooth_phase_kernel"),
     ("apply kernel", r"normal_apply"),
     ("host->device copies", r"HtoD"),
     ("device->host copies", r"DtoH"),
@@ -327,15 +336,20 @@ def apply_work(x, coeff, weights, ndim):
             apply_flops(weights, ndim, coeff.ndim == ndim) * x.numel())
 
 
-def sweep_work(r, coeff, weights, ndim, sweeps, from_zero, cheb=False):
+def sweep_work(r, coeff, weights, ndim, sweeps, from_zero, cheb=False, residual=False):
     """(bytes, operations) of ``sweeps`` damped-Jacobi sweeps (Chebyshev
     sweeps with ``cheb``: four more operations per node) in one call: r,
     sid, the coefficients (and z) read once, z written once (z_prev and the
-    [ν, 2] schedule are the kernels' own)."""
+    [ν, 2] schedule are the kernels' own); with ``residual`` also r − A z
+    written, one more apply and subtraction per node."""
     n = r.numel()
     reads = 2 * n + coeff.numel() + (0 if from_zero else n)
-    per = apply_flops(weights, ndim, coeff.ndim == ndim) + (8 if cheb else 4)
-    return 4 * (reads + n), n * (per * sweeps - (per - 1 if from_zero else 0))
+    a = apply_flops(weights, ndim, coeff.ndim == ndim)
+    per = a + (8 if cheb else 4)
+    flops = n * (per * sweeps - (per - 1 if from_zero else 0))
+    if residual:
+        return 4 * (reads + 2 * n), flops + n * (a + 1)
+    return 4 * (reads + n), flops
 
 
 def cycle_work(ops, nu_pre, nu_post, wdepth, cheb=False):
@@ -380,15 +394,25 @@ def check_close(name, got, want, bar):
     return err
 
 
-def compare(name, kernel, plain, bar, work=None):
+def compare(name, kernel, plain, bar, work=None, residual=False):
     """Run ``kernel`` and ``plain`` once each, check max|kernel - plain| ≤
-    bar·max|plain|, time both; returns the record, with `bound` of
-    ``work`` = (bytes, operations) when given."""
-    err = check_close(name, kernel(), plain(), bar)
-    ms = cuda_ms(kernel)
+    bar·max|plain|, time both (the kernel single and back to back);
+    returns the record, with `bound` of ``work`` = (bytes, operations) when
+    given. With ``residual`` both return (z, r − A z), each held to the bar
+    on its own scale; the record's error is the larger of the two."""
+    got, want = kernel(), plain()
+    if residual:
+        err_z = check_close(f"{name}, z", got[0], want[0], bar)
+        err_r = check_close(f"{name}, r - A z", got[1], want[1], bar)
+        errs = dict(max_abs_err=max(err_z, err_r), z_max_abs_err=err_z,
+                    residual_max_abs_err=err_r)
+    else:
+        errs = dict(max_abs_err=check_close(name, got, want, bar))
+    del got, want
+    ms, b2b = cuda_ms(kernel), batch_ms(kernel)
     plain_ms = cuda_ms(plain, PLAIN_REPS)
-    print(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    print(f"  kernel {ms:.4f} ms (back to back {b2b:.4f}), plain {plain_ms:.4f} ms")
+    rec = dict(**errs, ms=ms, batch_ms=b2b, plain_ms=plain_ms)
     if work is not None:
         rec.update(bound(*work))
         print(f"  bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
@@ -579,28 +603,44 @@ def phase_sweep3d(ft, device, p128, p32, lvl1):
     sid1 = (taus[1] * tmg._inv_diag(lvl1.diag)).contiguous()
     fd = fine_ddiag.contiguous()
     r0, z0 = rand(SHAPE3), rand(SHAPE3)
-    rec = compare(f"sweep {shape_str(SHAPE3)} lumped fine level, 1 sweep",
-                  lambda: fused_sweep(r0, z0, fd, sid0, p128.weights),
-                  lambda: fused_smooth_plain(r0, z0, fd, sid0, p128.weights, 3, 1),
-                  2e-5, sweep_work(r0, fd, p128.weights, 3, 1, False))
+    compare(f"sweep {shape_str(SHAPE3)} lumped fine level, 1 sweep from z",
+            lambda: fused_sweep(r0, z0, fd, sid0, p128.weights),
+            lambda: fused_smooth_plain(r0, z0, fd, sid0, p128.weights, 3, 1),
+            2e-5, sweep_work(r0, fd, p128.weights, 3, 1, False))
+    # The cycle's calls on the fine level: the pre-smoothing phase with the
+    # residual it restricts, and the post-smoothing phase from z.
+    rec = None
+    for from_zero, residual in ((True, True), (False, False)):
+        got = compare(f"smooth {shape_str(SHAPE3)} lumped fine level, 3 sweeps, "
+                      f"from_zero={from_zero}, residual={residual}",
+                      lambda: fused_smooth(r0, z0, fd, sid0, p128.weights, 3, 3, from_zero,
+                                           residual=residual),
+                      lambda: fused_smooth_plain(r0, z0, fd, sid0, p128.weights, 3, 3,
+                                                 from_zero, residual=residual),
+                      2e-5, sweep_work(r0, fd, p128.weights, 3, 3, from_zero,
+                                       residual=residual), residual)
+        rec = rec or got
     r1, z1 = rand(lvl1.shape), rand(lvl1.shape)
     for from_zero in (True, False):
         compare(f"smooth {shape_str(lvl1.shape)} level diag, 3 sweeps, "
-                f"from_zero={from_zero}",
+                f"from_zero={from_zero}, residual=True",
                 lambda: fused_smooth(r1, z1, lvl1.data_diag, sid1, lvl1.weights,
-                                     3, 3, from_zero),
+                                     3, 3, from_zero, residual=True),
                 lambda: fused_smooth_plain(r1, z1, lvl1.data_diag, sid1,
-                                           lvl1.weights, 3, 3, from_zero), 2e-5,
-                sweep_work(r1, lvl1.data_diag, lvl1.weights, 3, 3, from_zero))
+                                           lvl1.weights, 3, 3, from_zero, residual=True),
+                2e-5, sweep_work(r1, lvl1.data_diag, lvl1.weights, 3, 3, from_zero,
+                                 residual=True), True)
     l32 = tmg.build_levels(p32, cfg)
     lump32, _, taus32, _ = tmg.build_smoothing_setup(p32, l32, cfg)
     require(not lump32, "32^3 smooths with the full data stencil")
     sid32 = (taus32[0] * tmg._inv_diag(p32.diag)).contiguous()
     r2, z2 = rand(p32.grid.shape), rand(p32.grid.shape)
-    compare(f"smooth {shape_str(p32.grid.shape)} 27-channel, 3 sweeps",
-            lambda: fused_smooth(r2, z2, p32.coeff, sid32, p32.weights, 3, 3),
-            lambda: fused_smooth_plain(r2, z2, p32.coeff, sid32, p32.weights, 3, 3),
-            2e-5, sweep_work(r2, p32.coeff, p32.weights, 3, 3, False))
+    compare(f"smooth {shape_str(p32.grid.shape)} 27-channel, 3 sweeps, residual=True",
+            lambda: fused_smooth(r2, z2, p32.coeff, sid32, p32.weights, 3, 3,
+                                 residual=True),
+            lambda: fused_smooth_plain(r2, z2, p32.coeff, sid32, p32.weights, 3, 3,
+                                       residual=True),
+            2e-5, sweep_work(r2, p32.coeff, p32.weights, 3, 3, False, residual=True), True)
     return rec
 
 
@@ -712,7 +752,8 @@ def profile_fields(label, fields, must_see):
     """``torch.profiler`` over ``fields`` (callables, one field each): the
     device's busy and idle share, kernels, launches, host->device copies and
     synchronizations per field, and device time per kind of work; fails if
-    a kind in ``must_see`` did not run on the card."""
+    a kind in ``must_see`` did not run on the card. Returns per field the
+    kernels on the device, the launch calls, the idle share and the busy ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -732,9 +773,11 @@ def profile_fields(label, fields, must_see):
     syncs = sum(e[1] in ("cudaStreamSynchronize", "cudaDeviceSynchronize") for e in host)
     kernels = [e for e in dev if not re.search(r"Memcpy|Memset", e[1])]
     launch_ms = sum(e[3] - e[2] for e in launch) / n / 1e3
+    previous = (f" (the previous smoothing design: {PREVIOUS_KERNELS[label]})"
+                if label in PREVIOUS_KERNELS else "")
     print(f"profile {label}, torch.profiler over {n} field(s): span {span:.3f} ms, "
           f"device busy {busy:.3f} ms, device idle share {1 - busy / span:.3f}; per "
-          f"field: {len(kernels) / n:.0f} kernels on the device, {len(launch) / n:.0f} "
+          f"field: {len(kernels) / n:.0f} kernels on the device{previous}, {len(launch) / n:.0f} "
           f"cudaLaunch(Cooperative)Kernel calls ({launch_ms:.3f}"
           f" ms host), {sum('HtoD' in e[1] for e in dev) / n:.0f} host->device "
           f"copies, {syncs / n:.0f} stream synchronizations")
@@ -749,6 +792,8 @@ def profile_fields(label, fields, must_see):
               f"{counts[kind] / n:.0f} per field")
     for kind in must_see:
         require(counts.get(kind, 0) > 0, f"the profile shows no {kind} on the card")
+    return dict(kernels=len(kernels) / n, launch_calls=len(launch) / n,
+                idle=1 - busy / span, busy_ms=busy / n)
 
 
 def phase_profile3d(ft, device):
@@ -843,12 +888,14 @@ def phase_smooth2d(ft, device):
             per_ms = cuda_ms(lambda: fused_smooth(r, z, p.coeff, sid, p.weights, 2, nu, fz))
             # Bytes each route must move per node: the multi-sweep kernel reads
             # the 9 coefficients, r, sid (and z) once and writes z once; each
-            # per-sweep launch does the same, the from-zero one only r, sid, z.
+            # launch of the per-sweep kernel's phase does the same, and the
+            # from-zero step is no launch of its own.
             nodes = p.grid.num_nodes
             multi = nodes * (48 + (0 if fz else 4))
-            per = nodes * ((12 if fz else 52) + 52 * (nu - 1))
+            launches = nu - 1 if fz else nu
+            per = nodes * 52 * launches
             print(f"  multi-sweep {got['ms']:.4f} ms, {multi / got['ms'] / 1e6:.0f} GB/s "
-                  f"of {multi / 1e9:.3f} GB; {nu} per-sweep launches {per_ms:.4f} ms, "
+                  f"of {multi / 1e9:.3f} GB; {launches} per-sweep launches {per_ms:.4f} ms, "
                   f"{per / per_ms / 1e6:.0f} GB/s of {per / 1e9:.3f} GB")
             if shape == SHAPE5 and not fz:
                 rec = got
@@ -871,20 +918,30 @@ def phase_sweep2d(ft, device, p5):
     rec = None
     for li in (1, 2):
         lvl, dd, sid, r, z = operands(li)
-        got = compare(f"sweep {shape_str(lvl.shape)} config 5 diagonal level "
-                      f"(reference: fused_sweep_striped_diag), 1 sweep",
-                      lambda: fused_sweep(r, z, dd, sid, lvl.weights),
-                      lambda: fused_smooth_plain(r, z, dd, sid, lvl.weights, 2, 1),
-                      2e-5, sweep_work(r, dd, lvl.weights, 2, 1, False))
+        compare(f"sweep {shape_str(lvl.shape)} config 5 diagonal level "
+                f"(reference: fused_sweep_striped_diag), 1 sweep",
+                lambda: fused_sweep(r, z, dd, sid, lvl.weights),
+                lambda: fused_smooth_plain(r, z, dd, sid, lvl.weights, 2, 1),
+                2e-5, sweep_work(r, dd, lvl.weights, 2, 1, False))
+        # The cycle's pre-smoothing call on the level: ν = 3 from zero and
+        # the residual it restricts.
+        got = compare(f"smooth {shape_str(lvl.shape)} config 5 diagonal level, 3 sweeps, "
+                      f"from_zero=True, residual=True",
+                      lambda: fused_smooth(r, z, dd, sid, lvl.weights, 2, 3, True,
+                                           residual=True),
+                      lambda: fused_smooth_plain(r, z, dd, sid, lvl.weights, 2, 3, True,
+                                                 residual=True),
+                      2e-5, sweep_work(r, dd, lvl.weights, 2, 3, True, residual=True), True)
         rec = rec or got
     # The whole-level diagonal form (the reference's fused_smooth) on the
-    # first level that fits VMEM, from zero: the kernel's null-z launch.
+    # first level that fits VMEM, from zero.
     lvl, dd, sid, r, z = operands(3)
     compare(f"smooth {shape_str(lvl.shape)} config 5 diagonal level "
-            f"(reference: fused_smooth), 3 sweeps, from_zero=True",
-            lambda: fused_smooth(r, z, dd, sid, lvl.weights, 2, 3, True),
-            lambda: fused_smooth_plain(r, z, dd, sid, lvl.weights, 2, 3, True), 2e-5,
-            sweep_work(r, dd, lvl.weights, 2, 3, True))
+            f"(reference: fused_smooth), 3 sweeps, from_zero=True, residual=True",
+            lambda: fused_smooth(r, z, dd, sid, lvl.weights, 2, 3, True, residual=True),
+            lambda: fused_smooth_plain(r, z, dd, sid, lvl.weights, 2, 3, True,
+                                       residual=True), 2e-5,
+            sweep_work(r, dd, lvl.weights, 2, 3, True, residual=True), True)
     return rec
 
 
@@ -1280,24 +1337,27 @@ def smoothing_levels(p, cfg, nu):
     return res
 
 
-def compare_cheb(label, kernel, plain, lv, r, z, ndim, nu, fz):
+def compare_cheb(label, kernel, plain, lv, r, z, ndim, nu, fz, residual=False):
     """A smoothing kernel's Chebyshev mode against its plain version on
     level operands ``lv`` (`smoothing_levels`), at the reference's bar
     2e-5·max|plain| (tests/test_mg_options.py:346), beside the kernel's
     damped-Jacobi mode on the same level. ``kernel(r, z, coeff, sid, w, nu,
-    fz, cf)``."""
+    fz, cf)``; with ``residual`` it and ``plain`` take residual=True and
+    return (z, r − A z)."""
     coeff, inv, sid_j, cf, w = lv
-    rec = compare(f"{label}, {nu} Chebyshev sweeps, from_zero={fz}",
-                  lambda: kernel(r, z, coeff, inv, w, nu, fz, cf),
-                  lambda: plain(r, z, coeff, inv, w, ndim, nu, fz, cf), 2e-5,
-                  sweep_work(r, coeff, w, ndim, nu, fz, cheb=True))
-    def jacobi():
-        return kernel(r, z, coeff, sid_j, w, nu, fz, None)
+    kw = dict(residual=True) if residual else {}
+    rec = compare(f"{label}, {nu} Chebyshev sweeps, from_zero={fz}, residual={residual}",
+                  lambda: kernel(r, z, coeff, inv, w, nu, fz, cf, **kw),
+                  lambda: plain(r, z, coeff, inv, w, ndim, nu, fz, cf, **kw), 2e-5,
+                  sweep_work(r, coeff, w, ndim, nu, fz, cheb=True, residual=residual),
+                  residual)
 
-    rec.update(batch_ms=batch_ms(lambda: kernel(r, z, coeff, inv, w, nu, fz, cf)),
-               jacobi_ms=cuda_ms(jacobi), jacobi_batch_ms=batch_ms(jacobi))
-    print(f"  back to back {rec['batch_ms']:.4f} ms; the damped-Jacobi mode on the same "
-          f"level: {rec['jacobi_ms']:.4f} ms, back to back {rec['jacobi_batch_ms']:.4f} ms")
+    def jacobi():
+        return kernel(r, z, coeff, sid_j, w, nu, fz, None, **kw)
+
+    rec.update(jacobi_ms=cuda_ms(jacobi), jacobi_batch_ms=batch_ms(jacobi))
+    print(f"  the damped-Jacobi mode on the same level: {rec['jacobi_ms']:.4f} ms, "
+          f"back to back {rec['jacobi_batch_ms']:.4f} ms")
     return rec
 
 
@@ -1313,8 +1373,8 @@ def phase_cheb_sweep(ft, device):
     lv_cg = smoothing_levels(p128, ft.SolverConfig(tol=1e-4, **CHEB, **GALERKIN), 3)
     del p128
 
-    def kernel(r, z, coeff, sid, w, nu, fz, cf):
-        return fused_smooth(r, z, coeff, sid, w, 3, nu, fz, cheb_coefs=cf)
+    def kernel(r, z, coeff, sid, w, nu, fz, cf, residual=False):
+        return fused_smooth(r, z, coeff, sid, w, 3, nu, fz, cheb_coefs=cf, residual=residual)
 
     recs = {}
     for key, label, lv in [("fine", "lumped fine level, diag", lv_cg[0]),
@@ -1326,7 +1386,8 @@ def phase_cheb_sweep(ft, device):
                                 device=device) for _ in range(2))
         for fz in (True, False):
             recs[key] = compare_cheb(f"smooth {shape_str(shape)} config 4 {label}",
-                                     kernel, fused_smooth_plain, lv, r, z, 3, 3, fz)
+                                     kernel, fused_smooth_plain, lv, r, z, 3, 3, fz,
+                                     residual=True)
     return recs
 
 
@@ -1349,8 +1410,8 @@ def phase_cheb5(ft, device):
     def multi(r, z, coeff, sid, w, nu, fz, cf):
         return fused_smooth_2d(r, z, coeff, sid, w, nu, fz, cheb_coefs=cf)
 
-    def per_sweep(r, z, coeff, sid, w, nu, fz, cf):
-        return fused_smooth(r, z, coeff, sid, w, 2, nu, fz, cheb_coefs=cf)
+    def per_sweep(r, z, coeff, sid, w, nu, fz, cf, residual=False):
+        return fused_smooth(r, z, coeff, sid, w, 2, nu, fz, cheb_coefs=cf, residual=residual)
 
     p5 = ft.assemble_sdf(ft.Grid(SHAPE5), ft.Weights(model_2=0.3), *circle5_inputs(0, device))
     lv5 = smoothing_levels(p5, cfg, 3)
@@ -1378,7 +1439,8 @@ def phase_cheb5(ft, device):
     r, z = rand(shape), rand(shape)
     for fz in (True, False):
         recs["diag"] = compare_cheb(f"smooth {shape_str(shape)} config 5 diagonal level",
-                                    per_sweep, fused_smooth_plain, lv, r, z, 2, 3, fz)
+                                    per_sweep, fused_smooth_plain, lv, r, z, 2, 3, fz,
+                                    residual=True)
     return recs
 
 

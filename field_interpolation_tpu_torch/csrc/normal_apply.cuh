@@ -1,7 +1,7 @@
 // The normal operator (S + DᵀWD) x at one node of a 2-D or 3-D grid, shared
-// by the apply kernel (normal_apply.cu), the Jacobi sweep kernels
-// (jacobi_sweep.cu; jacobi_multisweep2d.cu, 2-D, on shared-memory tiles) and
-// the PCG segment kernel (pcg_segment.cu, 2-D only).
+// by the apply kernel (normal_apply.cu), the smoothing kernels
+// (jacobi_sweep.cu and jacobi_multisweep2d.cu, on shared-memory tiles) and
+// the PCG segment and cycle kernels (pcg_segment.cu, mg_cycle2d.cuh; 2-D).
 //
 // Gather form of field_interpolation_tpu/ops/pallas_stencil.py:_kernel_body
 // (lines 104-166): the TPU kernel scatters each window's contribution into
@@ -90,54 +90,74 @@ __device__ __forceinline__ float data_at(Coeff c, const float* __restrict__ x,
     return out;
 }
 
-// (A x)[i0, i1] for A = S + data, S = Σ_orders w² Σ_axes BᵀB (+ w0² I).
-// 32-bit channel offsets: 9·N < 2³¹ (the wrappers check it).
+// (A x) at node (i0, i1) for A = S + data, S = Σ_orders w² Σ_axes BᵀB (+ w0² I),
+// x addressed around x[flat] with row stride st0 (the grid's own or a
+// shared-memory tile's, as in smooth_at); g is the node's index in the grid,
+// where its coefficients sit. 32-bit channel offsets: 9·N < 2³¹ (the
+// wrappers check it).
+__device__ __forceinline__ float apply_at(const ApplyOp& op,
+                                          const float* __restrict__ x, int flat,
+                                          int st0, int g, int i0, int i1) {
+    const int n0 = op.n0, n1 = op.n1;
+    const float out = smooth_at(op.w2, x, flat, i0, i1, n0, n1, st0);
+    if (op.diag) return out + op.coeff[g] * x[flat];
+    const float* c = op.coeff + g;
+    const int N = n0 * n1;
+    return out + data_at([&](int o) { return c[o * N]; }, x, flat, i0, i1, n0, n1, st0);
+}
+
+// (A x)[i0, i1], x the whole grid.
 __device__ __forceinline__ float apply_at(const ApplyOp& op,
                                           const float* __restrict__ x,
                                           int i0, int i1) {
-    const int n0 = op.n0, n1 = op.n1;
-    const int flat = i0 * n1 + i1;
-    const float out = smooth_at(op.w2, x, flat, i0, i1, n0, n1, n1);
-    if (op.diag) return out + op.coeff[flat] * x[flat];
-    const float* c = op.coeff + flat;
-    const int N = n0 * n1;
-    return out + data_at([&](int o) { return c[o * N]; }, x, flat, i0, i1, n0, n1, n1);
+    const int flat = i0 * op.n1 + i1;
+    return apply_at(op, x, flat, op.n1, flat, i0, i1);
 }
 
-// (A x)[i0, i1, i2] on a 3-D grid (C order, strides n1·n2, n2, 1). Node
-// indices are 32-bit (N < 2³¹); channel offsets o·N are 64-bit, since 27·N
-// passes 2³¹ from 430³ on.
+// (A x) at node (i0, i1, i2) of a 3-D grid (C order), x addressed around
+// x[flat] with strides st0, st1 and 1 (the grid's own or a shared-memory
+// tile's); g is the node's index in the grid. Node indices are 32-bit
+// (N < 2³¹); channel offsets o·N are 64-bit, since 27·N passes 2³¹ from
+// 430³ on.
 __device__ __forceinline__ float apply_at(const ApplyOp& op,
-                                          const float* __restrict__ x,
-                                          int i0, int i1, int i2) {
+                                          const float* __restrict__ x, int flat,
+                                          int st0, int st1, int g, int i0, int i1,
+                                          int i2) {
     const int n0 = op.n0, n1 = op.n1, n2 = op.n2;
-    const int s0 = n1 * n2;
-    const int flat = i0 * s0 + i1 * n2 + i2;
     const float xc = x[flat];
     float out = op.w2[0] != 0.f ? op.w2[0] * xc : 0.f;
     if (op.w2[1] != 0.f)
-        out += op.w2[1] * (axis_normal<2>(x, flat, i0, n0, s0)
-                           + axis_normal<2>(x, flat, i1, n1, n2)
+        out += op.w2[1] * (axis_normal<2>(x, flat, i0, n0, st0)
+                           + axis_normal<2>(x, flat, i1, n1, st1)
                            + axis_normal<2>(x, flat, i2, n2, 1));
     if (op.w2[2] != 0.f)
-        out += op.w2[2] * (axis_normal<3>(x, flat, i0, n0, s0)
-                           + axis_normal<3>(x, flat, i1, n1, n2)
+        out += op.w2[2] * (axis_normal<3>(x, flat, i0, n0, st0)
+                           + axis_normal<3>(x, flat, i1, n1, st1)
                            + axis_normal<3>(x, flat, i2, n2, 1));
     if (op.w2[3] != 0.f)
-        out += op.w2[3] * (axis_normal<4>(x, flat, i0, n0, s0)
-                           + axis_normal<4>(x, flat, i1, n1, n2)
+        out += op.w2[3] * (axis_normal<4>(x, flat, i0, n0, st0)
+                           + axis_normal<4>(x, flat, i1, n1, st1)
                            + axis_normal<4>(x, flat, i2, n2, 1));
-    if (op.diag) return out + op.coeff[flat] * xc;
+    if (op.diag) return out + op.coeff[g] * xc;
     // Data term over the 3×3×3 box, channel o = 9·(d0+1) + 3·(d1+1) + (d2+1)
     // (constraints.offset_list(3) C-order).
-    const long long N = static_cast<long long>(n0) * s0;
-    const float* c = op.coeff + flat;
+    const long long N = static_cast<long long>(n0) * n1 * n2;
+    const float* c = op.coeff + g;
 #pragma unroll
     for (int o = 0; o < 27; ++o) {
         const int d0 = o / 9 - 1, d1 = (o / 3) % 3 - 1, d2 = o % 3 - 1;
         const int j0 = i0 + d0, j1 = i1 + d1, j2 = i2 + d2;
         if (j0 < 0 || j0 >= n0 || j1 < 0 || j1 >= n1 || j2 < 0 || j2 >= n2) continue;
-        out += c[o * N] * x[flat + d0 * s0 + d1 * n2 + d2];
+        out += c[o * N] * x[flat + d0 * st0 + d1 * st1 + d2];
     }
     return out;
+}
+
+// (A x)[i0, i1, i2], x the whole grid.
+__device__ __forceinline__ float apply_at(const ApplyOp& op,
+                                          const float* __restrict__ x,
+                                          int i0, int i1, int i2) {
+    const int s0 = op.n1 * op.n2;
+    const int flat = i0 * s0 + i1 * op.n2 + i2;
+    return apply_at(op, x, flat, s0, op.n2, flat, i0, i1, i2);
 }

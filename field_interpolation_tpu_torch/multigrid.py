@@ -31,9 +31,12 @@ through the port's kernels, at any size, on CPU and CUDA tensors alike:
 * elsewhere every level smooths through one of the smoothing kernels: a
   2-D level with the full 9-channel data term through the multi-sweep
   kernel (`ops.smooth.fused_smooth_2d`), every other level (diagonal data,
-  3-D) through the per-sweep kernel (`ops.smooth.fused_smooth`); the rest
-  of the cycle (residuals, transfers, the dense coarsest solve) is plain
-  torch, as it is XLA in the reference.
+  3-D) through the per-sweep kernel (`ops.smooth.fused_smooth`), whose
+  call also writes the residual the cycle restricts next (after the
+  pre-smoothing, and on a W-cycle's level after the first visit's
+  post-smoothing); the rest of the cycle (the multi-sweep levels'
+  residuals, transfers, the dense coarsest solve) is plain torch, as it is
+  XLA in the reference.
 """
 
 from __future__ import annotations
@@ -647,23 +650,26 @@ def kernel_plan(problem: Problem, config: SolverConfig, levels, lump: bool):
     return plan, whole
 
 
-def _kernel_smoother(coeff, sid, weights: Weights, ndim: int, schedule=None):
-    """smooth(r, z, sweeps, from_zero) on one level through a smoothing
-    kernel; ``coeff`` is the level's full stencil or diagonal data term. A
-    2-D full stencil goes to the multi-sweep kernel, everything else to the
-    per-sweep one. ``schedule``: None (damped Jacobi, sid = τ·D⁻¹) or a
-    function of the sweep count giving its [ν, 2] Chebyshev schedule
-    (sid = D⁻¹)."""
+def _kernel_smoother(coeff, sid, weights: Weights, ndim: int, apply, schedule=None):
+    """smooth(r, z, sweeps, from_zero, residual) on one level through a
+    smoothing kernel: z, or with ``residual`` (z, r − A z). ``coeff`` is
+    the level's full stencil or diagonal data term. A 2-D full stencil goes
+    to the multi-sweep kernel, whose residual is ``apply``'s (the level's
+    operator apply), everything else to the per-sweep kernel, whose call
+    writes the residual itself. ``schedule``: None (damped Jacobi, sid =
+    τ·D⁻¹) or a function of the sweep count giving its [ν, 2] Chebyshev
+    schedule (sid = D⁻¹)."""
     c32 = coeff.to(torch.float32).contiguous()
     s32 = sid.to(torch.float32).contiguous()
 
-    def smooth(r, z, sweeps, from_zero):
+    def smooth(r, z, sweeps, from_zero, residual):
         cf = None if schedule is None else schedule(sweeps)
         if ndim == 2 and c32.ndim == 3:
-            return fused_smooth_2d(r.contiguous(), z.contiguous(), c32, s32,
-                                   weights, sweeps, from_zero, cheb_coefs=cf)
-        return fused_smooth(r.contiguous(), z.contiguous(), c32, s32, weights,
-                            ndim, sweeps, from_zero, cheb_coefs=cf)
+            z = fused_smooth_2d(r.contiguous(), z.contiguous(), c32, s32, weights, sweeps,
+                                from_zero, cheb_coefs=cf)
+            return (z, r - apply(z)) if residual else z
+        return fused_smooth(r.contiguous(), z.contiguous(), c32, s32, weights, ndim, sweeps,
+                            from_zero, cheb_coefs=cf, residual=residual)
     return smooth
 
 
@@ -757,10 +763,10 @@ def make_vcycle_preconditioner(problem: Problem, config: SolverConfig,
         weights = [problem.weights] + [l.weights for l in levels]
         # Chebyshev reads its per-sweep scalars off the schedule, so the
         # kernels get D⁻¹ unscaled there.
-        smoothers = [_kernel_smoother(c, d if cheb else t * d, w, ndim,
+        smoothers = [_kernel_smoother(c, d if cheb else t * d, w, ndim, a,
                                       functools.partial(schedule, li) if cheb else None)
-                     for li, (c, t, d, w) in enumerate(zip(coeffs, taus, inv_diags,
-                                                           weights))]
+                     for li, (c, t, d, w, a) in enumerate(zip(coeffs, taus, inv_diags,
+                                                              weights, applies))]
 
     def smooth(li, r, z, iters):
         # z None = from zero: the first sweep is sid·r (Jacobi).
@@ -779,31 +785,38 @@ def make_vcycle_preconditioner(problem: Problem, config: SolverConfig,
             z = (0.0 if z is None else z) + taus[li] * inv_diags[li] * (r - az)
         return z
 
-    def level_smooth(li, r, z, iters, from_zero):
-        # iters == 0 is NO smoothing: zeros from a zero guess, z untouched
-        # otherwise (the kernels count the from-zero step as a sweep, so the
-        # guard sits here, as in the reference, multigrid.py:1044-1057).
+    def level_smooth(li, r, z, iters, from_zero, residual=False):
+        # z, or with ``residual`` (z, r − A z), taken from the smoothing
+        # kernel's call where one runs. iters == 0 is NO smoothing: zeros
+        # from a zero guess, z untouched otherwise (the kernels count the
+        # from-zero step as a sweep, so the guard sits here, as in the
+        # reference, multigrid.py:1044-1057).
         if iters == 0:
-            return torch.zeros_like(r) if from_zero else z
-        if smoothers[li] is not None:
-            return smoothers[li](r, z, iters, from_zero)
-        return smooth(li, r, None if from_zero else z, iters)
+            z = torch.zeros_like(r) if from_zero else z
+        elif smoothers[li] is not None:
+            return smoothers[li](r, z, iters, from_zero, residual)
+        else:
+            z = smooth(li, r, None if from_zero else z, iters)
+        return (z, r - applies[li](z)) if residual else z
 
     wdepth = resolve_wdepth(config, problem.grid.shape)
 
-    def vcycle(r, li):
+    def vcycle(r, li, residual=False):
+        # The cycle's z on level li, or with ``residual`` (z, r − A_li z).
         if li == len(levels):  # coarsest
             if coarse_dense is not None:
                 return (coarse_dense @ r.reshape(-1)).reshape(r.shape)
             return level_smooth(li, r, r, config.mg_coarse_iters, True)
-        z = level_smooth(li, r, r, nu, True)
-        restrict = make_restrict(shapes[li], shapes[li + 1])
-        rc = restrict(r - applies[li](z))
-        zc = vcycle(rc, li + 1)
+        z, res = level_smooth(li, r, r, nu, True, residual=True)
+        rc = make_restrict(shapes[li], shapes[li + 1])(res)
         if wdepth > li and li + 1 < len(levels):
-            # W-cycle: a second visit on the residual the first leaves.
-            zc = zc + vcycle(rc - levels[li].apply(zc), li + 1)
+            # W-cycle: a second visit on the residual the first leaves,
+            # which the first visit's post-smoothing writes.
+            zc, rc2 = vcycle(rc, li + 1, residual=True)
+            zc = zc + vcycle(rc2, li + 1)
+        else:
+            zc = vcycle(rc, li + 1)
         z = z + prolong(zc, shapes[li])
-        return level_smooth(li, r, z, config.mg_post_smooth, False)
+        return level_smooth(li, r, z, config.mg_post_smooth, False, residual)
 
     return lambda r: vcycle(r, 0)

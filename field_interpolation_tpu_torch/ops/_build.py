@@ -40,10 +40,11 @@ _SIGNATURES = {
     # x_ext1, from_top, from_bot, coeff, out, n0, n1, g0, g1, N0, N1, r,
     # w2_0..w2_3, stream
     "fi_normal_apply_ext_striped": (_P,) * 5 + (_I,) * 7 + (_F,) * 4 + (_P,),
-    # r, z (null: from zero), coeff, sid, out, ndim, n0, n1, n2, w2_0..w2_3,
-    # diag, zprev (null: zeros), cf (null: Jacobi), k, stream
-    "fi_jacobi_sweep": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F,
-                        _I, _P, _P, _I, _P),
+    # r, z (null: from zero), coeff, sid, zout, tmp, res (null: not wanted),
+    # ndim, n0, n1, n2, w2_0..w2_3, diag, cf (null: Jacobi), count,
+    # from_zero, launches (out), stream
+    "fi_smooth_phase": (_P,) * 7 + (_I,) * 4 + (_F,) * 4 + (_I, _P, _I, _I,
+                                                          ctypes.POINTER(_I), _P),
     # r, z (null: from zero), coeff [9, n0, n1], sid, out, n0, n1, w2_0..w2_3,
     # rho, sweeps, zprev (null: zeros), cf (null: Jacobi), k0, zprev_out
     # (null: not wanted), stream

@@ -8,13 +8,16 @@ that stays on the device: the kernels read it there, so a Chebyshev phase
 copies nothing to the host. Two CUDA kernels stand in for the smoothers of
 ``field_interpolation_tpu/ops/pallas_stencil.py``, each with both modes.
 
-``csrc/jacobi_sweep.cu``, one sweep per launch:
+``csrc/jacobi_sweep.cu``, one host call per smoothing phase:
 
 * `fused_smooth` — ``fused_smooth`` (513) in its Jacobi form (→ 559) and
-  its Chebyshev form (→ 537): ν sweeps on a level, 2-D or 3-D, launched as
-  ν sweeps of the kernel; the multigrid cycle sends it the diagonal-data
-  levels and 3-D full-data levels, the Chebyshev mode included where the
-  reference runs Jacobi launches plus XLA axpys (1813, 1959);
+  its Chebyshev form (→ 537): ν sweeps on a level, 2-D or 3-D, and on
+  request the level's residual r − A z after them, all enqueued by one call
+  into the library (one launch per sweep that reads neighbours, one for the
+  residual); the multigrid cycle sends it the diagonal-data levels and 3-D
+  full-data levels, the Chebyshev mode included where the reference runs
+  Jacobi launches plus XLA axpys (1813, 1959), and takes the residual it
+  restricts from the pre-smoothing call;
 * `fused_sweep` — ``fused_sweep_striped2_3d`` (1813) and
   ``fused_sweep_striped_diag`` (1959): ONE damped-Jacobi sweep with a
   diagonal data term (the lumped fine level of a large 3-D grid; the
@@ -43,6 +46,8 @@ Chebyshev mode also in ``.cheb_launches``.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..stencils import max_stencil_radius
@@ -67,14 +72,25 @@ def check_schedule(what: str, cf, rows: int, device) -> None:
 def fused_smooth_plain(r: torch.Tensor, z: torch.Tensor, coeff: torch.Tensor,
                        scaled_inv_diag: torch.Tensor, weights: Weights,
                        ndim: int, sweeps: int, from_zero: bool = False,
-                       cheb_coefs: torch.Tensor | None = None) -> torch.Tensor:
+                       cheb_coefs: torch.Tensor | None = None,
+                       residual: bool = False):
     """``sweeps`` smoothing sweeps in plain torch ops, with the reference
     kernel's semantics. Damped Jacobi (pallas_stencil.py:547-557): with
     ``from_zero`` the first sweep is z = sid·r (z is not read) and counts as
     one of the ``sweeps``, so 0 sweeps from zero still return sid·r.
     Chebyshev (``cheb_coefs``, the [ν, 2] schedule; _cheb_inplace 483-507):
     from zero, z = c2_0·sid·r with z_prev = 0 and 0 sweeps return zeros;
-    from z, z_prev = z, so the c1 term of the first sweep vanishes."""
+    from z, z_prev = z, so the c1 term of the first sweep vanishes. With
+    ``residual``, returns (z, r − A z)."""
+    out = _smooth_plain(r, z, coeff, scaled_inv_diag, weights, ndim, sweeps, from_zero,
+                        cheb_coefs)
+    if residual:
+        return out, r - fused_normal_apply_plain(out, coeff, weights, ndim)
+    return out
+
+
+def _smooth_plain(r, z, coeff, scaled_inv_diag, weights, ndim, sweeps, from_zero,
+                  cheb_coefs):
     if cheb_coefs is not None:
         cf = cheb_coefs
         if from_zero:
@@ -99,25 +115,26 @@ def fused_smooth_plain(r: torch.Tensor, z: torch.Tensor, coeff: torch.Tensor,
 
 
 def _smoothing_call(name, launch, r, z, coeff, scaled_inv_diag, weights, ndim,
-                    sweeps, from_zero, cheb_coefs):
+                    sweeps, from_zero, cheb_coefs, residual=False):
     """The part both kernel wrappers share: the checks of the counts and
     the schedule, the plain version for CPU tensors; for CUDA tensors the
     sweeps to run (a Jacobi from-zero step counts as one, so it runs even
     at 0), the operand checks, and ``launch(count, diag, lib, w2, stream)``
-    on r's device."""
+    on r's device. With ``residual`` the result is (z, r − A z)."""
     if sweeps < 0:
         raise ValueError(f"{name}: sweeps must be >= 0, got {sweeps}")
     if cheb_coefs is not None:
         check_schedule(name, cheb_coefs, sweeps, r.device)
     if r.device.type == "cpu":
         return fused_smooth_plain(r, z, coeff, scaled_inv_diag, weights, ndim,
-                                  sweeps, from_zero, cheb_coefs)
+                                  sweeps, from_zero, cheb_coefs, residual)
     if r.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {r.device}")
     if cheb_coefs is not None and from_zero and sweeps == 0:
-        return torch.zeros_like(r)
+        zero = torch.zeros_like(r)
+        return (zero, r) if residual else zero
     count = max(sweeps, 1) if from_zero and cheb_coefs is None else sweeps
-    if count == 0:
+    if count == 0 and not residual:
         return z
     diag = check_operands(name, r, coeff, ndim, z, scaled_inv_diag)
     with torch.cuda.device(r.device):
@@ -132,45 +149,51 @@ def _ptr(t):
 def fused_smooth(r: torch.Tensor, z: torch.Tensor, coeff: torch.Tensor,
                  scaled_inv_diag: torch.Tensor, weights: Weights, ndim: int,
                  sweeps: int, from_zero: bool = False,
-                 cheb_coefs: torch.Tensor | None = None) -> torch.Tensor:
+                 cheb_coefs: torch.Tensor | None = None, residual: bool = False):
     """``sweeps`` damped-Jacobi sweeps, or Chebyshev sweeps on the schedule
-    ``cheb_coefs``, on (S + data) z = r, one kernel launch per sweep into
-    the other of two buffers. ``scaled_inv_diag`` = τ·D⁻¹ (Jacobi) or D⁻¹
-    (Chebyshev); ``coeff`` is the [3^D, *grid] data stencil or a [*grid]
-    diagonal (read off the rank). With ``from_zero`` the first launch reads
-    no z. Semantics of `fused_smooth_plain`."""
+    ``cheb_coefs``, on (S + data) z = r, in one call into the library: one
+    kernel launch per sweep that reads neighbours, out of place into the
+    other of two buffers (the from-zero step reads none and is computed by
+    the next launch), and with ``residual`` one more that writes r − A z;
+    the result is then (z, r − A z). ``scaled_inv_diag`` = τ·D⁻¹ (Jacobi)
+    or D⁻¹ (Chebyshev); ``coeff`` is the [3^D, *grid] data stencil or a
+    [*grid] diagonal (read off the rank). Semantics of
+    `fused_smooth_plain`."""
     def launch(count, diag, lib, w2, stream):
-        bufs = [torch.empty_like(r) for _ in range(min(count, 2))]
-        dims = kernel_dims(tuple(r.shape))
-        # Chebyshev: z_prev is 0 from zero and z from z; from the third sweep
-        # on it is the buffer the sweep writes.
-        src = prev = None if from_zero else z
-        for k in range(count):
-            dst = bufs[k % 2]
-            rc = lib.fi_jacobi_sweep(r.data_ptr(), _ptr(src), coeff.data_ptr(),
-                                     scaled_inv_diag.data_ptr(), dst.data_ptr(), *dims,
-                                     *w2, int(diag), _ptr(prev), _ptr(cheb_coefs), k,
-                                     stream)
-            _build.check(rc, "fused_smooth")
-            fused_smooth.launches += 1
-            fused_smooth.cheb_launches += cheb_coefs is not None
-            src, prev = dst, src
-        return src
+        # Sweeps that read neighbours: the from-zero step rides on the next.
+        steps = count - (1 if from_zero else 0)
+        zout = torch.empty_like(r) if count else None
+        tmp = torch.empty_like(r) if steps >= 2 else None
+        res = torch.empty_like(r) if residual else None
+        launches = ctypes.c_int(0)
+        rc = lib.fi_smooth_phase(r.data_ptr(), None if from_zero else z.data_ptr(),
+                                 coeff.data_ptr(), scaled_inv_diag.data_ptr(), _ptr(zout),
+                                 _ptr(tmp), _ptr(res), *kernel_dims(tuple(r.shape)), *w2,
+                                 int(diag), _ptr(cheb_coefs), count, int(from_zero),
+                                 ctypes.byref(launches), stream)
+        fused_smooth.launches += launches.value
+        if cheb_coefs is not None:
+            fused_smooth.cheb_launches += launches.value
+        _build.check(rc, "fused_smooth")
+        out = z if zout is None else zout
+        return (out, res) if residual else out
     return _smoothing_call("fused_smooth", launch, r, z, coeff, scaled_inv_diag,
-                           weights, ndim, sweeps, from_zero, cheb_coefs)
+                           weights, ndim, sweeps, from_zero, cheb_coefs, residual)
 
 
 def fused_sweep(r: torch.Tensor, z: torch.Tensor, cdiag: torch.Tensor,
-                scaled_inv_diag: torch.Tensor, weights: Weights) -> torch.Tensor:
+                scaled_inv_diag: torch.Tensor, weights: Weights,
+                residual: bool = False):
     """ONE damped-Jacobi sweep z + sid·(r − (S + diag cdiag) z): the
     counterpart of ``fused_sweep_striped2_3d`` (3-D) and
     ``fused_sweep_striped_diag`` (2-D), run as `fused_smooth` with one sweep
-    from z (its plain version is `fused_smooth_plain` likewise). The grid's
-    rank is z's."""
+    from z (its plain version is `fused_smooth_plain` likewise), with
+    ``residual`` as there. The grid's rank is z's."""
     if cdiag.ndim != z.ndim:
         raise ValueError(f"fused_sweep: cdiag must be a [*grid] diagonal, got "
                          f"{tuple(cdiag.shape)} for grid {tuple(z.shape)}")
-    return fused_smooth(r, z, cdiag, scaled_inv_diag, weights, z.ndim, 1)
+    return fused_smooth(r, z, cdiag, scaled_inv_diag, weights, z.ndim, 1,
+                        residual=residual)
 
 
 def multisweep_max_halo() -> int:

@@ -163,33 +163,53 @@ def _sweep_operands(shape, cuda, diag, weights_kw=dict(model_1=0.2, model_2=1.0)
     return r, z, coeff, sid, ft.Weights(**weights_kw)
 
 
-@pytest.mark.parametrize("shape", [(64, 48), (24, 20, 18)])
+def _phase_launches(sweeps, from_zero, residual, cheb=False):
+    """Kernel launches of one fused_smooth call: one per sweep that reads
+    neighbours (the from-zero step rides on the next launch), one for the
+    residual; a from-zero step alone is one launch, its residual included."""
+    if cheb and from_zero and sweeps == 0:
+        return 0
+    steps = (max(sweeps, 1) - 1 if not cheb else sweeps - 1) if from_zero else sweeps
+    if from_zero and steps == 0:
+        return 1
+    return steps + residual
+
+
+def _check_phase(got, want, residual):
+    """z within 2e-5·max|z|, the residual within 2e-5·max|r − A z|."""
+    torch.cuda.synchronize()
+    for g, w in zip(got, want) if residual else [(got, want)]:
+        err = float((g - w).abs().max())
+        assert bool(torch.isfinite(g).all()) and err <= 2e-5 * float(w.abs().max()), err
+
+
+@pytest.mark.parametrize("shape", [(64, 48), (24, 20, 18), (37, 5, 70)])
 @pytest.mark.parametrize("diag", [False, True])
 @pytest.mark.parametrize("from_zero", [False, True])
-@pytest.mark.parametrize("sweeps", [1, 3])
-def test_sweep_kernel_matches_plain(cuda, shape, diag, from_zero, sweeps):
+@pytest.mark.parametrize("sweeps", [0, 1, 2, 3])
+@pytest.mark.parametrize("residual", [False, True])
+def test_sweep_kernel_matches_plain(cuda, shape, diag, from_zero, sweeps, residual):
+    """One call per smoothing phase: the sweeps and, with ``residual``,
+    r − A z, against the plain version; tiles cut at odd extents."""
     r, z, coeff, sid, w = _sweep_operands(shape, cuda, diag)
     nd = len(shape)
     before = fused_smooth.launches
-    got = fused_smooth(r, z, coeff, sid, w, nd, sweeps, from_zero)
-    want = fused_smooth_plain(r, z, coeff, sid, w, nd, sweeps, from_zero)
-    torch.cuda.synchronize()
-    assert fused_smooth.launches == before + sweeps
-    err = float((got - want).abs().max())
-    assert err <= 2e-5 * float(want.abs().max()), err
+    got = fused_smooth(r, z, coeff, sid, w, nd, sweeps, from_zero, residual=residual)
+    want = fused_smooth_plain(r, z, coeff, sid, w, nd, sweeps, from_zero, residual=residual)
+    assert fused_smooth.launches == before + _phase_launches(sweeps, from_zero, residual)
+    _check_phase(got, want, residual)
 
 
 @pytest.mark.parametrize("weights_kw", [dict(model_1=0.2, model_2=1.0),
                                         dict(model_2=0.5, model_3=0.8)])
-def test_single_sweep_kernel_matches_plain(cuda, weights_kw):
+@pytest.mark.parametrize("residual", [False, True])
+def test_single_sweep_kernel_matches_plain(cuda, weights_kw, residual):
     r, z, cdiag, sid, w = _sweep_operands((128, 128, 128), cuda, True, weights_kw)
     before = fused_smooth.launches
-    got = fused_sweep(r, z, cdiag, sid, w)
-    want = fused_smooth_plain(r, z, cdiag, sid, w, 3, 1)
-    torch.cuda.synchronize()
-    assert fused_smooth.launches == before + 1
-    err = float((got - want).abs().max())
-    assert err <= 2e-5 * float(want.abs().max()), err
+    got = fused_sweep(r, z, cdiag, sid, w, residual=residual)
+    want = fused_smooth_plain(r, z, cdiag, sid, w, 3, 1, residual=residual)
+    assert fused_smooth.launches == before + 1 + residual
+    _check_phase(got, want, residual)
 
 
 def _solve_both(cuda, shape, fn, n=300, **cfg):
@@ -492,21 +512,25 @@ def _schedule(sweeps, kind="chebyshev4", rho=2.3, device=None):
 @pytest.mark.parametrize("shape", [(64, 48), (24, 20, 18)])
 @pytest.mark.parametrize("diag", [False, True])
 @pytest.mark.parametrize("from_zero", [False, True])
-@pytest.mark.parametrize("sweeps,kind", [(1, "chebyshev4"), (3, "chebyshev4"),
-                                         (4, "chebyshev")])
-def test_sweep_kernel_chebyshev_matches_plain(cuda, shape, diag, from_zero, sweeps, kind):
-    """The per-sweep kernel's Chebyshev mode, one launch per sweep, z⁺
-    written over z_prev's buffer from the third sweep on."""
+@pytest.mark.parametrize("sweeps,kind", [(0, "chebyshev4"), (1, "chebyshev4"),
+                                         (3, "chebyshev4"), (4, "chebyshev")])
+@pytest.mark.parametrize("residual", [False, True])
+def test_sweep_kernel_chebyshev_matches_plain(cuda, shape, diag, from_zero, sweeps, kind,
+                                              residual):
+    """The per-sweep kernel's Chebyshev mode, one call per phase, z⁺
+    written over z_prev's buffer from the third sweep on, z_prev of the
+    sweep after the from-zero step recomputed at the node."""
     r, z, coeff, sid, w = _sweep_operands(shape, cuda, diag)
     cf = _schedule(sweeps, kind, device=cuda)
     nd = len(shape)
     before = fused_smooth.launches
-    got = fused_smooth(r, z, coeff, sid, w, nd, sweeps, from_zero, cheb_coefs=cf)
-    want = fused_smooth_plain(r, z, coeff, sid, w, nd, sweeps, from_zero, cheb_coefs=cf)
-    torch.cuda.synchronize()
-    assert fused_smooth.launches == before + sweeps
-    err = float((got - want).abs().max())
-    assert err <= 2e-5 * float(want.abs().max()), err
+    got = fused_smooth(r, z, coeff, sid, w, nd, sweeps, from_zero, cheb_coefs=cf,
+                       residual=residual)
+    want = fused_smooth_plain(r, z, coeff, sid, w, nd, sweeps, from_zero, cheb_coefs=cf,
+                              residual=residual)
+    assert fused_smooth.launches == before + _phase_launches(sweeps, from_zero, residual,
+                                                             cheb=True)
+    _check_phase(got, want, residual)
 
 
 @pytest.mark.parametrize("shape", [(100, 130), (37, 201), (5, 7)])
