@@ -47,12 +47,14 @@ toolkit (``nvcc``). Phases, each fatal on failure:
 10. the apply kernel against its plain version, within 1e-5·max|plain|,
     on BASELINE config 5's 4096² problem (100 000 points, 9-channel data)
     and on its 2048² nested-iteration problem (the reference's striped
-    apply on both); then the multi-sweep kernel against its plain version,
-    within 2e-5·max|plain|: ν = 3 from zero and from z on the 4096² fine
-    level (the reference's tiled smoother), ν = 3 on the 2048² fine level
-    (the striped smoother) and ν = 2 with radius-3 weights at 1000×1030;
-    each timed beside ν launches of the per-sweep kernel, with GB/s from
-    the bytes each route must move;
+    apply on both); then the multi-sweep kernel's phases as the cycle runs
+    them against their plain versions, within 2e-5·max|plain|: ν = 3 from
+    zero with the residual (the pre-smoothing, one launch) and from z (the
+    post-smoothing) on the 4096² fine level (the reference's tiled
+    smoother) and the 2048² fine level (the striped smoother), and ν = 3
+    from z with the residual at 1000×1030 with radius-3 weights (two
+    launches in one call); each timed single and back to back beside its
+    bytes bound, GB/s, and the same phase through the per-sweep kernel;
 11. the smoothing-phase kernel against its plain version, as phase 7, on
     config 5's diagonal levels: one sweep and the cycle's pre-smoothing
     call (ν = 3 from zero with the residual) at 2048² and 1024² (the
@@ -92,8 +94,9 @@ toolkit (``nvcc``). Phases, each fatal on failure:
     true residual ≤ 1e-6, reported within 2%, beside phase 5's V-cycle
     iterations and times;
 18. field C: the apply kernel (1e-5·max|plain|), the multi-sweep kernel
-    at 992² and the per-sweep kernel on its 496² diagonal level (ν = 3 from
-    zero and from z, 2e-5·max|plain|) against their plain versions on the
+    at 992² (ν = 3 from zero with the residual, and from z) and the
+    per-sweep kernel on its 496² diagonal level (ν = 3 from zero and from
+    z), 2e-5·max|plain|, against their plain versions on the
     field's own problem; then ``sdf_from_points`` at 992², 4000 points, tol
     1e-4, ``fmg_start=1``, seed 0: converged, finite, of shape 992²; its
     496² guess launches the whole-cycle kernel, its fine level the apply,
@@ -103,10 +106,11 @@ toolkit (``nvcc``). Phases, each fatal on failure:
     7 on config 4's cloud: the lumped 128³ fine level, the 64³ level with
     lumped data and the 64³ Galerkin level (27 channels), each beside the
     kernel's damped-Jacobi mode on the same level;
-20. the multi-sweep kernel's Chebyshev mode at 4096² (from zero and from
-    z) and at 1000×1030 with radius-3 weights (ν = 3 from z: two launches,
-    the second from the first's z_prev), and the smoothing-phase kernel's
-    on config 5's 512² diagonal level, as phase 19;
+20. the multi-sweep kernel's Chebyshev mode at 4096² (from zero with the
+    residual, and from z) and at 1000×1030 with radius-3 weights (ν = 3
+    from z, with and without the residual: two launches in one call, the
+    second from the first's z and z_prev), and the smoothing-phase
+    kernel's on config 5's 512² diagonal level, as phase 19;
 21. the whole-cycle kernel's Chebyshev mode against ``mg_cycle_plain`` on
     field A′'s operands (480², W and V), as phase 14, beside the
     damped-Jacobi cycle kernel on the same problem;
@@ -209,7 +213,7 @@ FP32_FLOPS_PER_S = 67e12
 DEVICE_KINDS = [
     ("cycle kernel", r"mg_cycle2d"),
     ("segment kernel", r"pcg_segment"),
-    ("multi-sweep kernel", r"jacobi_multisweep2d"),
+    ("multi-sweep kernel", r"multisweep2d"),
     ("sweep kernel", r"smooth_phase_kernel"),
     ("apply kernel", r"normal_apply"),
     ("host->device copies", r"HtoD"),
@@ -843,6 +847,14 @@ def fine_smoothing_operands(p, cfg):
 
 
 def phase_smooth2d(ft, device):
+    """The 2-D apply on config 5's 9-channel problems, then the multi-sweep
+    kernel's phases (2e-5·max|plain|): as the cycle runs them (ν = 3), from
+    zero with the residual (the pre-smoothing) and from z (the
+    post-smoothing), on config 5's 4096² fine level and the fmg grid's
+    2048²; at 1000×1030 with radius-3 weights ν = 2 from z (one launch) and
+    ν = 3 from z with the residual, a phase of 12 halo nodes that takes two
+    launches; each beside the same phase through the per-sweep kernel.
+    Returns (p5, {form: record}, apply record)."""
     from field_interpolation_tpu_torch.ops.smooth import (fused_smooth, fused_smooth_2d,
                                                           fused_smooth_plain)
     from field_interpolation_tpu_torch.ops.stencil import (
@@ -870,37 +882,42 @@ def phase_smooth2d(ft, device):
                       lambda: fused_normal_apply_plain(x, p.coeff, p.weights, 2), 1e-5,
                       apply_work(x, p.coeff, p.weights, 2))
         apply_rec = apply_rec or got
-    rec = None
-    for label, p, nu, from_zeros in [
-            ("config 5 fine level (reference: fused_smooth_tiled)", p5, 3, (True, False)),
-            ("fmg grid's fine level (reference: fused_smooth_striped)", p2, 3, (False,)),
-            ("radius-3 weights", podd, 2, (False,))]:
+    recs = {}
+    for key, label, p, nu, fz, res, launches in [
+            ("4096_from_zero_residual", "config 5 fine level (reference: fused_smooth_tiled)",
+             p5, 3, True, True, 1),
+            ("4096_from_z", "config 5 fine level", p5, 3, False, False, 1),
+            ("2048_from_zero_residual", "fmg grid's fine level (reference: "
+             "fused_smooth_striped)", p2, 3, True, True, 1),
+            ("2048_from_z", "fmg grid's fine level", p2, 3, False, False, 1),
+            ("1000x1030_radius3", "radius-3 weights", podd, 2, False, False, 1),
+            ("1000x1030_radius3_split", "radius-3 weights", podd, 3, False, True, 2)]:
         shape = p.grid.shape
         sid = fine_smoothing_operands(p, cfg)[1][0]
         r, z = (torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
                                 device=device) for _ in range(2))
-        for fz in from_zeros:
-            got = compare(
-                f"multi-sweep {shape_str(shape)} {label}, {nu} sweeps, from_zero={fz}",
-                lambda: fused_smooth_2d(r, z, p.coeff, sid, p.weights, nu, fz),
-                lambda: fused_smooth_plain(r, z, p.coeff, sid, p.weights, 2, nu, fz),
-                2e-5, sweep_work(r, p.coeff, p.weights, 2, nu, fz))
-            per_ms = cuda_ms(lambda: fused_smooth(r, z, p.coeff, sid, p.weights, 2, nu, fz))
-            # Bytes each route must move per node: the multi-sweep kernel reads
-            # the 9 coefficients, r, sid (and z) once and writes z once; each
-            # launch of the per-sweep kernel's phase does the same, and the
-            # from-zero step is no launch of its own.
-            nodes = p.grid.num_nodes
-            multi = nodes * (48 + (0 if fz else 4))
-            launches = nu - 1 if fz else nu
-            per = nodes * 52 * launches
-            print(f"  multi-sweep {got['ms']:.4f} ms, {multi / got['ms'] / 1e6:.0f} GB/s "
-                  f"of {multi / 1e9:.3f} GB; {launches} per-sweep launches {per_ms:.4f} ms, "
-                  f"{per / per_ms / 1e6:.0f} GB/s of {per / 1e9:.3f} GB")
-            if shape == SHAPE5 and not fz:
-                rec = got
+        before = fused_smooth_2d.launches
+        fused_smooth_2d(r, z, p.coeff, sid, p.weights, nu, fz, residual=res)
+        made = fused_smooth_2d.launches - before
+        require(made == launches, f"multi-sweep {shape_str(shape)}: {made} launches, "
+                                  f"not {launches}")
+        recs[key] = got = compare(
+            f"multi-sweep {shape_str(shape)} {label}, {nu} sweeps, from_zero={fz}, "
+            f"residual={res}, {made} launch(es) in one call",
+            lambda: fused_smooth_2d(r, z, p.coeff, sid, p.weights, nu, fz, residual=res),
+            lambda: fused_smooth_plain(r, z, p.coeff, sid, p.weights, 2, nu, fz,
+                                       residual=res),
+            2e-5, sweep_work(r, p.coeff, p.weights, 2, nu, fz, residual=res), res)
+        # The same phase through the per-sweep kernel (one launch per sweep
+        # that reads neighbours, one for the residual), as a yardstick.
+        per_ms = batch_ms(lambda: fused_smooth(r, z, p.coeff, sid, p.weights, 2, nu, fz,
+                                               residual=res))
+        nbytes = sweep_work(r, p.coeff, p.weights, 2, nu, fz, residual=res)[0]
+        print(f"  multi-sweep {got['batch_ms']:.4f} ms back to back, "
+              f"{nbytes / got['batch_ms'] / 1e6:.0f} GB/s of the {nbytes / 1e9:.3f} GB the "
+              f"phase must move; per-sweep kernel {per_ms:.4f} ms back to back")
     del p2, podd
-    return p5, rec, apply_rec
+    return p5, recs, apply_rec
 
 
 def phase_sweep2d(ft, device, p5):
@@ -1263,8 +1280,9 @@ def phase_field_c(ft, device):
     runs the whole W-cycle kernel, the fine level the multi-sweep kernel.
     First the kernels of its fine solve against their plain versions on
     its own problem: the apply (1e-5·max|plain|), the multi-sweep kernel
-    at 992² and the per-sweep kernel on the 496² diagonal level, ν = 3
-    from zero and from z (2e-5·max|plain|). Returns the launches and the
+    at 992² (ν = 3 from zero with the residual, and from z) and the
+    per-sweep kernel on the 496² diagonal level, ν = 3 from zero and from z
+    (2e-5·max|plain|). Returns the launches and the
     records of the apply, multi-sweep and per-sweep checks."""
     from field_interpolation_tpu_torch.ops.smooth import (fused_smooth, fused_smooth_2d,
                                                           fused_smooth_plain)
@@ -1287,13 +1305,14 @@ def phase_field_c(ft, device):
         lambda: fused_normal_apply(x, p.coeff, weights, 2),
         lambda: fused_normal_apply_plain(x, p.coeff, weights, 2), 1e-5,
         apply_work(x, p.coeff, weights, 2)))
-    for fz in (True, False):
-        recs["multi"] = compare(
+    for key, fz in (("multi", True), ("multi_from_z", False)):
+        recs[key] = compare(
             f"multi-sweep {shape_str(SHAPE_C)} field C fine level (reference: "
-            f"fused_smooth_striped), 3 sweeps, from_zero={fz}",
-            lambda: fused_smooth_2d(r, z, p.coeff, sids[0], weights, 3, fz),
-            lambda: fused_smooth_plain(r, z, p.coeff, sids[0], weights, 2, 3, fz),
-            2e-5, sweep_work(r, p.coeff, weights, 2, 3, fz))
+            f"fused_smooth_striped), 3 sweeps, from_zero={fz}, residual={fz}",
+            lambda: fused_smooth_2d(r, z, p.coeff, sids[0], weights, 3, fz, residual=fz),
+            lambda: fused_smooth_plain(r, z, p.coeff, sids[0], weights, 2, 3, fz,
+                                       residual=fz),
+            2e-5, sweep_work(r, p.coeff, weights, 2, 3, fz, residual=fz), fz)
     lvl = levels[0]
     dd, r1, z1 = lvl.data_diag.contiguous(), rand(lvl.shape), rand(lvl.shape)
     for fz in (True, False):
@@ -1393,11 +1412,12 @@ def phase_cheb_sweep(ft, device):
 
 def phase_cheb5(ft, device):
     """The multi-sweep kernel's Chebyshev mode on config 5's 4096² fine
-    level (the reference's fused_smooth_tiled) from zero and from z, and at
-    1000×1030 with radius-3 weights, ν = 3 from z (a 9-node halo: the phase
-    takes two launches, the second from the first's z_prev and schedule
-    row); the per-sweep kernel's on config 5's 512² diagonal level, from
-    zero and from z."""
+    level (the reference's fused_smooth_tiled) from zero with the residual
+    and from z, and at 1000×1030 with radius-3 weights, ν = 3 from z with
+    and without the residual (a 9- or 12-node halo: the phase takes two
+    launches in one call, the second from the first's z, z_prev and
+    schedule row); the per-sweep kernel's on config 5's 512² diagonal
+    level, from zero and from z."""
     from field_interpolation_tpu_torch.ops.smooth import (fused_smooth, fused_smooth_2d,
                                                           fused_smooth_plain)
     rng = np.random.default_rng(13)
@@ -1407,8 +1427,8 @@ def phase_cheb5(ft, device):
         return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
                                device=device)
 
-    def multi(r, z, coeff, sid, w, nu, fz, cf):
-        return fused_smooth_2d(r, z, coeff, sid, w, nu, fz, cheb_coefs=cf)
+    def multi(r, z, coeff, sid, w, nu, fz, cf, residual=False):
+        return fused_smooth_2d(r, z, coeff, sid, w, nu, fz, cheb_coefs=cf, residual=residual)
 
     def per_sweep(r, z, coeff, sid, w, nu, fz, cf, residual=False):
         return fused_smooth(r, z, coeff, sid, w, 2, nu, fz, cheb_coefs=cf, residual=residual)
@@ -1418,22 +1438,28 @@ def phase_cheb5(ft, device):
     del p5
     recs = {}
     r, z = rand(SHAPE5), rand(SHAPE5)
-    for fz in (True, False):
-        recs["multi"] = compare_cheb(f"multi-sweep {shape_str(SHAPE5)} config 5 fine level",
-                                     multi, fused_smooth_plain, lv5[0], r, z, 2, 3, fz)
+    # The cycle's two phases: from zero with the residual, from z.
+    recs["multi"] = compare_cheb(f"multi-sweep {shape_str(SHAPE5)} config 5 fine level",
+                                 multi, fused_smooth_plain, lv5[0], r, z, 2, 3, True,
+                                 residual=True)
+    recs["multi_from_z"] = compare_cheb(f"multi-sweep {shape_str(SHAPE5)} config 5 fine level",
+                                        multi, fused_smooth_plain, lv5[0], r, z, 2, 3, False)
     odd = (1000, 1030)
     podd = ft.assemble_sdf(ft.Grid(odd), ft.Weights(**RADIUS3_WEIGHTS),
                            *circle5_inputs(0, device, odd, 20_000))
     lvo = smoothing_levels(podd, cfg, 3)[0]
     del podd
     r, z = rand(odd), rand(odd)
-    before = fused_smooth_2d.launches
-    multi(r, z, lvo[0], lvo[1], lvo[4], 3, False, lvo[3])
-    split = fused_smooth_2d.launches - before
-    print(f"multi-sweep {shape_str(odd)}, radius 3, 3 Chebyshev sweeps from z: {split} launches")
-    require(split == 2, f"the 9-node halo phase took {split} launches, not 2")
-    compare_cheb(f"multi-sweep {shape_str(odd)} radius-3 weights", multi, fused_smooth_plain,
-                 lvo, r, z, 2, 3, False)
+    for res in (False, True):
+        before = fused_smooth_2d.launches
+        multi(r, z, lvo[0], lvo[1], lvo[4], 3, False, lvo[3], residual=res)
+        split = fused_smooth_2d.launches - before
+        print(f"multi-sweep {shape_str(odd)}, radius 3, 3 Chebyshev sweeps from z, "
+              f"residual={res}: {split} launches in one call")
+        require(split == 2, f"the {9 + 3 * res}-node halo phase took {split} launches, not 2")
+        recs["multi_split" + ("_residual" if res else "")] = compare_cheb(
+            f"multi-sweep {shape_str(odd)} radius-3 weights", multi, fused_smooth_plain,
+            lvo, r, z, 2, 3, False, residual=res)
     lv = lv5[3]
     shape = tuple(lv[1].shape)
     r, z = rand(shape), rand(shape)
@@ -1950,7 +1976,7 @@ def main():
     del p128, p32, lvl1
     launches3, iters3 = run_phase(phase_main3d, ft, device)
     run_phase(phase_profile3d, ft, device)
-    p5, multi_rec, apply5_rec = run_phase(phase_smooth2d, ft, device)
+    p5, multi_recs, apply5_rec = run_phase(phase_smooth2d, ft, device)
     sweep5_rec = run_phase(phase_sweep2d, ft, device, p5)
     del p5
     launches5 = run_phase(phase_main5, ft, device)
@@ -1999,7 +2025,10 @@ def main():
              launches=launches5["fused_smooth"], **sweep5_rec),
         dict(name="jacobi_multisweep_2d", route="cuda",
              source=src + "jacobi_multisweep2d.cu", replaces=ref + "653,876",
-             launches=launches5["fused_smooth_2d"], **multi_rec),
+             launches=launches5["fused_smooth_2d"],
+             **{**multi_recs["4096_from_zero_residual"],
+                "max_abs_err": max(r["max_abs_err"] for r in multi_recs.values())},
+             forms={k: v for k, v in multi_recs.items() if k != "4096_from_zero_residual"}),
         dict(name="mg_cycle2d", route="cuda", source=src + "mg_cycle2d.cu",
              replaces=ref + "1052,1114,1192",
              launches=launches_a["fused_wcycle_2d"] + launches_a["fused_vcycle_2d"],
@@ -2012,7 +2041,10 @@ def main():
              launches=launches_c["fused_normal_apply"], **recs_c["apply"]),
         dict(name="jacobi_multisweep_2d_field_c", route="cuda",
              source=src + "jacobi_multisweep2d.cu", replaces=ref + "653",
-             launches=launches_c["fused_smooth_2d"], **recs_c["multi"]),
+             launches=launches_c["fused_smooth_2d"],
+             **{**recs_c["multi"], "max_abs_err": max(recs_c["multi"]["max_abs_err"],
+                                                      recs_c["multi_from_z"]["max_abs_err"])},
+             from_z=recs_c["multi_from_z"]),
         dict(name="jacobi_sweep_2d_field_c", route="cuda", source=src + "jacobi_sweep.cu",
              replaces=ref + "513", launches=launches_c["fused_smooth"], **recs_c["sweep"]),
         # Chebyshev modes; launches in that mode on their path.
@@ -2024,7 +2056,12 @@ def main():
              **recs_c5["diag"]),
         dict(name="jacobi_multisweep_2d_cheb", route="cuda",
              source=src + "jacobi_multisweep2d.cu", replaces=ref + "653,876",
-             launches=launches_5c["fused_smooth_2d_cheb"], **recs_c5["multi"]),
+             launches=launches_5c["fused_smooth_2d_cheb"],
+             **{**recs_c5["multi"], "max_abs_err": max(
+                 recs_c5[k]["max_abs_err"] for k in ("multi", "multi_from_z", "multi_split",
+                                                      "multi_split_residual"))},
+             from_z=recs_c5["multi_from_z"], split=recs_c5["multi_split"],
+             split_residual=recs_c5["multi_split_residual"]),
         dict(name="mg_cycle2d_cheb", route="cuda", source=src + "mg_cycle2d.cu",
              replaces=ref + "1052,1114,1192",
              launches=launches_a2["fused_wcycle_2d_cheb"], **cycle_cheb_rec),

@@ -26,7 +26,8 @@ warm-up; b2b: 20 calls back to back):
   points, the default config), W and V, ν = 3, on a standard-normal r;
 - ms/field of the headline (``sdf_from_points_precise``, tol 1e-6, seeds
   0..3, each twice) and of field A (``sdf_from_points``, tol 1e-4, seed 0,
-  three calls), after a warm-up field;
+  three calls), after a warm-up field, and the device-busy ms of one more
+  field of each from ``torch.profiler``;
 - the smoothing phases of the plain-cycle path as its cycle runs them, the
   pre-smoothing call (ν = 3) and the residual r − A z it restricts next: on
   config 4's lumped 128³ fine level from zero and from z (Jacobi), on its
@@ -35,20 +36,37 @@ warm-up; b2b: 20 calls back to back):
   writes the residual (``residual=True``) is timed in that call; another
   tree in its ``fused_smooth`` call and the plain residual its cycle
   computes after it;
+- the 9-channel phases of the multi-sweep kernel (``fused_smooth_2d``), ν =
+  3: config 5's 4096² fine level from zero with the residual (the
+  pre-smoothing) and from z (the post-smoothing), the fmg grid's 2048² fine
+  level from zero with the residual, the 4096² pre-smoothing under kind-4
+  Chebyshev; on a 1000×1030 grid (rows not 16-byte aligned; 20 000 circle
+  points) the pre-smoothing with config 5's weights (ρ = 2) and with
+  radius-3 weights, and the radius-3 Chebyshev phase from z. A tree whose
+  ``fused_smooth_2d`` writes no residual is timed with its apply kernel and
+  a subtraction after the call, as its cycle computes the residual;
 - ms/field (``sdf_from_points``, after a warm-up field) and, from
-  ``torch.profiler`` over one more field, kernels and launch calls per
-  field and the device's idle share: config 4 (128³, 4000 points, tol 1e-4,
-  seeds 0..1, each twice), config 4-cg (kind-4 Chebyshev and Galerkin coarse
+  ``torch.profiler`` over one more field, kernels, launch calls and
+  device-busy ms per field and the device's idle share: config 4 (128³,
+  4000 points, tol 1e-4, seeds 0..1, each twice), config 4-cg (kind-4 Chebyshev and Galerkin coarse
   data, seed 0, twice), config 5's proxy (4096², 100 000 points,
-  ``fmg_start=1``, seed 0, twice) and field C (992², 4000 points,
-  ``fmg_start=1``, seed 0, twice);
+  ``fmg_start=1``, seed 0, twice), config 5-cheb (the same under kind-4
+  Chebyshev) and field C (992², 4000 points, ``fmg_start=1``, seed 0,
+  twice); and in the warm-up field the launches of the apply, per-sweep and
+  multi-sweep wrappers;
 - the ptxas registers of the segment, cycle and smoothing kernels (from the
   run that built them).
 
 Only what both designs share is used: the wrappers' signatures and the
-operand builders of ``multigrid``. ``--ab`` ends with the keep-or-drop rule
-for the smoothing design: config 4's and config 5's median ms/field below
-A's, and no main-path field's median more than 3% above A's.
+operand builders of ``multigrid``. ``--ab`` ends with every 9-channel
+phase's ratio (naming those where B is not below A) and the keep-or-drop
+rule for the multi-sweep design twice: each 4096² 9-channel phase below A's
+back to back, config 5's and field C's fields not above A's, and no
+main-path field more than 3% above A's, once on the median ms/field and
+once on the device-busy ms per field from ``torch.profiler`` (with the
+launch calls per field not above A's). The second decides: a field's host
+time moves ±20% between runs of the same tree, which no eight runs
+resolve to 3%, while its device-busy time moves under 1% (PERF.md).
 """
 
 import argparse
@@ -61,12 +79,19 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
-KERNELS = ("pcg_segment", "mg_cycle2d", "jacobi_sweep_kernel", "smooth_phase_kernel")
+KERNELS = ("pcg_segment", "mg_cycle2d", "jacobi_sweep_kernel", "smooth_phase_kernel",
+           "multisweep2d_kernel")
 TIMES = ("segment_v", "segment_w", "segment_cheb", "segment_cheb_gal", "cycle_w", "cycle_v")
 PHASES = ("smooth_128_lumped_from_zero", "smooth_128_lumped_from_z",
           "smooth_64_galerkin_cheb_from_zero", "smooth_2048_diag_from_zero",
           "smooth_512_diag_from_zero")
-FIELDS = ("config4", "config4cg", "config5", "field_c")
+# The 9-channel phases of the multi-sweep kernel, as the cycle runs them.
+PHASES_9CH = ("smooth_4096_9ch_from_zero", "smooth_4096_9ch_from_z",
+              "smooth_2048_9ch_from_zero", "smooth_4096_9ch_cheb_from_zero",
+              "smooth_1000x1030_9ch_from_zero", "smooth_1000x1030_r3_from_zero",
+              "smooth_1000x1030_r3_cheb_from_z")
+FIELDS = ("config4", "config4cg", "config5", "config5cheb", "field_c")
+COUNTED = ("fused_normal_apply", "fused_smooth", "fused_smooth_2d")
 MAIN_PATH = ("headline_ms", "field_a_ms") + FIELDS
 ORDER = "ABBABAAB"
 
@@ -97,9 +122,11 @@ def smoothing_phases(h, ft, device):
     """{phase: dict(ms, b2b_ms)} of the smoothing phases (module doc)."""
     import numpy as np
     import torch
-    from field_interpolation_tpu_torch.ops.smooth import fused_smooth
-    from field_interpolation_tpu_torch.ops.stencil import fused_normal_apply_plain
+    from field_interpolation_tpu_torch.ops.smooth import fused_smooth, fused_smooth_2d
+    from field_interpolation_tpu_torch.ops.stencil import (fused_normal_apply,
+                                                           fused_normal_apply_plain)
     writes_residual = "residual" in inspect.signature(fused_smooth).parameters
+    writes_residual_9ch = "residual" in inspect.signature(fused_smooth_2d).parameters
     rng = np.random.default_rng(21)
 
     def phase_call(lv, fz, cheb, nd):
@@ -116,30 +143,81 @@ def smoothing_phases(h, ft, device):
             return out, r - fused_normal_apply_plain(out, coeff, w, nd)
         return parent
 
+    def phase_9ch(lv, fz, cheb):
+        # The pre-smoothing (from zero) with the residual the cycle
+        # restricts; the post-smoothing (from z) without. A tree whose
+        # fused_smooth_2d writes no residual: its call, then the apply
+        # kernel and a subtraction, as its cycle computes it.
+        coeff, inv, sid_j, cf, w = lv
+        sid, cf = (inv, cf) if cheb else (sid_j, None)
+        r, z = (torch.as_tensor(rng.standard_normal(tuple(inv.shape)).astype(np.float32),
+                                device=device) for _ in range(2))
+        if not fz:
+            return lambda: fused_smooth_2d(r, z, coeff, sid, w, 3, fz, cheb_coefs=cf)
+        if writes_residual_9ch:
+            return lambda: fused_smooth_2d(r, z, coeff, sid, w, 3, fz, cheb_coefs=cf,
+                                           residual=True)
+
+        def parent():
+            out = fused_smooth_2d(r, z, coeff, sid, w, 3, fz, cheb_coefs=cf)
+            return out, r - fused_normal_apply(out, coeff, w, 2)
+        return parent
+
     w = ft.Weights(model_2=0.3)
     p128 = ft.assemble_sdf(ft.Grid(h.SHAPE3), w, *h.sphere_inputs(0, device))
     lv4 = h.smoothing_levels(p128, ft.SolverConfig(tol=1e-4), 3)
     lv4cg = h.smoothing_levels(p128, ft.SolverConfig(tol=1e-4, **h.CHEB, **h.GALERKIN), 3)
     del p128
-    p5 = ft.assemble_sdf(ft.Grid(h.SHAPE5), w, *h.circle5_inputs(0, device))
+    pts, nrm = h.circle5_inputs(0, device)
+    p5 = ft.assemble_sdf(ft.Grid(h.SHAPE5), w, pts, nrm)
     lv5 = h.smoothing_levels(p5, ft.SolverConfig(**h.CFG5), 3)
+    lv5c = h.smoothing_levels(p5, ft.SolverConfig(**h.CFG5, **h.CHEB), 3)
     del p5
+    # The fmg guess's problem: the same cloud on the (n+1)//2 grid.
+    cshape = tuple((n + 1) // 2 for n in h.SHAPE5)
+    scale = (np.asarray(cshape) - 1.0) / (np.asarray(h.SHAPE5) - 1.0)
+    p2 = ft.assemble_sdf(ft.Grid(cshape), w, pts * torch.as_tensor(
+        scale, dtype=torch.float32, device=device), nrm)
+    lv2 = h.smoothing_levels(p2, ft.SolverConfig(**h.CFG5), 3)
+    del p2
+    # A grid whose rows are not 16-byte aligned (1030 % 4 = 2), with config
+    # 5's weights (ρ = 2) and with radius-3 weights.
+    odd = (1000, 1030)
+    odd_in = h.circle5_inputs(0, device, odd, 20_000)
+    po = ft.assemble_sdf(ft.Grid(odd), w, *odd_in)
+    lvo = h.smoothing_levels(po, ft.SolverConfig(**h.CFG5), 3)
+    po3 = ft.assemble_sdf(ft.Grid(odd), ft.Weights(**h.RADIUS3_WEIGHTS), *odd_in)
+    lvo3 = h.smoothing_levels(po3, ft.SolverConfig(**h.CFG5), 3)
+    lvo3c = h.smoothing_levels(po3, ft.SolverConfig(**h.CFG5, **h.CHEB), 3)
+    del po, po3
     calls = dict(smooth_128_lumped_from_zero=phase_call(lv4[0], True, False, 3),
                  smooth_128_lumped_from_z=phase_call(lv4[0], False, False, 3),
                  smooth_64_galerkin_cheb_from_zero=phase_call(lv4cg[1], True, True, 3),
                  smooth_2048_diag_from_zero=phase_call(lv5[1], True, False, 2),
-                 smooth_512_diag_from_zero=phase_call(lv5[3], True, False, 2))
+                 smooth_512_diag_from_zero=phase_call(lv5[3], True, False, 2),
+                 smooth_4096_9ch_from_zero=phase_9ch(lv5[0], True, False),
+                 smooth_4096_9ch_from_z=phase_9ch(lv5[0], False, False),
+                 smooth_2048_9ch_from_zero=phase_9ch(lv2[0], True, False),
+                 smooth_4096_9ch_cheb_from_zero=phase_9ch(lv5c[0], True, True),
+                 smooth_1000x1030_9ch_from_zero=phase_9ch(lvo[0], True, False),
+                 smooth_1000x1030_r3_from_zero=phase_9ch(lvo3[0], True, False),
+                 smooth_1000x1030_r3_cheb_from_z=phase_9ch(lvo3c[0], False, True))
     return {name: dict(ms=h.cuda_ms(call), b2b_ms=h.batch_ms(call))
             for name, call in calls.items()}
 
 
 def fields(h, ft, device):
-    """{field: dict(ms=[...], kernels, launch_calls, idle)} (module doc)."""
+    """{field: dict(ms=[...], kernels, launch_calls, idle, counted)} (module
+    doc); ``counted``: the launches each kernel wrapper of COUNTED made in
+    the warm-up field."""
+    from field_interpolation_tpu_torch.ops import smooth, stencil
+    wrappers = [getattr(stencil if n == "fused_normal_apply" else smooth, n) for n in COUNTED]
     w = ft.Weights(model_2=0.3)
     g4, g5, gc = ft.Grid(h.SHAPE3), ft.Grid(h.SHAPE5), ft.Grid(h.SHAPE_C)
     cfg4 = ft.SolverConfig(tol=1e-4, preconditioner="multigrid", backend="auto")
     cfg4cg = ft.SolverConfig(tol=1e-4, **h.CHEB, **h.GALERKIN)
     cfg5 = ft.SolverConfig(**h.CFG5)
+    cfg5cheb = ft.SolverConfig(**h.CFG5, **h.CHEB)
     in4 = [h.sphere_inputs(s, device) for s in h.SEEDS3]
     in5 = h.circle5_inputs(0, device)
     inc = h.field_a_inputs(0, device, h.SHAPE_C, h.N_POINTS_C)
@@ -149,13 +227,17 @@ def fields(h, ft, device):
         config4cg=[lambda: ft.sdf_from_points(g4, w, *in4[0], config=cfg4cg)] * 2,
         config5=[lambda: ft.sdf_from_points(g5, w, *in5, config=cfg5,
                                             fmg_start=h.FMG5)] * 2,
+        config5cheb=[lambda: ft.sdf_from_points(g5, w, *in5, config=cfg5cheb,
+                                                fmg_start=h.FMG5)] * 2,
         field_c=[lambda: ft.sdf_from_points(gc, w, *inc, config=ft.SolverConfig(tol=1e-4),
                                             fmg_start=1)] * 2)
     out = {}
     for name, calls in runs.items():
+        before = [f.launches for f in wrappers]
         calls[0]()  # warm-up
+        counted = {n: f.launches - b for n, f, b in zip(COUNTED, wrappers, before)}
         ms = [h.timed(call)[1] for call in calls]
-        out[name] = dict(ms=ms, **h.profile_fields(name, calls[:1], ()))
+        out[name] = dict(ms=ms, counted=counted, **h.profile_fields(name, calls[:1], ()))
     return out
 
 
@@ -218,13 +300,18 @@ def measure(tree):
     ft.sdf_from_points(grid_a, w, *ina, config=cfg_a)  # warm-up
     rec["field_a_ms"] = [h.timed(lambda: ft.sdf_from_points(
         grid_a, w, *ina, config=cfg_a))[1] for _ in range(3)]
+    rec["headline_busy_ms"] = h.profile_fields("headline", [lambda: ft.sdf_from_points_precise(
+        grid, w, *inputs[0], config=cfg)], ())["busy_ms"]
+    rec["field_a_busy_ms"] = h.profile_fields("field A", [lambda: ft.sdf_from_points(
+        grid_a, w, *ina, config=cfg_a)], ())["busy_ms"]
     rec["phases"] = smoothing_phases(h, ft, device)
     rec["fields"] = fields(h, ft, device)
-    from field_interpolation_tpu_torch.ops.smooth import fused_smooth
+    from field_interpolation_tpu_torch.ops.smooth import fused_smooth, fused_smooth_2d
     rec["launches"] = dict(fused_pcg_solve=fused_pcg_solve.launches,
                            fused_wcycle_2d=fused_wcycle_2d.launches,
                            fused_vcycle_2d=fused_vcycle_2d.launches,
-                           fused_smooth=fused_smooth.launches)
+                           fused_smooth=fused_smooth.launches,
+                           fused_smooth_2d=fused_smooth_2d.launches)
     h.require(all(rec["launches"].values()), f"a kernel did not launch: {rec['launches']}")
     return rec
 
@@ -252,7 +339,9 @@ def ab(other):
         if key in FIELDS:  # a field: its ms/field, or its profile's `sub`
             v = rec["fields"][key]
             return v["ms"] if sub is None else [v[sub]]
-        if key in PHASES:
+        if sub == "busy_ms":  # the headline's or field A's device-busy ms
+            return [rec[key.replace("_ms", "_busy_ms")]]
+        if key in PHASES + PHASES_9CH:
             return [rec["phases"][key][sub]]
         return rec[key] if sub is None else [rec[key][sub]]
 
@@ -260,25 +349,41 @@ def ab(other):
         return statistics.median(v for r in runs if r["side"] == side
                                  for v in values(r, key, sub))
 
-    rows = [(f"{k} {s}", k, s) for k in TIMES + PHASES for s in ("b2b_ms", "ms")]
-    rows += [("headline ms/field", "headline_ms", None), ("field A ms/field", "field_a_ms", None)]
+    rows = [(f"{k} {s}", k, s) for k in TIMES + PHASES + PHASES_9CH for s in ("b2b_ms", "ms")]
+    rows += [("headline ms/field", "headline_ms", None), ("field A ms/field", "field_a_ms", None),
+             ("headline busy_ms", "headline_ms", "busy_ms"),
+             ("field A busy_ms", "field_a_ms", "busy_ms")]
     rows += [(f"{k} {s}", k, s) for k in FIELDS
-             for s in (None, "kernels", "launch_calls", "idle")]
+             for s in (None, "kernels", "launch_calls", "idle", "busy_ms")]
     for label, key, sub in rows:
         a, b = med("A", key, sub), med("B", key, sub)
         print(f"{label.replace(' None', ' ms/field')}: A {a:.4f}  B {b:.4f}  B/A {b / a:.3f}")
     for key in TIMES[:4]:
         print(f"{key} iterations: A {[r[key]['iterations'] for r in runs if r['side'] == 'A']} "
               f"B {[r[key]['iterations'] for r in runs if r['side'] == 'B']}")
+    for key in FIELDS:
+        for side in "AB":
+            counted = [r["fields"][key]["counted"] for r in runs if r["side"] == side]
+            print(f"{key} {side} wrapper launches per field: {counted[0]}")
     for key in MAIN_PATH:
         per_run = {side: [round(statistics.median(values(r, key)), 1) for r in runs
                           if r["side"] == side] for side in "AB"}
         print(f"{key} per-run medians: A {per_run['A']} B {per_run['B']}")
-    ratios = {key: med("B", key) / med("A", key) for key in MAIN_PATH}
-    keep = (ratios["config4"] < 1 and ratios["config5"] < 1
-            and all(v <= 1.03 for v in ratios.values()))
-    print(f"keep-or-drop rule (config 4 and 5 below A, no main-path field above 1.03x A): "
-          f"{'keep' if keep else 'drop'} B; B/A {json.dumps(ratios)}")
+    phases = {key: med("B", key, "b2b_ms") / med("A", key, "b2b_ms") for key in PHASES_9CH}
+    slower = sorted(k for k, v in phases.items() if v >= 1)
+    print(f"9-channel phases B/A (b2b) {json.dumps(phases)}; B not below A on "
+          f"{slower or 'none'}")
+    phases_ok = all(v < 1 for k, v in phases.items() if k.startswith("smooth_4096"))
+    launches_ok = all(med("B", k, "launch_calls") <= med("A", k, "launch_calls") for k in FIELDS)
+    for sub, metric in ((None, "median ms/field"), ("busy_ms", "device-busy ms per field")):
+        ratios = {key: med("B", key, sub) / med("A", key, sub) for key in MAIN_PATH}
+        keep = (phases_ok and ratios["config5"] <= 1 and ratios["field_c"] <= 1
+                and all(v <= 1.03 for v in ratios.values())
+                and (sub is None or launches_ok))
+        print(f"keep-or-drop rule on {metric} (each 4096² 9-channel phase below A back to "
+              f"back, config 5 and field C not above A, no main-path field above 1.03x A"
+              f"{', launch calls per field not above A' if sub else ''}): "
+              f"{'keep' if keep else 'drop'} B; fields B/A {json.dumps(ratios)}")
 
 
 def main():

@@ -116,29 +116,12 @@ struct Rows {
     }
 };
 
-// axis_normal along axis 0 of the striped form: the same windows, with rows
-// taken from the three operands instead of one strided array.
-template <int L>
-__device__ __forceinline__ float axis0_rows(const Rows& rows, int i0, int ig, int ng,
-                                            int col) {
-    const int m = ng - L + 1;
-    float acc = 0.f;
-#pragma unroll
-    for (int k = 0; k < L; ++k) {
-        const int j = ig - k;
-        if (j < 0 || j >= m) continue;
-        float y = 0.f;
-#pragma unroll
-        for (int l = 0; l < L; ++l) y += stencil_tap<L>(l) * rows(i0 - k + l)[col];
-        acc += stencil_tap<L>(k) * y;
-    }
-    return acc;
-}
-
 template <int L>
 __device__ __forceinline__ float striped_order(const ExtOp& op, const Rows& rows, int i0,
                                                int i1, int col) {
-    return axis0_rows<L>(rows, i0, op.g0 + i0, op.N0, col)
+    // Along axis 0 the same windows as axis_normal's, with rows taken from
+    // the three operands instead of one strided array.
+    return axis_normal<L>([&](int d) { return rows(i0 + d)[col]; }, op.g0 + i0, op.N0)
            + axis_normal<L>(rows(i0), col, op.g1 + i1, op.N1, 1);
 }
 

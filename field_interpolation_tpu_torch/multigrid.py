@@ -31,11 +31,11 @@ through the port's kernels, at any size, on CPU and CUDA tensors alike:
 * elsewhere every level smooths through one of the smoothing kernels: a
   2-D level with the full 9-channel data term through the multi-sweep
   kernel (`ops.smooth.fused_smooth_2d`), every other level (diagonal data,
-  3-D) through the per-sweep kernel (`ops.smooth.fused_smooth`), whose
+  3-D) through the per-sweep kernel (`ops.smooth.fused_smooth`); either
   call also writes the residual the cycle restricts next (after the
   pre-smoothing, and on a W-cycle's level after the first visit's
-  post-smoothing); the rest of the cycle (the multi-sweep levels'
-  residuals, transfers, the dense coarsest solve) is plain torch, as it is
+  post-smoothing); the rest of the cycle (transfers, the dense coarsest
+  solve, the residual where no smoothing runs) is plain torch, as it is
   XLA in the reference.
 """
 
@@ -650,13 +650,12 @@ def kernel_plan(problem: Problem, config: SolverConfig, levels, lump: bool):
     return plan, whole
 
 
-def _kernel_smoother(coeff, sid, weights: Weights, ndim: int, apply, schedule=None):
+def _kernel_smoother(coeff, sid, weights: Weights, ndim: int, schedule=None):
     """smooth(r, z, sweeps, from_zero, residual) on one level through a
-    smoothing kernel: z, or with ``residual`` (z, r − A z). ``coeff`` is
-    the level's full stencil or diagonal data term. A 2-D full stencil goes
-    to the multi-sweep kernel, whose residual is ``apply``'s (the level's
-    operator apply), everything else to the per-sweep kernel, whose call
-    writes the residual itself. ``schedule``: None (damped Jacobi, sid =
+    smoothing kernel: z, or with ``residual`` (z, r − A z), both from the
+    kernel's call. ``coeff`` is the level's full stencil or diagonal data
+    term. A 2-D full stencil goes to the multi-sweep kernel, everything
+    else to the per-sweep kernel. ``schedule``: None (damped Jacobi, sid =
     τ·D⁻¹) or a function of the sweep count giving its [ν, 2] Chebyshev
     schedule (sid = D⁻¹)."""
     c32 = coeff.to(torch.float32).contiguous()
@@ -665,9 +664,8 @@ def _kernel_smoother(coeff, sid, weights: Weights, ndim: int, apply, schedule=No
     def smooth(r, z, sweeps, from_zero, residual):
         cf = None if schedule is None else schedule(sweeps)
         if ndim == 2 and c32.ndim == 3:
-            z = fused_smooth_2d(r.contiguous(), z.contiguous(), c32, s32, weights, sweeps,
-                                from_zero, cheb_coefs=cf)
-            return (z, r - apply(z)) if residual else z
+            return fused_smooth_2d(r.contiguous(), z.contiguous(), c32, s32, weights, sweeps,
+                                   from_zero, cheb_coefs=cf, residual=residual)
         return fused_smooth(r.contiguous(), z.contiguous(), c32, s32, weights, ndim, sweeps,
                             from_zero, cheb_coefs=cf, residual=residual)
     return smooth
@@ -763,10 +761,10 @@ def make_vcycle_preconditioner(problem: Problem, config: SolverConfig,
         weights = [problem.weights] + [l.weights for l in levels]
         # Chebyshev reads its per-sweep scalars off the schedule, so the
         # kernels get D⁻¹ unscaled there.
-        smoothers = [_kernel_smoother(c, d if cheb else t * d, w, ndim, a,
+        smoothers = [_kernel_smoother(c, d if cheb else t * d, w, ndim,
                                       functools.partial(schedule, li) if cheb else None)
-                     for li, (c, t, d, w, a) in enumerate(zip(coeffs, taus, inv_diags,
-                                                              weights, applies))]
+                     for li, (c, t, d, w) in enumerate(zip(coeffs, taus, inv_diags,
+                                                           weights))]
 
     def smooth(li, r, z, iters):
         # z None = from zero: the first sweep is sid·r (Jacobi).

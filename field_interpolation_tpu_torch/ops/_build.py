@@ -45,13 +45,13 @@ _SIGNATURES = {
     # from_zero, launches (out), stream
     "fi_smooth_phase": (_P,) * 7 + (_I,) * 4 + (_F,) * 4 + (_I, _P, _I, _I,
                                                           ctypes.POINTER(_I), _P),
-    # r, z (null: from zero), coeff [9, n0, n1], sid, out, n0, n1, w2_0..w2_3,
-    # rho, sweeps, zprev (null: zeros), cf (null: Jacobi), k0, zprev_out
-    # (null: not wanted), stream
-    "fi_jacobi_multisweep2d": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I,
-                               _I, _P, _P, _I, _P, _P),
+    # r, z (null: from zero), coeff [9, n0, n1], sid, zout, tmp, prev_a,
+    # prev_b, res (null: not wanted), n0, n1, w2_0..w2_3, rho, cf (null:
+    # Jacobi), count, from_zero, launches (out), stream
+    "fi_multisweep2d_phase": (_P,) * 9 + (_I, _I) + (_F,) * 4 + (_I, _P, _I, _I,
+                                                            ctypes.POINTER(_I), _P),
     # the halo, in nodes, the multi-sweep kernel is built for
-    "fi_jacobi_multisweep2d_max_halo": (),
+    "fi_multisweep2d_max_halo": (),
     # pointer table, int table, w2 table (all host), stream
     "fi_pcg_segment": (_P, _P, _P, _P),
     "fi_mg_cycle2d": (_P, _P, _P, _P),

@@ -24,19 +24,23 @@ copies nothing to the host. Two CUDA kernels stand in for the smoothers of
   1024²/2048² coarse levels of a large 2-D grid), which is `fused_smooth`
   with one sweep from z.
 
-``csrc/jacobi_multisweep2d.cu``, several sweeps per launch:
+``csrc/jacobi_multisweep2d.cu``, one host call per smoothing phase:
 
 * `fused_smooth_2d` — ``fused_smooth_striped`` (653) and
   ``fused_smooth_tiled`` (876), each with its Chebyshev mode, and the 2-D
   full-data form of ``fused_smooth`` (513): ν sweeps on a 2-D level with the
-  9-channel data term, each block running all of them on a shared-memory
-  tile, so the coefficients come from memory once per smoothing phase.
+  9-channel data term and on request the residual after them, each block
+  streaming a strip of rows through shared memory with every sweep a stage
+  a few rows behind the last, so the coefficients come from memory once per
+  smoothing phase; the multigrid cycle takes the residual it restricts from
+  the pre-smoothing call.
 
 The TPU kernels update z in place inside one program; across CUDA blocks an
-in-place sweep would race, so the sweeps ping-pong two buffers: in
-`fused_smooth` the launch boundary is the barrier between sweeps, in
-`fused_smooth_2d` a block barrier. Chebyshev's z_prev rides in the buffer
-that z⁺ overwrites (per-sweep kernel) or in registers (multi-sweep kernel).
+in-place sweep would race, so in `fused_smooth` the sweeps ping-pong two
+buffers and the launch boundary is the barrier between sweeps; in
+`fused_smooth_2d` each stage keeps its own z in shared memory. Chebyshev's
+z_prev rides in the buffer that z⁺ overwrites (per-sweep kernel) or is the
+z two stages back (multi-sweep kernel).
 On the H100 both kernels are bound by memory. Each wrapper launches its
 kernel for CUDA tensors and runs `fused_smooth_plain` for CPU tensors, and
 counts its launches in ``fused_smooth.launches`` (the launches of
@@ -197,52 +201,53 @@ def fused_sweep(r: torch.Tensor, z: torch.Tensor, cdiag: torch.Tensor,
 
 
 def multisweep_max_halo() -> int:
-    """The halo, in nodes, that csrc/jacobi_multisweep2d.cu is built for: a
-    launch takes as many sweeps as keep (sweeps reading neighbours)·ρ within
-    it. Read from the library, which holds the one copy of the number."""
-    return _build.library().fi_jacobi_multisweep2d_max_halo()
+    """The halo, in nodes, that one launch of csrc/jacobi_multisweep2d.cu
+    reads on each side: a launch takes as many neighbour-reading stages
+    (sweeps, then the residual) as keep stages·ρ within it. Read from the
+    library, which holds the one copy of the number."""
+    return _build.library().fi_multisweep2d_max_halo()
 
 
 def fused_smooth_2d(r: torch.Tensor, z: torch.Tensor, coeff: torch.Tensor,
                     scaled_inv_diag: torch.Tensor, weights: Weights,
                     sweeps: int, from_zero: bool = False,
-                    cheb_coefs: torch.Tensor | None = None) -> torch.Tensor:
+                    cheb_coefs: torch.Tensor | None = None, residual: bool = False):
     """``sweeps`` damped-Jacobi sweeps, or Chebyshev sweeps on the schedule
     ``cheb_coefs``, on (S + data) z = r on a 2-D grid with the [9, n0, n1]
-    data stencil, several sweeps per launch of
-    ``csrc/jacobi_multisweep2d.cu``: the counterpart of
+    data stencil, and with ``residual`` the level's r − A z after them (the
+    result is then (z, r − A z)), in one call into the library
+    (``csrc/jacobi_multisweep2d.cu``): the counterpart of
     ``fused_smooth_striped``, ``fused_smooth_tiled`` and the 2-D full-data
-    ``fused_smooth``. A launch takes as many sweeps as fit its halo
-    (`multisweep_max_halo`, in nodes, over the operator radius ρ), so a
-    longer phase (ν·ρ > 8 from z) is several launches; under Chebyshev each
-    hands the next its z_prev and schedule row. Semantics of
-    `fused_smooth_plain`, ``from_zero`` included."""
-    def launch(left, diag, lib, w2, stream):
+    ``fused_smooth``. A launch runs as many neighbour-reading stages as fit
+    its halo (`multisweep_max_halo`, in nodes, over the operator radius ρ),
+    so a longer phase (more than 8 nodes from z at ρ = 2, the residual
+    counting as a stage) is several launches, each handing the next its z
+    and, under Chebyshev, z_prev. Semantics of `fused_smooth_plain`,
+    ``from_zero`` included."""
+    def launch(count, diag, lib, w2, stream):
         if diag:
             raise ValueError("fused_smooth_2d: needs the [9, n0, n1] data stencil; "
                              "a diagonal data term goes through fused_smooth")
-        rho = max(max_stencil_radius(weights), 1)
-        per_launch = lib.fi_jacobi_multisweep2d_max_halo() // rho
-        n0, n1 = r.shape
-        src = prev = None if from_zero else z
-        row = 0  # the schedule row of the launch's first sweep
-        while left:
-            # The from-zero step reads no neighbours, so it costs no halo.
-            k = min(left, per_launch + (1 if src is None else 0))
-            dst = torch.empty_like(r)
-            prev_out = (torch.empty_like(r) if cheb_coefs is not None and left > k
-                        else None)
-            rc = lib.fi_jacobi_multisweep2d(
-                r.data_ptr(), _ptr(src), coeff.data_ptr(), scaled_inv_diag.data_ptr(),
-                dst.data_ptr(), n0, n1, *w2, rho, k, _ptr(prev), _ptr(cheb_coefs), row,
-                _ptr(prev_out), stream)
-            _build.check(rc, "fused_smooth_2d")
-            fused_smooth_2d.launches += 1
-            fused_smooth_2d.cheb_launches += cheb_coefs is not None
-            src, prev, left, row = dst, prev_out, left - k, row + k
-        return src
+        # The library splits the phase into launches and uses tmp (and,
+        # under Chebyshev, the two z_prev buffers) only where it does.
+        zout = torch.empty_like(r) if count else None
+        tmp = torch.empty_like(r)
+        prev = [torch.empty_like(r) if cheb_coefs is not None else None for _ in range(2)]
+        res = torch.empty_like(r) if residual else None
+        launches = ctypes.c_int(0)
+        rc = lib.fi_multisweep2d_phase(
+            r.data_ptr(), None if from_zero else z.data_ptr(), coeff.data_ptr(),
+            scaled_inv_diag.data_ptr(), _ptr(zout), _ptr(tmp), *map(_ptr, prev), _ptr(res),
+            *r.shape, *w2, max(max_stencil_radius(weights), 1), _ptr(cheb_coefs), count,
+            int(from_zero), ctypes.byref(launches), stream)
+        fused_smooth_2d.launches += launches.value
+        if cheb_coefs is not None:
+            fused_smooth_2d.cheb_launches += launches.value
+        _build.check(rc, "fused_smooth_2d")
+        out = z if zout is None else zout
+        return (out, res) if residual else out
     return _smoothing_call("fused_smooth_2d", launch, r, z, coeff, scaled_inv_diag,
-                           weights, 2, sweeps, from_zero, cheb_coefs)
+                           weights, 2, sweeps, from_zero, cheb_coefs, residual)
 
 
 fused_smooth.launches = fused_smooth.cheb_launches = 0

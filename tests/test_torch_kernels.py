@@ -480,27 +480,64 @@ MULTISWEEP_WEIGHTS = {1: dict(model_0=0.1, model_1=0.7, model_2=0.0),
                       3: dict(model_2=0.5, model_3=0.8)}  # by operator radius
 
 
+def _multisweep_launches(sweeps, from_zero, residual, radius, cheb=False):
+    """Kernel launches of one fused_smooth_2d call (Jacobi from zero counts
+    its from-zero step as a sweep): the neighbour-reading stages (sweeps,
+    then the residual) split into launches of at most max_halo // ρ; a
+    from-zero step alone is one launch. With no sweep to run (0 sweeps from
+    z without the residual, or 0 Chebyshev sweeps from zero) the wrapper
+    answers without a launch."""
+    if sweeps == 0 and ((cheb and from_zero) or not (from_zero or residual)):
+        return 0
+    stages = sweeps - (1 if from_zero else 0) + (1 if residual else 0)
+    return max(1, math.ceil(stages / (multisweep_max_halo() // radius)))
+
+
+def _check_multisweep(r, z, coeff, sid, w, sweeps, from_zero, residual, radius, cf=None):
+    """One fused_smooth_2d call against the plain version: the launches it
+    makes, z within 2e-5·max|z| and the residual within 2e-5·max|r − A z|."""
+    before = fused_smooth_2d.launches
+    got = fused_smooth_2d(r, z, coeff, sid, w, sweeps, from_zero, cheb_coefs=cf,
+                          residual=residual)
+    want = fused_smooth_plain(r, z, coeff, sid, w, 2, sweeps, from_zero, cheb_coefs=cf,
+                              residual=residual)
+    assert fused_smooth_2d.launches == before + _multisweep_launches(
+        sweeps, from_zero, residual, radius, cf is not None)
+    _check_phase(got, want, residual)
+
+
 @pytest.mark.parametrize("shape", [(100, 130), (37, 201), (5, 7)])
 @pytest.mark.parametrize("radius", [1, 2, 3])
-@pytest.mark.parametrize("sweeps", [1, 2, 3, 4])
+@pytest.mark.parametrize("sweeps", [0, 1, 2, 3, 4])
 @pytest.mark.parametrize("from_zero", [False, True])
-def test_multisweep_kernel_matches_plain(cuda, shape, radius, sweeps, from_zero):
-    """Odd sizes that cut into many tiles of every output size (the tile
-    shrinks with the halo, ν·ρ), one that is smaller than a tile, and
-    phases that need more than one launch (ν·ρ > 8)."""
+@pytest.mark.parametrize("residual", [False, True])
+def test_multisweep_kernel_matches_plain(cuda, shape, radius, sweeps, from_zero, residual):
+    """Odd sizes that cut into several strips and row segments, one that is
+    smaller than a strip, and phases that need more than one launch
+    (stages·ρ > 8, the residual a stage); with ``residual`` the call also
+    returns r − A z (from z with 0 sweeps: a launch with the residual stage
+    alone)."""
     r, z, coeff, sid, w = _sweep_operands(shape, cuda, False, MULTISWEEP_WEIGHTS[radius])
-    # A launch takes the sweeps whose neighbour reads fit the halo; the
-    # from-zero step reads none.
-    per_launch = multisweep_max_halo() // radius
-    first = per_launch + (1 if from_zero else 0)
-    launches = 1 + math.ceil(max(sweeps - first, 0) / per_launch)
-    before = fused_smooth_2d.launches
-    got = fused_smooth_2d(r, z, coeff, sid, w, sweeps, from_zero)
-    want = fused_smooth_plain(r, z, coeff, sid, w, 2, sweeps, from_zero)
-    torch.cuda.synchronize()
-    assert fused_smooth_2d.launches == before + launches
-    err = float((got - want).abs().max())
-    assert err <= 2e-5 * float(want.abs().max()), err
+    _check_multisweep(r, z, coeff, sid, w, sweeps, from_zero, residual, radius)
+
+
+@pytest.mark.parametrize("shape,radius", [((4096, 4096), 2), ((2048, 2048), 2),
+                                          ((992, 992), 2), ((1000, 1030), 3)])
+@pytest.mark.parametrize("kind", ["jacobi", "chebyshev4"])
+@pytest.mark.parametrize("from_zero", [False, True])
+def test_multisweep_phase_at_main_path_sizes(cuda, shape, radius, kind, from_zero):
+    """The cycle's 9-channel phases at the main paths' sizes (config 5's
+    4096² fine level and 2048² fmg grid, field C's 992², a ragged 1000×1030
+    with radius-3 weights whose phase from z takes two launches): ν = 3
+    with the residual, and without it, against the plain version, with the
+    launches each call makes."""
+    weights = dict(model_2=0.3) if radius == 2 else MULTISWEEP_WEIGHTS[3]
+    r, z, coeff, sid, w = _sweep_operands(shape, cuda, False, weights)
+    cf = None
+    if kind != "jacobi":
+        cf, sid = _schedule(3, kind, device=cuda), sid / 0.3
+    for residual in (True, False):
+        _check_multisweep(r, z, coeff, sid, w, 3, from_zero, residual, radius, cf)
 
 
 def _schedule(sweeps, kind="chebyshev4", rho=2.3, device=None):
@@ -535,24 +572,18 @@ def test_sweep_kernel_chebyshev_matches_plain(cuda, shape, diag, from_zero, swee
 
 @pytest.mark.parametrize("shape", [(100, 130), (37, 201), (5, 7)])
 @pytest.mark.parametrize("radius", [1, 2, 3])
-@pytest.mark.parametrize("sweeps", [1, 2, 3, 4])
+@pytest.mark.parametrize("sweeps", [0, 1, 2, 3, 4])
 @pytest.mark.parametrize("from_zero", [False, True])
-def test_multisweep_kernel_chebyshev_matches_plain(cuda, shape, radius, sweeps, from_zero):
+@pytest.mark.parametrize("residual", [False, True])
+def test_multisweep_kernel_chebyshev_matches_plain(cuda, shape, radius, sweeps, from_zero,
+                                                   residual):
     """The multi-sweep kernel's Chebyshev mode at odd sizes; where the halo
-    splits a phase into several launches (ν·ρ > 8), each launch hands the
-    next its z_prev and schedule row."""
+    splits a phase into several launches (stages·ρ > 8), each launch hands
+    the next its z and z_prev and the schedule row; z_prev of the sweep
+    after the from-zero step is zero, of a later one the z two stages back."""
     r, z, coeff, sid, w = _sweep_operands(shape, cuda, False, MULTISWEEP_WEIGHTS[radius])
     cf = _schedule(sweeps, device=cuda)
-    per_launch = multisweep_max_halo() // radius
-    first = per_launch + (1 if from_zero else 0)
-    launches = 1 + math.ceil(max(sweeps - first, 0) / per_launch)
-    before = fused_smooth_2d.launches
-    got = fused_smooth_2d(r, z, coeff, sid, w, sweeps, from_zero, cheb_coefs=cf)
-    want = fused_smooth_plain(r, z, coeff, sid, w, 2, sweeps, from_zero, cheb_coefs=cf)
-    torch.cuda.synchronize()
-    assert fused_smooth_2d.launches == before + launches
-    err = float((got - want).abs().max())
-    assert err <= 2e-5 * float(want.abs().max()), err
+    _check_multisweep(r, z, coeff, sid, w, sweeps, from_zero, residual, radius, cf)
 
 
 def _cheb_cycle_operands(shape, cuda, change):
