@@ -145,7 +145,35 @@ toolkit (``nvcc``). Phases, each fatal on failure:
     ``solve_sharded``), S3 ``solve_refined_sharded`` to a TRUE 1e-6, S4 the
     3-D half at 192³ (then as one rank: the sharded code without the
     sharing); each against the port's unsharded solve (±2 iterations,
-    2e-3·max|x|), both ext kernels launched on every rank.
+    2e-3·max|x|), both ext kernels launched on every rank;
+31. BASELINE config 1 through ``interpolate`` (bench.py:125-135: 64², 100
+    values, plain CG at tol 5e-4): converged, within ±2 iterations and
+    2e-3·max|x| of ``backend="xla"``, ms/solve; the apply kernel against
+    its plain version on the config's problem and launched;
+32. ``interpolate_precise`` at 256² on the headline's points with values
+    sin(x/9), tol 1e-6: true float64 residual ≤ 1e-6, reported within 2%;
+    the segment kernel launched;
+33. ``interpolate`` at 1024², 51 200 points (the density of the
+    reference's fmg check), sin(x/9), tol 1e-4, cold and with
+    ``fmg_start=1``: both converged, fmg with fewer fine iterations, the
+    fields within 5e-2; the apply, multi-sweep and per-sweep kernels
+    against their plain versions on its problem and launched; then the
+    same with 4000 points, reported (it stalls, in the reference too);
+34. the ``Solver`` session on the headline (precise, tol 1e-6): frame 1
+    with the iterations of ``sdf_from_points_precise``, frames 2-9 with the
+    normals turned by a seeded angle of at most 2° per frame and warm
+    started, each true residual ≤ 1e-6; construction, frame and cold-field
+    times and kernels per frame;
+35. ``prepare`` + ``solve(prep=)`` on config 4: the cold solve's
+    iterations and field; solve and field times, cold against prepared;
+36. ``solve_implicit`` on the headline at tol 1e-5 with the loss ⟨w, x*⟩:
+    the whole-cycle kernel on its preconditioner's operands against
+    ``mg_cycle_plain``; b̄ = λ with ‖A λ − w‖ ≤ 1e-5·‖w‖ (plain float64
+    operator), coeff̄ = −λ·shift(x, o) within 1e-5·max; the apply and
+    whole-cycle V kernels launched forward and backward; their times;
+37. the apply kernel's device time from ``torch.profiler`` at 256², 480²,
+    992², 4096² and 128³ beside its single-call and back-to-back times
+    and its bound.
 
 Each phase's wall time follows it in brackets. The lines before the last
 are the kernel record (JSON: per kernel its
@@ -1941,6 +1969,510 @@ def phase_sharded(ft, device, shape3=SHAPE_S4, n3=N_POINTS_S4, rank_device="cuda
     torch.cuda.empty_cache()
     return out
 
+# ---- the public-API slice: phases 31-37 -------------------------------------
+# Config 1 through `interpolate` (bench.py:125-135: 64², 100 values uniform in
+# [0, 63]², standard-normal values, plain CG at tol 5e-4); value
+# interpolation at the headline size (precise) and at 1024² (cold and
+# fmg_start=1, the reference's own fmg check of tests/test_solver.py:721-739
+# at full width); the Solver session on the headline; prepare on config 4;
+# solve_implicit on the headline; the apply kernel's device time at five
+# shapes of the main paths.
+SHAPE1 = (64, 64)
+N_POINTS1 = 100
+W1 = dict(model_1=0.1, model_2=1.0)
+CFG1 = dict(tol=5e-4, preconditioner="none", maxiter=20000)
+SHAPE_I = (1024, 1024)
+N_POINTS_I = 51_200       # 200 points per 64², the density of tests/test_solver.py:727
+N_POINTS_I_SPARSE = 4000  # 13x sparser: the float32 solve stalls, in the reference too
+FRAMES = 9
+MAX_TURN_DEG = 2.0
+TIMED_REPS = 16  # CUDA-event medians of the new paths
+LARGE_REPS = 5   # ms/field medians at 1024² (in turns, cold and fmg)
+PREPARE_REPS = 8  # config 4 cold and prepared, in turns (a run spreads ±40%)
+
+
+def host_ms(fn):
+    """(fn(), its time in ms on the host clock, synchronized before and after)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def sine_values(pts, device):
+    """The values of tests/test_solver.py:727, sin(x/9) of each point's
+    first coordinate, on the device."""
+    return torch.as_tensor(np.sin(pts[:, 0] / 9.0).astype(np.float32), device=device)
+
+
+def phase_config1(ft, device, reps=TIMED_REPS):
+    """Config 1 through `interpolate`: converged, within ±2 iterations and
+    2e-3·max|x| of backend="xla"; the apply kernel against its plain version
+    on the config's problem (1e-5·max|plain|) and launched on the path."""
+    from field_interpolation_tpu_torch.ops.stencil import (fused_normal_apply,
+                                                           fused_normal_apply_plain)
+    rng = np.random.default_rng(0)
+    pos = torch.as_tensor(rng.uniform(0, 63, (N_POINTS1, 2)).astype(np.float32),
+                          device=device)
+    vals = torch.as_tensor(rng.standard_normal(N_POINTS1).astype(np.float32), device=device)
+    grid, w = ft.Grid(SHAPE1), ft.Weights(**W1)
+    cfg = ft.SolverConfig(**CFG1)
+    p = ft.assemble_interpolation(grid, w, pos, vals)
+    xa = torch.as_tensor(rng.standard_normal(SHAPE1).astype(np.float32), device=device)
+    rec = compare("apply 64x64 config 1, value rows (reference: fused_normal_apply)",
+                  lambda: fused_normal_apply(xa, p.coeff, w, 2),
+                  lambda: fused_normal_apply_plain(xa, p.coeff, w, 2), 1e-5,
+                  apply_work(xa, p.coeff, w, 2))
+
+    def field():
+        return ft.interpolate(grid, w, pos, vals, config=cfg)
+    field()  # warm-up
+    torch.cuda.synchronize()
+    read = counters_zero()
+    (x, info), ms1 = timed(field)
+    launches = read()
+    xr, ir = ft.interpolate(grid, w, pos, vals, config=ft.SolverConfig(**CFG1, backend="xla"))
+    compare_path("config 1 (64², 100 values, plain CG, tol 5e-4)", x, info, xr, ir)
+    require(tuple(x.shape) == SHAPE1, f"config 1: shape {tuple(x.shape)}")
+    ms = cuda_ms(field, reps)
+    print(f"config 1: {ms:.3f} ms/solve (median of {reps}, CUDA events; the checked call "
+          f"{ms1:.3f}), {int(info.iterations)} iterations, "
+          f"{1e3 * ms / max(int(info.iterations), 1):.1f} us/iteration; launches {launches}")
+    require_launched("config 1", launches, ("fused_normal_apply",), ("fused_pcg_solve",))
+    return launches, rec, ms
+
+
+def phase_interp_precise(ft, device, shape=SHAPE, n=N_POINTS, reps=TIMED_REPS):
+    """`interpolate_precise` on the headline's points with sin(x/9) values,
+    Weights(model_2=0.3), tol 1e-6: TRUE ≤ 1e-6 from the plain float64
+    operator, reported within 2%; the segment and apply kernels launch."""
+    pts, _ = make_circle_cloud(n, shape, seed=0)
+    vals = sine_values(pts, device)
+    pts = torch.as_tensor(pts, device=device)
+    grid, w = ft.Grid(shape), ft.Weights(model_2=0.3)
+    cfg = ft.SolverConfig(tol=TOL)
+
+    def field():
+        return ft.interpolate_precise(grid, w, pts, vals, config=cfg)
+    field()  # warm-up
+    torch.cuda.synchronize()
+    read = counters_zero()
+    (x, info), ms1 = timed(field)
+    launches = read()
+    pp = ft.assemble_precise(grid, w, pts, vals)
+    true = float(torch.linalg.norm(pp.residual64(x)) / torch.linalg.norm(pp.b64))
+    rep = float(info.rel_residual)
+    require(bool(info.converged), "interpolate_precise did not converge")
+    require(tuple(x.shape) == shape and bool(torch.isfinite(x).all()),
+            "interpolate_precise: field not finite or wrong shape")
+    require(true <= TOL, f"interpolate_precise: true residual {true} > {TOL}")
+    require(abs(true - rep) <= 0.02 * true, f"interpolate_precise: reported {rep} vs {true}")
+    ms = cuda_ms(field, reps)
+    print(f"interpolate_precise {shape_str(shape)}, {n} points, sin(x/9): iterations "
+          f"{int(info.iterations)}, reported rel {rep:.6e}, true rel {true:.6e}; "
+          f"{ms:.3f} ms/field (median of {reps}; the checked call {ms1:.3f}); "
+          f"launches {launches}")
+    require_launched("interpolate_precise", launches,
+                     ("fused_pcg_solve", "fused_normal_apply"))
+    return launches, ms
+
+
+def phase_interp_large(ft, device, shape=SHAPE_I, n=N_POINTS_I, n_sparse=N_POINTS_I_SPARSE,
+                       reps=LARGE_REPS):
+    """`interpolate` at 1024², sin(x/9) values, Weights(model_2=0.3), tol
+    1e-4, cold and with fmg_start=1, on points uniform in [1, 1022]².
+
+    At the density of the reference's own fmg check (tests/test_solver.py:
+    721-739: 200 points on 64², so 51 200 on 1024²): both converged, fmg
+    with fewer fine iterations, the fields within 5e-2 of each other; the
+    multi-sweep, per-sweep and apply kernels launch; both timed in turns.
+    First those kernels against their plain versions on this problem: the
+    apply (1e-5·max|plain|), the multi-sweep kernel's pre-smoothing with
+    its residual on the fine level and the per-sweep kernel's on the first
+    diagonal level (2e-5·max|plain|).
+
+    With 4000 points (a 13x sparser cloud) the float32 solve stalls above
+    tol 1e-4 in the reference too (on the CPU at 512² with the same
+    density, both packages stop at maxiter with a residual of 8.2e-4):
+    that case runs once cold and once with fmg_start=1 and is reported,
+    finite and of the grid's shape, its convergence not required."""
+    from field_interpolation_tpu_torch import sdf as tsdf
+    from field_interpolation_tpu_torch.ops.smooth import (fused_smooth, fused_smooth_2d,
+                                                          fused_smooth_plain)
+    from field_interpolation_tpu_torch.ops.stencil import (fused_normal_apply,
+                                                           fused_normal_apply_plain)
+    rng = np.random.default_rng(5)
+    grid, w = ft.Grid(shape), ft.Weights(model_2=0.3)
+    cfg = ft.SolverConfig(tol=1e-4)
+    name = shape_str(shape)
+
+    def cloud(count):
+        pts = rng.uniform(1, shape[0] - 2, (count, 2)).astype(np.float32)
+        return torch.as_tensor(pts, device=device), sine_values(pts, device)
+
+    def rand(sh):
+        return torch.as_tensor(rng.standard_normal(sh).astype(np.float32), device=device)
+    pts, vals = cloud(n)
+    p = ft.assemble_interpolation(grid, w, pts, vals)
+    levels, sids = fine_smoothing_operands(p, cfg)
+    x, r, z = rand(shape), rand(shape), rand(shape)
+    recs = dict(apply=compare(
+        f"apply {name} values (reference: fused_normal_apply_striped)",
+        lambda: fused_normal_apply(x, p.coeff, w, 2),
+        lambda: fused_normal_apply_plain(x, p.coeff, w, 2), 1e-5,
+        apply_work(x, p.coeff, w, 2)))
+    recs["multi"] = compare(
+        f"multi-sweep {name} values fine level, 3 sweeps from zero, residual",
+        lambda: fused_smooth_2d(r, z, p.coeff, sids[0], w, 3, True, residual=True),
+        lambda: fused_smooth_plain(r, z, p.coeff, sids[0], w, 2, 3, True, residual=True),
+        2e-5, sweep_work(r, p.coeff, w, 2, 3, True, residual=True), True)
+    lvl = levels[0]
+    dd, r1, z1 = lvl.data_diag.contiguous(), rand(lvl.shape), rand(lvl.shape)
+    recs["sweep"] = compare(
+        f"smooth {shape_str(lvl.shape)} values diagonal level, 3 sweeps from zero, residual",
+        lambda: fused_smooth(r1, z1, dd, sids[1], lvl.weights, 2, 3, True, residual=True),
+        lambda: fused_smooth_plain(r1, z1, dd, sids[1], lvl.weights, 2, 3, True,
+                                   residual=True),
+        2e-5, sweep_work(r1, dd, lvl.weights, 2, 3, True, residual=True), True)
+    del p, levels, sids, x, r, z
+
+    def runs(pts, vals):
+        return (lambda: ft.interpolate(grid, w, pts, vals, config=cfg),
+                lambda: ft.interpolate(grid, w, pts, vals, config=cfg, fmg_start=1))
+    cold, fmg = runs(pts, vals)
+    cold(), fmg()  # warm-up
+    torch.cuda.synchronize()
+    coarse, restore = record_solves(tsdf)
+    try:
+        read = counters_zero()
+        (xc, ic), _ = timed(cold)
+        coarse.clear()
+        (xf, inf), _ = timed(fmg)
+        launches = read()
+        its_c = [int(i.iterations) for i in coarse[:-1]]
+    finally:
+        restore()
+    err = float((xf - xc).abs().max())
+    for label, xx, info in (("cold", xc, ic), ("fmg_start=1", xf, inf)):
+        require(bool(info.converged), f"interpolate {name} {label} did not converge "
+                                      f"({int(info.iterations)} iterations, rel "
+                                      f"{float(info.rel_residual):.3e})")
+        require(tuple(xx.shape) == shape and bool(torch.isfinite(xx).all()),
+                f"interpolate {name} {label}: field not finite or wrong shape")
+    require(int(inf.iterations) < int(ic.iterations),
+            f"fmg fine iterations {int(inf.iterations)} not below cold {int(ic.iterations)}")
+    require(err <= 5e-2, f"interpolate {name}: fmg vs cold {err} > 5e-2")
+    ms = {}
+    for _ in range(reps):  # in turns
+        for label, fn in (("cold", cold), ("fmg", fmg)):
+            ms.setdefault(label, []).append(timed(fn)[1])
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    print(f"interpolate {name}, {n} points, tol 1e-4: cold {int(ic.iterations)} iterations, "
+          f"{med['cold']:.3f} ms/field; fmg_start=1 {int(inf.iterations)} fine iterations "
+          f"(coarse {its_c}), {med['fmg']:.3f} ms/field (medians of {reps}, in turns; all "
+          f"{ms}); max|x_fmg - x_cold| {err:.3e}; launches over both {launches}")
+    require_launched(f"interpolate {name}", launches,
+                     ("fused_smooth_2d", "fused_smooth", "fused_normal_apply"),
+                     ("fused_pcg_solve",))
+    del xc, xf
+    cold, fmg = runs(*cloud(n_sparse))
+    for label, fn in (("cold", cold), ("fmg_start=1", fmg)):
+        (xx, info), t = timed(fn)
+        require(tuple(xx.shape) == shape and bool(torch.isfinite(xx).all()),
+                f"interpolate {name}, {n_sparse} points, {label}: not finite or wrong shape")
+        print(f"interpolate {name}, {n_sparse} points, tol 1e-4, {label}: converged "
+              f"{bool(info.converged)}, {int(info.iterations)} iterations, rel "
+              f"{float(info.rel_residual):.3e}, {t:.3f} ms")
+        med[f"sparse_{label}"] = dict(ms=t, iterations=int(info.iterations),
+                                      rel=float(info.rel_residual),
+                                      converged=bool(info.converged))
+    return launches, med, recs
+
+
+def rotate(nrm, degrees):
+    """2-D normals turned by ``degrees``."""
+    t = math.radians(degrees)
+    rot = torch.tensor([[math.cos(t), -math.sin(t)], [math.sin(t), math.cos(t)]],
+                       dtype=nrm.dtype, device=nrm.device)
+    return nrm @ rot.T
+
+
+def phase_session(ft, device, shape=SHAPE, n=N_POINTS, frames=FRAMES):
+    """The Solver session on the headline (256², 1000 points, tol 1e-6,
+    precise): frame 1 with the iterations of sdf_from_points_precise and
+    TRUE ≤ 1e-6; frames 2..9 with the normals turned by a seeded angle of
+    at most 2° per frame, each warm-started from the frame before, each
+    TRUE ≤ 1e-6. Host clocks after synchronize: construction, frames, a
+    frame from zero, the cold field; kernels per frame and per cold field
+    from torch.profiler."""
+    pts, nrm = make_circle_cloud(n, shape, seed=0)
+    pts, nrm = torch.as_tensor(pts, device=device), torch.as_tensor(nrm, device=device)
+    grid, w = ft.Grid(shape), ft.Weights(model_2=0.3)
+    cfg = ft.SolverConfig(tol=TOL)
+    zeros = torch.zeros(n, device=device)
+
+    def cold(normals=nrm):
+        return ft.sdf_from_points_precise(grid, w, pts, normals, config=cfg)
+    cold()  # warm-up
+    ft.Solver(grid, w, pts, config=cfg, precise=True).solve(zeros, gradients=nrm)
+    s, build_ms = host_ms(lambda: ft.Solver(grid, w, pts, config=cfg, precise=True))
+    read = counters_zero()
+    (x, info), first_ms = host_ms(lambda: s.solve(zeros, gradients=nrm))
+    launches1 = read()
+    (xc, ic), cold_first_ms = host_ms(cold)
+    true = check_precise("session frame 1", ft, grid, w, pts, nrm, x, info, device)
+    err = float((x - xc).abs().max())
+    print(f"session frame 1: iterations {int(info.iterations)} (sdf_from_points_precise "
+          f"{int(ic.iterations)}), true rel {true:.6e}, max|x - x_cold| {err:.3e}, "
+          f"{first_ms:.3f} ms; launches {launches1}")
+    require(int(info.iterations) == int(ic.iterations),
+            f"session frame 1: {int(info.iterations)} iterations, cold {int(ic.iterations)}")
+    require(err <= 2e-4 * float(xc.abs().max()), f"session frame 1: {err} from the cold field")
+    turns = np.random.default_rng(12).uniform(-MAX_TURN_DEG, MAX_TURN_DEG, frames - 1)
+    normals, frame_ms, its = nrm, [], []
+    read = counters_zero()
+    for k, deg in enumerate(turns, start=2):
+        normals = rotate(normals, float(deg))
+        (x, info), ms = host_ms(lambda: s.solve(zeros, gradients=normals, x0=x))
+        true = check_precise(f"session frame {k}", ft, grid, w, pts, normals, x, info, device)
+        frame_ms.append(ms)
+        its.append(int(info.iterations))
+        print(f"session frame {k}: turned {deg:+.3f} deg, warm start, iterations "
+              f"{its[-1]}, true rel {true:.6e}, {ms:.3f} ms")
+    launches = read()
+    # The same clock over cold fields and frames from zero, in turns.
+    cold_ms, zero_ms = [], []
+    for _ in range(frames - 1):
+        cold_ms.append(host_ms(lambda: cold(normals))[1])
+        zero_ms.append(host_ms(lambda: s.solve(zeros, gradients=normals))[1])
+    med = dict(frame=statistics.median(frame_ms), frame_from_zero=statistics.median(zero_ms),
+               cold=statistics.median(cold_ms), construction=build_ms)
+    print(f"session: construction {build_ms:.3f} ms; frames 2-{frames} warm-started: median "
+          f"{med['frame']:.3f} ms/frame, {statistics.mean(its):.1f} iterations on average; a "
+          f"frame from zero {med['frame_from_zero']:.3f} ms; cold sdf_from_points_precise "
+          f"{med['cold']:.3f} ms/field (first {cold_first_ms:.3f}); host clock after "
+          f"synchronize, medians of {frames - 1}; launches over frames 2-{frames} {launches} "
+          f"({launches['fused_pcg_solve'] / (frames - 1):.1f} segment, "
+          f"{launches['fused_normal_apply'] / (frames - 1):.1f} apply per frame)")
+    require_launched("the session's frames", launches, ("fused_pcg_solve", "fused_normal_apply"))
+    prof = {
+        "session frame": profile_fields("session frame", [
+            lambda: s.solve(zeros, gradients=normals, x0=x)], ("segment kernel",)),
+        "session frame from zero": profile_fields("session frame from zero", [
+            lambda: s.solve(zeros, gradients=normals)], ("segment kernel",)),
+        "cold field": profile_fields("headline cold field", [lambda: cold(normals)],
+                                     ("segment kernel",))}
+    return launches, med, prof
+
+
+def phase_prepare4(ft, device, shape=SHAPE3, n=N_POINTS3, reps=PREPARE_REPS):
+    """`prepare` + ``solve(prep=)`` on config 4 (128³, 4000 sphere points,
+    tol 1e-4): the iterations of the cold solve and its field within
+    1e-5·max|x|; the apply and per-sweep kernels launch; the solve and the
+    whole field (assembly + prepared solve against sdf_from_points) timed
+    in turns; the preconditioner's construction cold and from the prep
+    (host clock after synchronize) and the device-busy ms of one solve
+    each way (torch.profiler), which a field's ±40% spread hides."""
+    from field_interpolation_tpu_torch import solver
+    grid, w = ft.Grid(shape), ft.Weights(model_2=0.3)
+    cfg = ft.SolverConfig(tol=1e-4, preconditioner="multigrid", backend="auto")
+    pts, nrm = sphere_inputs(0, device, shape, n)
+    p = ft.assemble_sdf(grid, w, pts, nrm)
+    ft.solve(p, cfg)  # warm-up
+    solver.prepare(p, cfg)
+    prep, prep_ms = host_ms(lambda: solver.prepare(p, cfg))
+    ft.solve(p, cfg, prep=prep)
+    read = counters_zero()
+    (x, info), _ = timed(lambda: ft.solve(p, cfg, prep=prep))
+    launches = read()
+    xc, ic = ft.solve(p, cfg)
+    err = float((x - xc).abs().max())
+    require(bool(info.converged), "config 4 prepared solve did not converge")
+    require(int(info.iterations) == int(ic.iterations),
+            f"config 4 prepared {int(info.iterations)} iterations, cold {int(ic.iterations)}")
+    require(err <= 1e-5 * float(xc.abs().max()), f"config 4 prepared: {err} from cold")
+    runs = dict(solve_cold=lambda: ft.solve(p, cfg),
+                solve_prepared=lambda: ft.solve(p, cfg, prep=prep),
+                field_cold=lambda: ft.sdf_from_points(grid, w, pts, nrm, config=cfg),
+                field_prepared=lambda: ft.solve(ft.assemble_sdf(grid, w, pts, nrm), cfg,
+                                                prep=prep))
+    ms = {}
+    for _ in range(reps):
+        for k, fn in runs.items():
+            ms.setdefault(k, []).append(timed(fn)[1])
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    apply_fn = solver._make_apply(p, cfg)
+    setup = {}
+    for _ in range(reps):
+        setup.setdefault("cold", []).append(host_ms(
+            lambda: solver._make_precond(p, cfg, apply_fn))[1])
+        setup.setdefault("prepared", []).append(host_ms(
+            lambda: solver._make_precond(p, cfg, apply_fn, prep))[1])
+    med.update({f"precond_setup_{k}": statistics.median(v) for k, v in setup.items()})
+    busy = {k: profile_fields(f"config 4 solve, {k}", [runs[f"solve_{k}"]],
+                              ("sweep kernel", "apply kernel"))
+            for k in ("cold", "prepared")}
+    print(f"config 4 preconditioner setup (host clock after synchronize, medians of "
+          f"{reps}): cold {med['precond_setup_cold']:.3f} ms, from the prep "
+          f"{med['precond_setup_prepared']:.3f} ms; one solve, device busy cold "
+          f"{busy['cold']['busy_ms']:.3f} ms ({busy['cold']['kernels']:.0f} kernels), "
+          f"prepared {busy['prepared']['busy_ms']:.3f} ms "
+          f"({busy['prepared']['kernels']:.0f} kernels)")
+    print(f"config 4 prepare: {prep_ms:.3f} ms (host clock); prepared solve "
+          f"{int(info.iterations)} iterations (cold {int(ic.iterations)}), "
+          f"max|x - x_cold| {err:.3e}; medians of {reps} in turns (CUDA events): solve "
+          f"cold {med['solve_cold']:.3f}, prepared {med['solve_prepared']:.3f} ms; field "
+          f"(assembly + solve) cold {med['field_cold']:.3f}, prepared "
+          f"{med['field_prepared']:.3f} ms; all {ms}; launches {launches}")
+    require_launched("config 4 prepared", launches, ("fused_normal_apply", "fused_smooth"),
+                     ("fused_pcg_solve",))
+    return launches, dict(med, prepare=prep_ms)
+
+
+def phase_implicit(ft, device, shape=SHAPE, n=N_POINTS, reps=5):
+    """`solve_implicit` on the headline problem, tol 1e-5, with the loss
+    ⟨w, x*⟩: b̄ = λ with ‖A λ − w‖ ≤ 1e-5·‖w‖ and the forward x with
+    ‖A x − b‖ ≤ 1e-5·‖b‖ (the plain float64 operator), coeff̄ = −λ·shift(x, o)
+    from plain ops within 1e-5·max, diaḡ = 0; the apply and whole-cycle V
+    kernels launch in the forward and in the backward pass.
+
+    w = A·v for a standard-normal v: a white-noise w puts λ on the
+    operator's smallest eigenvalues, where a float32 PCG (the reference's
+    algorithm too) stalls near κ·2⁻²⁴ relative (2.3e-2 at 256² in a CPU
+    run), far above 1e-5."""
+    from field_interpolation_tpu_torch import constraints as cons
+    from field_interpolation_tpu_torch import multigrid as tmg
+    from field_interpolation_tpu_torch.ops.cycle import fused_vcycle_2d, mg_cycle_plain
+    pts, nrm = headline_inputs(0, device)
+    p = ft.assemble_sdf(ft.Grid(shape), ft.Weights(model_2=0.3), pts, nrm)
+    cfg = ft.SolverConfig(tol=1e-5)
+    # The whole-cycle kernel its preconditioner runs, against mg_cycle_plain
+    # on the same operands at phase 14's bar.
+    whole = tmg.whole_cycle_operands(p, cfg)
+    require(whole is not None and whole[1] == 0, "solve_implicit: no whole V-cycle route")
+    ops = whole[0]
+    r = torch.as_tensor(np.random.default_rng(15).standard_normal(shape).astype(np.float32),
+                        device=device)
+    nbytes, flops, _ = cycle_work(ops, 3, 3, 0)
+    cycle_rec = compare(f"cycle {shape_str(shape)} headline, V, nu 3/3, {len(ops[0])} levels "
+                        f"(solve_implicit's preconditioner), standard-normal r",
+                        lambda: fused_vcycle_2d(r, *ops, 3, 3),
+                        lambda: mg_cycle_plain(r, *ops, 3, 3, 0), 3e-5, (nbytes, flops))
+    p64 = ft.Problem(coeff=p.coeff.double(), b=p.b.double(), diag=p.diag.double(),
+                     grid=p.grid, weights=p.weights)
+    v = torch.as_tensor(np.random.default_rng(13).standard_normal(shape), device=device)
+    wv = p64.apply(v).float()
+    coeff, b, diag = (t.clone().requires_grad_(True) for t in (p.coeff, p.b, p.diag))
+
+    def forward():
+        return ft.solve_implicit(ft.Problem(coeff=coeff, b=b, diag=diag, grid=p.grid,
+                                            weights=p.weights), cfg)
+
+    def backward(x):
+        return torch.autograd.grad(torch.sum(wv * x), (coeff, b, diag))
+    backward(forward())  # warm-up
+    torch.cuda.synchronize()
+    read = counters_zero()
+    x, fwd_ms = timed(forward)
+    fwd = read()
+    read = counters_zero()
+    (c_bar, lam, d_bar), bwd_ms = timed(lambda: backward(x))
+    bwd = read()
+    xd = x.detach()
+    res_x = float(torch.linalg.norm(p64.apply(xd.double()) - p64.b) / torch.linalg.norm(p64.b))
+    res_l = float(torch.linalg.norm(p64.apply(lam.double()) - wv.double())
+                  / torch.linalg.norm(wv.double()))
+    want = torch.stack([-lam * cons._shift(xd, o, 2) for o in cons.offset_list(2)])
+    err = float((c_bar - want).abs().max())
+    scale = float(want.abs().max())
+    require(bool(torch.isfinite(xd).all()) and tuple(xd.shape) == shape,
+            "solve_implicit: x not finite or wrong shape")
+    require(res_x <= 1e-5, f"solve_implicit forward: relative residual {res_x} > 1e-5")
+    require(res_l <= 1e-5, f"solve_implicit backward: |A lam - w| / |w| = {res_l} > 1e-5")
+    require(err <= 1e-5 * scale, f"solve_implicit: coeff_bar {err} > 1e-5·{scale}")
+    require(bool((d_bar == 0).all()), "solve_implicit: diag_bar is not zero")
+    f_ms, b_ms = [], []
+    for _ in range(reps):
+        xr, ms = timed(forward)
+        f_ms.append(ms)
+        b_ms.append(timed(lambda: backward(xr))[1])
+    print(f"solve_implicit {shape_str(shape)} tol 1e-5: forward relative residual "
+          f"{res_x:.3e}, backward |A lam - w|/|w| {res_l:.3e} (float64 operator), "
+          f"max|coeff_bar + lam·shift(x)| {err:.3e} (bar {1e-5 * scale:.3e}); forward "
+          f"{statistics.median(f_ms):.3f} ms, backward {statistics.median(b_ms):.3f} ms "
+          f"(medians of {reps}, CUDA events; the checked calls {fwd_ms:.3f} / {bwd_ms:.3f}); "
+          f"launches forward {fwd}, backward {bwd}")
+    for label, launches in (("forward", fwd), ("backward", bwd)):
+        require_launched(f"solve_implicit {label}", launches,
+                         ("fused_normal_apply", "fused_vcycle_2d"), ("fused_pcg_solve",))
+    return (dict(forward=fwd, backward=bwd), dict(forward_ms=statistics.median(f_ms),
+                                                  backward_ms=statistics.median(b_ms)),
+            cycle_rec)
+
+
+def profiled_device_ms(call, calls, pattern):
+    """Device ms per call of the kernels whose name matches ``pattern``,
+    from torch.profiler over ``calls`` calls, or None where the profile
+    shows fewer than ``calls`` of them (then the event kinds it shows are
+    printed). The second try synchronizes after every call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for sync_each in (False, True):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                call()
+                if sync_each:
+                    torch.cuda.synchronize()
+            torch.cuda.synchronize()
+        events = trace_events(prof)
+        dev = [e for e in events if e[0] == DeviceType.CUDA and re.search(pattern, e[1])]
+        if len(dev) == calls:
+            return sum(e[3] - e[2] for e in dev) / calls / 1e3
+        kinds = sorted({(str(e[0]), e[1][:48]) for e in events})[:12]
+        print(f"  the profile shows {len(dev)} of {calls} kernels matching {pattern!r} "
+              f"(sync after each call: {sync_each}); event kinds {kinds}")
+    return None
+
+
+def phase_apply_profile(ft, device, cases=None, calls=20):
+    """The apply kernel at five shapes of the main paths (256² headline,
+    480² field A′, 992² field C, 4096² config 5, 128³ config 4): its device
+    time per call from torch.profiler beside its single-call and
+    back-to-back times (CUDA events) and its bound, to tell a host floor
+    from device time. A measurement, not a check: where the profile does
+    not show the kernels, the device time is reported as not measured."""
+    from field_interpolation_tpu_torch.ops.stencil import fused_normal_apply
+    cases = cases or [
+        ("256² headline", SHAPE, lambda: headline_inputs(0, device)),
+        ("480² field A′", SHAPE_A2, lambda: field_a_inputs(0, device, SHAPE_A2)),
+        ("992² field C", SHAPE_C, lambda: field_a_inputs(0, device, SHAPE_C, N_POINTS_C)),
+        ("4096² config 5", SHAPE5, lambda: circle5_inputs(0, device)),
+        ("128³ config 4", SHAPE3, lambda: sphere_inputs(0, device))]
+    rng = np.random.default_rng(14)
+    out = {}
+    for label, shape, inputs in cases:
+        p = ft.assemble_sdf(ft.Grid(shape), ft.Weights(model_2=0.3), *inputs())
+        x = torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=device)
+        nd = len(shape)
+
+        def call():
+            return fused_normal_apply(x, p.coeff, p.weights, nd)
+        single, b2b = cuda_ms(call), batch_ms(call)
+        dev_ms = profiled_device_ms(call, calls, r"normal_apply")
+        rec = dict(ms=single, batch_ms=b2b, device_ms=dev_ms,
+                   **bound(*apply_work(x, p.coeff, p.weights, nd)))
+        dev_txt = ("not measured" if dev_ms is None else
+                   f"{dev_ms:.4f} ms per call (torch.profiler, {calls} calls); bound / device "
+                   f"{rec['bound_ms'] / dev_ms:.2f}; back to back - device "
+                   f"{b2b - dev_ms:.4f} ms")
+        print(f"apply {label} ({shape_str(shape)}): single {single:.4f} ms, back to back "
+              f"{b2b:.4f}, bound {rec['bound_ms']:.4f} ({rec['bound_by']}); device {dev_txt}")
+        out[label] = rec
+        del p, x
+    torch.cuda.empty_cache()
+    return out
 
 def run_phase(fn, *args, **kwargs):
     """fn(*args, **kwargs), then its wall time on a line of its own."""
@@ -2002,12 +2534,22 @@ def main():
     # The sharded slice: the two ext kernels block by block, then four ranks.
     ext_recs = run_phase(phase_ext, ft, device)
     sharded = run_phase(phase_sharded, ft, device)
+    # The public-API slice: its paths, each with the counts set to 0 just
+    # before it and read just after.
+    launches_1, apply1_rec, _ = run_phase(phase_config1, ft, device)
+    launches_ip, _ = run_phase(phase_interp_precise, ft, device)
+    launches_il, _, recs_il = run_phase(phase_interp_large, ft, device)
+    launches_s, _, _ = run_phase(phase_session, ft, device)
+    launches_p4, _ = run_phase(phase_prepare4, ft, device)
+    launches_imp, _, cycle_imp_rec = run_phase(phase_implicit, ft, device)
+    apply_prof = run_phase(phase_apply_profile, ft, device)
 
     src = "field_interpolation_tpu_torch/csrc/"
     ref = "field_interpolation_tpu/ops/pallas_stencil.py:"
     kernels = [
         dict(name="fused_normal_apply", route="cuda", source=src + "normal_apply.cu",
-             replaces=ref + "170", launches=launches["fused_normal_apply"], **apply_rec),
+             replaces=ref + "170", launches=launches["fused_normal_apply"], **apply_rec,
+             device_profile=apply_prof),
         dict(name="fused_pcg_solve", route="cuda", source=src + "pcg_segment.cu",
              replaces=ref + "1484", launches=launches["fused_pcg_solve"], **seg_rec,
              wcycle=seg_w_rec),
@@ -2090,6 +2632,32 @@ def main():
              launches=sum(l["fused_normal_apply_ext_striped"]
                           for l in sharded["launches"]["S2"]),
              **ext_recs[(2, 2)], blocks_4096x512=ext_recs[(1, 8)]),
+        # The public-API slice: the kernels on its paths' own inputs, or at
+        # the shapes they give them (the session: the headline's operands,
+        # phase 4's record; config 4 prepared: phases 6-7's).
+        dict(name="fused_normal_apply_config1", route="cuda", source=src + "normal_apply.cu",
+             replaces=ref + "170", launches=launches_1["fused_normal_apply"], **apply1_rec),
+        dict(name="fused_normal_apply_interpolate_1024", route="cuda",
+             source=src + "normal_apply.cu", replaces=ref + "300",
+             launches=launches_il["fused_normal_apply"], **recs_il["apply"]),
+        dict(name="jacobi_multisweep_2d_interpolate_1024", route="cuda",
+             source=src + "jacobi_multisweep2d.cu", replaces=ref + "653",
+             launches=launches_il["fused_smooth_2d"], **recs_il["multi"]),
+        dict(name="jacobi_sweep_2d_interpolate_1024", route="cuda",
+             source=src + "jacobi_sweep.cu", replaces=ref + "513,1959",
+             launches=launches_il["fused_smooth"], **recs_il["sweep"]),
+        dict(name="fused_pcg_solve_session", route="cuda", source=src + "pcg_segment.cu",
+             replaces=ref + "1484", launches=launches_s["fused_pcg_solve"], **seg_rec,
+             interpolate_precise_launches=launches_ip["fused_pcg_solve"]),
+        dict(name="fused_normal_apply_3d_prepared", route="cuda",
+             source=src + "normal_apply.cu", replaces=ref + "300",
+             launches=launches_p4["fused_normal_apply"], **apply3_rec),
+        dict(name="jacobi_sweep_prepared", route="cuda", source=src + "jacobi_sweep.cu",
+             replaces=ref + "513,1813", launches=launches_p4["fused_smooth"], **sweep_rec),
+        dict(name="mg_cycle2d_solve_implicit", route="cuda", source=src + "mg_cycle2d.cu",
+             replaces=ref + "1052,1114",
+             launches=sum(l["fused_vcycle_2d"] for l in launches_imp.values()),
+             **cycle_imp_rec),
     ]
     for k in kernels:
         k["library_ms"] = None  # no one PyTorch call computes any of these functions

@@ -122,6 +122,7 @@ def smoothing_phases(h, ft, device):
     """{phase: dict(ms, b2b_ms)} of the smoothing phases (module doc)."""
     import numpy as np
     import torch
+    from field_interpolation_tpu_torch import multigrid as tmg
     from field_interpolation_tpu_torch.ops.smooth import fused_smooth, fused_smooth_2d
     from field_interpolation_tpu_torch.ops.stencil import (fused_normal_apply,
                                                            fused_normal_apply_plain)
@@ -145,18 +146,20 @@ def smoothing_phases(h, ft, device):
 
     def phase_9ch(lv, fz, cheb):
         # The pre-smoothing (from zero) with the residual the cycle
-        # restricts; the post-smoothing (from z) without. A tree whose
-        # fused_smooth_2d writes no residual: its call, then the apply
-        # kernel and a subtraction, as its cycle computes it.
+        # restricts; the post-smoothing (from z) without; through the
+        # kernel the tree's cycle sends the phase to (its
+        # multigrid._kernel_smoother). A tree whose fused_smooth_2d writes
+        # no residual: its call, then the apply kernel and a subtraction,
+        # as its cycle computes it.
         coeff, inv, sid_j, cf, w = lv
         sid, cf = (inv, cf) if cheb else (sid_j, None)
         r, z = (torch.as_tensor(rng.standard_normal(tuple(inv.shape)).astype(np.float32),
                                 device=device) for _ in range(2))
+        if writes_residual_9ch:
+            smooth = tmg._kernel_smoother(coeff, sid, w, 2, (lambda n: cf) if cheb else None)
+            return lambda: smooth(r, z, 3, fz, fz)
         if not fz:
             return lambda: fused_smooth_2d(r, z, coeff, sid, w, 3, fz, cheb_coefs=cf)
-        if writes_residual_9ch:
-            return lambda: fused_smooth_2d(r, z, coeff, sid, w, 3, fz, cheb_coefs=cf,
-                                           residual=True)
 
         def parent():
             out = fused_smooth_2d(r, z, coeff, sid, w, 3, fz, cheb_coefs=cf)

@@ -30,13 +30,19 @@ through the port's kernels, at any size, on CPU and CUDA tensors alike:
   reference);
 * elsewhere every level smooths through one of the smoothing kernels: a
   2-D level with the full 9-channel data term through the multi-sweep
-  kernel (`ops.smooth.fused_smooth_2d`), every other level (diagonal data,
-  3-D) through the per-sweep kernel (`ops.smooth.fused_smooth`); either
+  kernel (`ops.smooth.fused_smooth_2d`) below radius 3, every other level
+  (diagonal data, 3-D, radius-3 weights) through the per-sweep kernel
+  (`ops.smooth.fused_smooth`); either
   call also writes the residual the cycle restricts next (after the
   pre-smoothing, and on a W-cycle's level after the first visit's
   post-smoothing); the rest of the cycle (transfers, the dense coarsest
   solve, the residual where no smoothing runs) is plain torch, as it is
   XLA in the reference.
+
+`prepare_mg` builds all of that setup once (`MGPrep`: the hierarchy, the
+smoothing steps, the dense coarsest inverse, the fused and whole-cycle
+operands, the smoothers' float32 operands, the Chebyshev schedules), so
+that a solve handed the prep (``prep=``) does no setup work on the device.
 """
 
 from __future__ import annotations
@@ -361,7 +367,10 @@ def _coarse_dense_inverse(lvl: "_Level") -> torch.Tensor:
     error (about κ·2⁻²⁴, 4e-5 relative at the 16² level of the 64² tests;
     the reference factors in float32). L⁻ᵀL⁻¹ is symmetric only in exact
     arithmetic, so the 0.5·(X+Xᵀ) repair stays: CG needs an exactly
-    symmetric preconditioner."""
+    symmetric preconditioner. A singular operator (no data rows under a
+    smoothness term with a null space) gives NaN, as the reference's
+    factorization does, instead of raising: a solve whose right-hand side
+    is zero never applies it."""
     dtype, dev = lvl.diag.dtype, lvl.diag.device
     f64 = torch.float64
     S = torch.tensor(_smoothness_dense_matrix(lvl.shape, lvl.weights),
@@ -370,11 +379,12 @@ def _coarse_dense_inverse(lvl: "_Level") -> torch.Tensor:
         A_c = S + _dense_data_matrix(lvl.data_coeff.to(f64), lvl.shape)
     else:
         A_c = S + torch.diag(lvl.data_diag.reshape(-1).to(f64))
-    L = torch.linalg.cholesky(A_c)
+    L, info = torch.linalg.cholesky_ex(A_c)
     eye = torch.eye(A_c.shape[0], dtype=f64, device=dev)
     Linv = torch.linalg.solve_triangular(L, eye, upper=False)
     inv = Linv.T @ Linv
-    return (0.5 * (inv + inv.T)).to(dtype)
+    inv = torch.where(info == 0, 0.5 * (inv + inv.T), torch.nan)
+    return inv.to(dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -561,30 +571,51 @@ def _fused_operands_fit(problem: Problem, levels, config: SolverConfig) -> bool:
     return est <= 12 * 1024 * 1024
 
 
-def build_fused_solver_operands(problem: Problem, config: SolverConfig):
-    """Setup for the fused 2-D PCG segment, or None when the problem shape
-    or config rules the fused path out (the reference's gate,
-    multigrid.py:729-752)."""
-    if (problem.grid.ndim != 2
-            or config.preconditioner != "multigrid"
-            or config.mg_coarse_solver != "dense"
-            or config.mg_pre_smooth != config.mg_post_smooth
-            or problem.diag.dtype != torch.float32):
-        return None
-    if not fits_vmem(problem.grid.shape):
-        return None
-    levels = build_levels(problem, config)
+def _fused_gate(problem: Problem, config: SolverConfig) -> bool:
+    """The fused 2-D PCG path's gate on the problem and config, before any
+    level is built (the reference's multigrid.py:729-745)."""
+    return (problem.grid.ndim == 2 and config.preconditioner == "multigrid"
+            and config.mg_coarse_solver == "dense"
+            and config.mg_pre_smooth == config.mg_post_smooth
+            and problem.diag.dtype == torch.float32
+            and fits_vmem(problem.grid.shape))
+
+
+def _fused_operands(problem: Problem, config: SolverConfig, levels, setup=None,
+                    coarse_dense=None):
+    """The fused segment's operands on a built hierarchy past `_fused_gate`,
+    or None where the levels rule the path out; ``setup``
+    (`build_smoothing_setup`) and ``coarse_dense`` are built when None."""
     if not levels or math.prod(levels[-1].shape) > 4096:
         return None
     if not all(fits_vmem(l.shape) for l in levels):
         return None
-    lump, _, taus, rhos = build_smoothing_setup(problem, levels, config)
+    lump, _, taus, rhos = (build_smoothing_setup(problem, levels, config)
+                           if setup is None else setup)
     if lump:
         return None  # the fused kernel smooths with the full data stencil
-    coarse_dense = _coarse_dense_inverse(levels[-1])
+    if coarse_dense is None:
+        coarse_dense = _coarse_dense_inverse(levels[-1])
     return _fused_vcycle_operands(problem, levels, taus, _inv_diag(problem.diag),
                                   [_inv_diag(l.diag) for l in levels],
                                   coarse_dense, config, rhos)
+
+
+def build_fused_solver_operands(problem: Problem, config: SolverConfig,
+                                prep: "MGPrep | None" = None):
+    """Setup for the fused 2-D PCG segment, or None when the problem shape
+    or config rules the fused path out (the reference's gate,
+    multigrid.py:729-752). ``prep`` (`prepare_mg` on the same problem and
+    config) hands back its operands instead of building them."""
+    if prep is not None:
+        if prep.fused is None:
+            return None
+        coeffs, sids, Rs, inv32, cfs = prep.fused
+        lw = [problem.weights] + [l.weights for l in prep.levels]
+        return list(coeffs), list(sids), list(Rs), inv32, lw, cfs
+    if not _fused_gate(problem, config):
+        return None
+    return _fused_operands(problem, config, build_levels(problem, config))
 
 
 def resolve_wdepth(config: SolverConfig, fine_shape: tuple[int, ...]) -> int:
@@ -654,16 +685,18 @@ def _kernel_smoother(coeff, sid, weights: Weights, ndim: int, schedule=None):
     """smooth(r, z, sweeps, from_zero, residual) on one level through a
     smoothing kernel: z, or with ``residual`` (z, r − A z), both from the
     kernel's call. ``coeff`` is the level's full stencil or diagonal data
-    term. A 2-D full stencil goes to the multi-sweep kernel, everything
-    else to the per-sweep kernel. ``schedule``: None (damped Jacobi, sid =
-    τ·D⁻¹) or a function of the sweep count giving its [ν, 2] Chebyshev
-    schedule (sid = D⁻¹)."""
+    term. A 2-D full stencil goes to the multi-sweep kernel below radius 3;
+    everything else, radius-3 weights included (where the per-sweep kernel
+    is the faster on every phase measured, PERF.md), to the per-sweep
+    kernel. ``schedule``: None (damped Jacobi, sid = τ·D⁻¹) or a function
+    of the sweep count giving its [ν, 2] Chebyshev schedule (sid = D⁻¹)."""
     c32 = coeff.to(torch.float32).contiguous()
     s32 = sid.to(torch.float32).contiguous()
+    multi = ndim == 2 and c32.ndim == 3 and stencils.max_stencil_radius(weights) < 3
 
     def smooth(r, z, sweeps, from_zero, residual):
         cf = None if schedule is None else schedule(sweeps)
-        if ndim == 2 and c32.ndim == 3:
+        if multi:
             return fused_smooth_2d(r.contiguous(), z.contiguous(), c32, s32, weights, sweeps,
                                    from_zero, cheb_coefs=cf, residual=residual)
         return fused_smooth(r.contiguous(), z.contiguous(), c32, s32, weights, ndim, sweeps,
@@ -672,24 +705,26 @@ def _kernel_smoother(coeff, sid, weights: Weights, ndim: int, schedule=None):
 
 
 def whole_cycle_operands(problem: Problem, config: SolverConfig, levels=None,
-                         setup=None):
+                         setup=None, coarse_dense=None):
     """((coeffs, sids, Rs, inv32, lw), wdepth, cfs) that the whole-cycle
     route hands its kernel (the reference's route, multigrid.py:1017-1042),
     or None where `kernel_plan` names no whole-cycle kernel. The operands
     are `_fused_vcycle_operands` with the cycle's own taus and ρ̂: under
     ``mg_fine_operator="lumped"`` those are the lumped fine level's while
     coeffs[0] stays the full 9-channel stencil, as in the reference; cfs
-    are the Chebyshev schedules (None under Jacobi). ``levels`` and
-    ``setup`` (`build_smoothing_setup`'s result) are reused when given."""
+    are the Chebyshev schedules (None under Jacobi). ``levels``, ``setup``
+    (`build_smoothing_setup`'s result) and ``coarse_dense`` (the coarsest
+    inverse) are reused when given."""
     levels = build_levels(problem, config) if levels is None else levels
     lump, _, taus, rhos = (build_smoothing_setup(problem, levels, config)
                            if setup is None else setup)
     if kernel_plan(problem, config, levels, lump)[1] is None:
         return None
+    if coarse_dense is None:
+        coarse_dense = _coarse_dense_inverse(levels[-1])
     coeffs, sids, Rs, inv32, lw, cfs = _fused_vcycle_operands(
         problem, levels, taus, _inv_diag(problem.diag),
-        [_inv_diag(l.diag) for l in levels], _coarse_dense_inverse(levels[-1]),
-        config, rhos)
+        [_inv_diag(l.diag) for l in levels], coarse_dense, config, rhos)
     return ((coeffs, sids, Rs, inv32, lw), resolve_wdepth(config, problem.grid.shape),
             cfs)
 
@@ -705,66 +740,174 @@ def _whole_cycle(ops, wdepth: int, cfs, config: SolverConfig):
                                            config.mg_post_smooth, cheb_coefs=cfs)
 
 
+def _degenerate(problem: Problem, levels, config: SolverConfig) -> bool:
+    """The grid is already at the coarsening floor: the whole problem is
+    the coarsest level, solved exactly with the fine operator's inverse."""
+    return (not levels and config.mg_coarse_solver == "dense"
+            and math.prod(problem.grid.shape) <= 4096)
+
+
+def _fine_inverse(problem: Problem) -> torch.Tensor:
+    """The degenerate hierarchy's dense inverse of the fine operator (full
+    data stencil)."""
+    return _coarse_dense_inverse(_Level(
+        shape=problem.grid.shape, weights=problem.weights,
+        data_diag=data_diag(problem.coeff, problem.grid.ndim), diag=problem.diag,
+        data_coeff=problem.coeff))
+
+
+def _coarsest_inverse(levels, config: SolverConfig):
+    """The dense coarsest inverse of a hierarchy, or None where the cycle
+    smooths its coarsest level instead."""
+    if (config.mg_coarse_solver == "dense" and levels
+            and math.prod(levels[-1].shape) <= 4096):
+        return _coarse_dense_inverse(levels[-1])
+    return None
+
+
+def _smoother_operands(problem: Problem, config: SolverConfig, levels, setup,
+                       inv_diags) -> list:
+    """Per level the (data term, sid) pair the smoothing kernels take, as
+    float32 contiguous tensors: the lumped diagonal or full stencil, and
+    τ_l·D_l⁻¹ (D_l⁻¹ unscaled under Chebyshev, which reads its per-sweep
+    scalars off the schedule)."""
+    lump, fine_ddiag, taus, _ = setup
+    coeffs = [fine_ddiag if lump else problem.coeff] + _level_coeffs(problem, levels)[1:]
+    cheb = _is_cheb(config)
+    f32 = torch.float32
+    return [(c.to(f32).contiguous(), (d if cheb else t * d).to(f32).contiguous())
+            for c, t, d in zip(coeffs, taus, inv_diags)]
+
+
+@dataclasses.dataclass(frozen=True)
+class MGPrep:
+    """Reusable multigrid setup (the reference's multigrid.py:643-670),
+    built once by `prepare_mg` (through ``solver.prepare``) for repeated
+    solves on one operator, where only ``b`` changes: everything a solve
+    would otherwise build on the device. ``shape``, ``weights`` and ``sig``
+    (`setup_signature`) are what ``solver._check_prep`` holds a problem and
+    config to, so that a stale prep raises instead of preconditioning with
+    the wrong hierarchy."""
+
+    levels: tuple                 # of _Level
+    setup: tuple                  # build_smoothing_setup: (lump, fine_ddiag, taus, rhos)
+    inv_diags: tuple              # D_l⁻¹, the fine level first
+    # The dense coarsest inverse; for a degenerate hierarchy (no levels) the
+    # fine operator's. None where the cycle smooths its coarsest level.
+    coarse_dense: torch.Tensor | None
+    fused: tuple | None           # build_fused_solver_operands: (coeffs, sids, Rs, inv32, cfs)
+    whole: tuple | None           # whole_cycle_operands: (operands, cfs)
+    smooth_ops: tuple | None      # _smoother_operands, where the cycle runs the kernels
+    schedules: dict               # (level, sweeps) → Chebyshev schedule
+    kernels: bool                 # built for make_vcycle_preconditioner(kernels=...)
+    shape: tuple
+    weights: Weights
+    sig: tuple
+
+
+def setup_signature(config: SolverConfig) -> tuple:
+    """The SolverConfig fields a prepared setup depends on (the reference's
+    multigrid.py:673-680): tol, maxiter and the rest may vary between solves
+    that share one MGPrep; these may not."""
+    return (config.preconditioner, config.backend, config.mg_pre_smooth,
+            config.mg_post_smooth, config.mg_smoother, config.mg_cheb_ratio,
+            config.mg_coarse_data, config.mg_coarse_solver,
+            config.mg_coarse_iters, config.mg_omega,
+            config.mg_fine_operator, config.mg_min_size)
+
+
+def prepare_mg(problem: Problem, config: SolverConfig, fused: bool = True,
+               kernels: bool = False) -> MGPrep:
+    """Build the reusable setup of `MGPrep` on the device of ``problem``:
+    the fused segment's operands where ``fused`` and the problem takes that
+    path (exactly where `build_fused_solver_operands` gives them), and the
+    cycle's for ``make_vcycle_preconditioner(kernels=kernels)``."""
+    levels = build_levels(problem, config)
+    setup = build_smoothing_setup(problem, levels, config)
+    inv_diags = tuple(_inv_diag(d) for d in [problem.diag] + [l.diag for l in levels])
+    if _degenerate(problem, levels, config):
+        coarse_dense = _fine_inverse(problem)
+    else:
+        coarse_dense = _coarsest_inverse(levels, config)
+    fused_ops = None
+    if fused and _fused_gate(problem, config):
+        ops = _fused_operands(problem, config, levels, setup, coarse_dense)
+        if ops is not None:
+            coeffs, sids, Rs, inv32, _, cfs = ops
+            fused_ops = (tuple(coeffs), tuple(sids), tuple(Rs), inv32, cfs)
+    whole = smooth_ops = None
+    if kernels:
+        w = whole_cycle_operands(problem, config, levels, setup, coarse_dense)
+        whole = None if w is None else (w[0], w[2])
+        smooth_ops = tuple(_smoother_operands(problem, config, levels, setup, inv_diags))
+    schedules = {}
+    if _is_cheb(config):
+        sweeps = {config.mg_pre_smooth, config.mg_post_smooth}
+        if coarse_dense is None:
+            sweeps.add(config.mg_coarse_iters)
+        rhos = setup[3]
+        schedules = {(li, n): chebyshev_coefs(rhos[li], n, config)
+                     for li in range(len(rhos)) for n in sweeps}
+    return MGPrep(levels=tuple(levels), setup=setup, inv_diags=inv_diags,
+                  coarse_dense=coarse_dense, fused=fused_ops, whole=whole,
+                  smooth_ops=smooth_ops, schedules=schedules, kernels=kernels,
+                  shape=problem.grid.shape, weights=problem.weights,
+                  sig=setup_signature(config))
+
+
 def make_vcycle_preconditioner(problem: Problem, config: SolverConfig,
-                               apply_fn=None, kernels: bool = False):
+                               apply_fn=None, kernels: bool = False,
+                               prep: MGPrep | None = None):
     """Returns z = M⁻¹ r: one symmetric multigrid cycle with damped-Jacobi
     or Chebyshev smoothing. ``apply_fn`` overrides the fine-level operator
     apply. ``kernels`` (the reference's ``pallas_smooth``): run the cycle as
     one whole-cycle kernel call where the reference does
     (`whole_cycle_operands`), else smooth every level through a smoothing
-    kernel (`_kernel_smoother`)."""
-    levels = build_levels(problem, config)
+    kernel (`_kernel_smoother`). The setup comes from ``prep`` (`prepare_mg`
+    on the same problem and config, with the same ``kernels``) or is built
+    here by `prepare_mg`: a prepared and a cold cycle are one code path."""
+    if prep is None:
+        prep = prepare_mg(problem, config, fused=False, kernels=kernels)
+    elif prep.kernels != kernels:
+        raise ValueError(f"prep was built for kernels={prep.kernels}, the cycle "
+                         f"runs with kernels={kernels}")
+    levels = list(prep.levels)
     nu = config.mg_pre_smooth
     ndim = problem.grid.ndim
 
-    if (not levels and config.mg_coarse_solver == "dense"
-            and math.prod(problem.grid.shape) <= 4096):
-        # Degenerate hierarchy: the grid is already at the coarsening floor,
-        # so the whole problem IS the coarsest level; solve it exactly.
-        inv0 = _coarse_dense_inverse(_Level(
-            shape=problem.grid.shape, weights=problem.weights,
-            data_diag=data_diag(problem.coeff, ndim), diag=problem.diag,
-            data_coeff=problem.coeff))
+    if _degenerate(problem, levels, config):
+        # The whole problem IS the coarsest level; solve it exactly.
+        inv0 = prep.coarse_dense
         return lambda r: (inv0 @ r.reshape(-1)).reshape(r.shape)
 
-    setup = build_smoothing_setup(problem, levels, config)
-    if kernels:
-        whole = whole_cycle_operands(problem, config, levels, setup)
-        if whole is not None:
-            return _whole_cycle(*whole, config)
-    lump, fine_ddiag, taus, rhos = setup
+    if kernels and prep.whole is not None:
+        ops, cfs = prep.whole
+        return _whole_cycle(ops, resolve_wdepth(config, problem.grid.shape), cfs, config)
+    lump, fine_ddiag, taus, rhos = prep.setup
     if lump:
         def fine_apply(x):
             return stencils.smoothness_apply(x, problem.weights, ndim) + fine_ddiag * x
     else:
         fine_apply = problem.apply if apply_fn is None else apply_fn
-    inv_diags = [_inv_diag(problem.diag)] + [_inv_diag(l.diag) for l in levels]
+    inv_diags = prep.inv_diags
     applies = [fine_apply] + [l.apply for l in levels]
     shapes = [problem.grid.shape] + [l.shape for l in levels]
-
-    coarse_dense = None
-    if (config.mg_coarse_solver == "dense" and levels
-            and math.prod(levels[-1].shape) <= 4096):
-        coarse_dense = _coarse_dense_inverse(levels[-1])
-
+    coarse_dense = prep.coarse_dense
     cheb = _is_cheb(config)
 
     @functools.lru_cache(maxsize=None)
     def schedule(li, iters):
-        # Made once per (level, sweep count), on the device of ρ̂_l.
+        # The prep's, or made once per (level, sweep count) on the device of ρ̂_l.
+        if (li, iters) in prep.schedules:
+            return prep.schedules[li, iters]
         return chebyshev_coefs(rhos[li], iters, config)
 
     smoothers = [None] * len(shapes)
     if kernels:
-        coeffs = ([fine_ddiag if lump else problem.coeff]
-                  + _level_coeffs(problem, levels)[1:])
         weights = [problem.weights] + [l.weights for l in levels]
-        # Chebyshev reads its per-sweep scalars off the schedule, so the
-        # kernels get D⁻¹ unscaled there.
-        smoothers = [_kernel_smoother(c, d if cheb else t * d, w, ndim,
+        smoothers = [_kernel_smoother(c, sid, w, ndim,
                                       functools.partial(schedule, li) if cheb else None)
-                     for li, (c, t, d, w) in enumerate(zip(coeffs, taus, inv_diags,
-                                                           weights))]
+                     for li, ((c, sid), w) in enumerate(zip(prep.smooth_ops, weights))]
 
     def smooth(li, r, z, iters):
         # z None = from zero: the first sweep is sid·r (Jacobi).

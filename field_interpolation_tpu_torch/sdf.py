@@ -1,9 +1,12 @@
-"""Top-level entry points: SDF from oriented points (torch).
+"""Top-level entry points: SDF from oriented points and value interpolation
+(torch).
 
-Counterpart of the SDF half of ``field_interpolation_tpu.sdf``:
-`sdf_from_points` (float32 assembly + PCG) and `sdf_from_points_precise`
-(float32 problem + matter-free float64 system + float64 refinement), both
-with the nested-iteration start `fmg_start` (`_fmg_guess`).
+Counterpart of ``field_interpolation_tpu.sdf``: `sdf_from_points` and
+`interpolate` (float32 assembly + PCG), `sdf_from_points_precise` and
+`interpolate_precise` (float32 problem + matter-free float64 system +
+float64 refinement), each with the nested-iteration start `fmg_start`
+(`_fmg_guess`, `_fmg_guess_interp`); `sample_field` and
+`sample_field_gradient` read a solved field back at continuous positions.
 The H100 has native float64, so `PreciseProblem` keeps its float64 rows and
 scatter in plain float64: none of the reference's double-float or
 integer-grid emulation is needed.
@@ -22,7 +25,7 @@ from . import stencils
 from .grid import Grid
 from .multigrid import prolong
 from .operators import Problem, assemble
-from .solver import SolveInfo, solve, solve_refined
+from .solver import SolveInfo, _check_config, solve, solve_refined
 from .weights import SolverConfig, Weights
 
 
@@ -191,3 +194,115 @@ def sdf_from_points_precise(
     p64 = assemble_precise(grid, weights, positions, zeros, gradients=normals,
                            point_weights=point_weights)
     return solve_refined(p64, config, x0=x0)
+
+
+def assemble_interpolation(
+    grid: Grid,
+    weights: Weights,
+    positions: torch.Tensor,                  # [n, D]
+    values: torch.Tensor,                     # [n]
+    point_weights: Optional[torch.Tensor] = None,
+) -> Problem:
+    """Value-only scattered interpolation: one value row per sample.
+    Assembles in float32 on the device of ``positions``."""
+    f32 = torch.float32
+    return assemble(grid, weights, positions.to(f32), values.to(f32),
+                    point_weights=None if point_weights is None
+                    else point_weights.to(f32))
+
+
+def _fmg_guess_interp(grid: Grid, weights: Weights, positions, values,
+                      point_weights, config: SolverConfig,
+                      depth: int = 1) -> Optional[torch.Tensor]:
+    """`_fmg_guess` for value interpolation: the prolonged half-resolution
+    solve, not rescaled (values are values, unlike lattice distances)."""
+    cshape = tuple(max(2, (n + 1) // 2) for n in grid.shape)
+    if cshape == grid.shape:
+        return None
+    cgrid = Grid(cshape)
+    scale = ((np.asarray(cshape, np.float64) - 1.0)
+             / (np.asarray(grid.shape, np.float64) - 1.0))
+    cpos = positions * torch.as_tensor(scale, dtype=positions.dtype,
+                                       device=positions.device)
+    cprob = assemble_interpolation(cgrid, weights, cpos, values, point_weights)
+    ccfg = dataclasses.replace(config, tol=max(1e-3, config.tol), debug=False)
+    cx0 = None
+    if depth > 1:
+        cx0 = _fmg_guess_interp(cgrid, weights, cpos, values, point_weights,
+                                config, depth - 1)
+    xc, _ = solve(cprob, ccfg, x0=cx0)
+    return prolong(xc, grid.shape)
+
+
+def interpolate(
+    grid: Grid,
+    weights: Weights,
+    positions: torch.Tensor,
+    values: torch.Tensor,
+    point_weights: Optional[torch.Tensor] = None,
+    config: SolverConfig = SolverConfig(),
+    x0: Optional[torch.Tensor] = None,
+    fmg_start: bool | int = False,
+) -> tuple[torch.Tensor, SolveInfo]:
+    """Interpolate scattered values onto the lattice. Returns (field
+    [*grid.shape] float32, SolveInfo); warm start via ``x0``; ``fmg_start``
+    as in `sdf_from_points` (`_fmg_guess_interp`)."""
+    _check_config(config)
+    if fmg_start and x0 is None:
+        x0 = _fmg_guess_interp(grid, weights, positions, values, point_weights,
+                               config, depth=int(fmg_start))
+    problem = assemble_interpolation(grid, weights, positions, values, point_weights)
+    return solve(problem, config, x0=x0)
+
+
+def interpolate_precise(
+    grid: Grid,
+    weights: Weights,
+    positions: torch.Tensor,
+    values: torch.Tensor,
+    point_weights: Optional[torch.Tensor] = None,
+    config: SolverConfig = SolverConfig(),
+    x0: Optional[torch.Tensor] = None,
+    fmg_start: bool | int = False,
+) -> tuple[torch.Tensor, SolveInfo]:
+    """Value interpolation to a TRUE ≤ tol relative residual against the
+    float64 normal equations (`assemble_precise` without gradient rows,
+    then `solve_refined`). Returns (field float64, SolveInfo). ``fmg_start``
+    as in `interpolate` (the guess is the refinement's warm start)."""
+    _check_config(config)
+    if fmg_start and x0 is None:
+        x0 = _fmg_guess_interp(grid, weights, positions, values, point_weights,
+                               config, depth=int(fmg_start))
+    pp = assemble_precise(grid, weights, positions, values,
+                          point_weights=point_weights)
+    return solve_refined(pp, config, x0=x0)
+
+
+def _sample(grid: Grid, field: torch.Tensor, positions: torch.Tensor, rows: slice):
+    """(Σ_c field[corner c] · row_coeffs[:, rows, c], finite mask): the
+    multilinear rows of ``rows`` at ``positions`` (clamped to the lattice),
+    summed as plain products in the field's dtype (no matmul, so no TF32)."""
+    corner_idx, row_coeffs, _ = cons.multilinear_corner_data(
+        grid, positions.to(field.dtype))
+    corners = field.reshape(-1)[corner_idx]                   # [n, C]
+    out = torch.sum(corners[:, None, :] * row_coeffs[:, rows, :], dim=-1)
+    return out, torch.all(torch.isfinite(positions), dim=-1)
+
+
+def sample_field(grid: Grid, field: torch.Tensor,
+                 positions: torch.Tensor) -> torch.Tensor:
+    """Multilinear interpolation of a solved field at continuous positions
+    [n, D] → values [n], with the corner weights of the value rows
+    (SPEC.md §3). Positions outside the lattice are clamped to it;
+    non-finite positions give NaN. Differentiable in field and positions."""
+    vals, finite = _sample(grid, field, positions, slice(0, 1))
+    return torch.where(finite, vals[:, 0], torch.full_like(vals[:, 0], float("nan")))
+
+
+def sample_field_gradient(grid: Grid, field: torch.Tensor,
+                          positions: torch.Tensor) -> torch.Tensor:
+    """Gradient of the multilinearly interpolated field at continuous
+    positions [n, D] → [n, D]: the finite-difference gradient the gradient
+    rows assert (SPEC.md §4). Clamped and NaN as `sample_field`."""
+    grads, finite = _sample(grid, field, positions, slice(1, None))
+    return torch.where(finite[:, None], grads, torch.full_like(grads, float("nan")))

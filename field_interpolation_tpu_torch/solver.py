@@ -26,6 +26,12 @@ smoothing, lumped or Galerkin coarse data, V or W cycles) runs through the
 kernels on CUDA tensors. The reference's ``lax.while_loop``s are Python loops
 here that read one scalar per segment (fused path), per iteration (plain
 `pcg`) or per round.
+
+`prepare` builds a problem's multigrid setup once (`multigrid.MGPrep`);
+`solve` and `solve_refined` take it as ``prep=`` and then build nothing
+but the right-hand side's residuals. A prep made for another grid, other
+`Weights` or another setup-relevant config raises ``ValueError``
+(`_check_prep`).
 """
 
 from __future__ import annotations
@@ -35,8 +41,9 @@ from typing import Callable, Optional
 
 import torch
 
-from .multigrid import (build_fused_solver_operands, make_vcycle_preconditioner,
-                        resolve_wdepth)
+from .multigrid import (MGPrep, build_fused_solver_operands,
+                        make_vcycle_preconditioner, prepare_mg, resolve_wdepth,
+                        setup_signature)
 from .operators import Problem
 from .ops.pcg import fused_pcg_solve
 from .ops.stencil import fused_normal_apply
@@ -162,12 +169,14 @@ def _pcg_fused(ops, b: torch.Tensor, x0: Optional[torch.Tensor], *, tol,
                         rel_residual=rel, converged=rr <= tol2)
 
 
-def _fused_solver_ops(problem: Problem, config: SolverConfig):
+def _fused_solver_ops(problem: Problem, config: SolverConfig,
+                      prep: Optional[MGPrep] = None):
     """Operands of the fused PCG path, or None when the problem, config or
-    backend rules it out (the reference's rule, solver.py:198-210)."""
+    backend rules it out (the reference's rule, solver.py:198-210); a
+    ``prep`` supplies them."""
     if config.backend == "xla" or config.preconditioner != "multigrid":
         return None
-    return build_fused_solver_operands(problem, config)
+    return build_fused_solver_operands(problem, config, prep)
 
 
 def _make_apply(problem: Problem, config: SolverConfig):
@@ -186,7 +195,16 @@ def _make_apply(problem: Problem, config: SolverConfig):
     return apply_fn
 
 
-def _make_precond(problem: Problem, config: SolverConfig, apply_fn=None):
+def _mg_kernels(problem: Problem, config: SolverConfig) -> bool:
+    """Whether the multigrid cycle runs through the kernels: the reference's
+    pallas_smooth rule (solver.py:263-267); 1-D grids have no smoothing
+    kernel in either package."""
+    return (config.backend != "xla" and problem.grid.ndim >= 2
+            and problem.diag.dtype == torch.float32)
+
+
+def _make_precond(problem: Problem, config: SolverConfig, apply_fn=None,
+                  prep: Optional[MGPrep] = None):
     if config.preconditioner == "none":
         return None
     if config.preconditioner == "jacobi":
@@ -194,12 +212,9 @@ def _make_precond(problem: Problem, config: SolverConfig, apply_fn=None):
                                torch.ones_like(problem.diag))
         return lambda r: inv_diag * r
     if config.preconditioner == "multigrid":
-        # The reference's pallas_smooth rule (solver.py:263-267); 1-D grids
-        # have no smoothing kernel in either package.
-        kernels = (config.backend != "xla" and problem.grid.ndim >= 2
-                   and problem.diag.dtype == torch.float32)
         return make_vcycle_preconditioner(problem, config, apply_fn=apply_fn,
-                                          kernels=kernels)
+                                          kernels=_mg_kernels(problem, config),
+                                          prep=prep)
     raise ValueError(f"unknown preconditioner {config.preconditioner!r}")
 
 
@@ -209,14 +224,55 @@ def _check_config(config: SolverConfig) -> None:
                                   "(ROADMAP queue 1, tooling)")
 
 
+def _check_prep(problem: Problem, config: SolverConfig, prep) -> None:
+    """A prep built for another grid, other Weights or another setup-relevant
+    config (`multigrid.setup_signature`) raises instead of preconditioning
+    with the wrong hierarchy (the reference's solver.py:282-303)."""
+    if prep is None:
+        return
+    if prep.shape != problem.grid.shape:
+        raise ValueError(
+            f"prep was built for grid {prep.shape}, problem has "
+            f"{problem.grid.shape} — rebuild with solver.prepare")
+    if prep.weights != problem.weights:
+        raise ValueError(
+            "prep was built for different Weights — the data/smoothness "
+            "operator changed; rebuild with solver.prepare")
+    if prep.sig != setup_signature(config):
+        raise ValueError(
+            "prep was built under a different solver/multigrid config "
+            "(see multigrid.setup_signature) — rebuild with solver.prepare")
+
+
+def prepare(problem, config: SolverConfig = SolverConfig()) -> Optional[MGPrep]:
+    """The reusable setup of repeated solves on one operator (positions and
+    weights fixed; values, i.e. ``b``, free): the multigrid hierarchy, the
+    smoothing steps and schedules, the dense coarsest inverse and the fused
+    or whole-cycle kernels' operands, built once on the problem's device.
+    Pass it to ``solve(problem, config, prep=...)`` or ``solve_refined``;
+    ``problem`` may be a PreciseProblem (its float32 problem is prepared).
+    None for a config without multigrid (nothing to reuse). The fused
+    operands are built exactly where a cold `solve` takes the fused path,
+    so a prepared solve equals the cold one. For a loop that also reuses
+    the assembly's geometry, see ``session.Solver``."""
+    if config.preconditioner != "multigrid":
+        return None
+    p32 = problem.p32 if hasattr(problem, "p32") else problem
+    return prepare_mg(p32, config, fused=config.backend != "xla",
+                      kernels=_mg_kernels(p32, config))
+
+
 def solve(
     problem: Problem,
     config: SolverConfig = SolverConfig(),
     x0: Optional[torch.Tensor] = None,
+    prep: Optional[MGPrep] = None,
 ) -> tuple[torch.Tensor, SolveInfo]:
-    """Solve the assembled problem (warm start via ``x0``)."""
+    """Solve the assembled problem (warm start via ``x0``; ``prep`` from
+    `prepare` on the same operator and config skips the multigrid setup)."""
     _check_config(config)
-    fused_ops = _fused_solver_ops(problem, config)
+    _check_prep(problem, config, prep)
+    fused_ops = _fused_solver_ops(problem, config, prep)
     if fused_ops is not None:
         return _pcg_fused(fused_ops, problem.b, x0, tol=config.tol,
                           maxiter=config.maxiter,
@@ -225,7 +281,7 @@ def solve(
                           wdepth=resolve_wdepth(config, problem.grid.shape))
     apply_fn = _make_apply(problem, config)
     return pcg(apply_fn, problem.b, x0=x0,
-               precond_fn=_make_precond(problem, config, apply_fn),
+               precond_fn=_make_precond(problem, config, apply_fn, prep),
                tol=config.tol, maxiter=config.maxiter,
                recompute_every=config.recompute_every,
                max_restarts=config.max_restarts)
@@ -241,6 +297,7 @@ def solve_refined(
     problem64,
     config: SolverConfig = SolverConfig(),
     x0: Optional[torch.Tensor] = None,
+    prep: Optional[MGPrep] = None,
 ) -> tuple[torch.Tensor, SolveInfo]:
     """Mixed-precision solve to a TRUE ≤ ``tol`` relative residual.
 
@@ -249,7 +306,8 @@ def solve_refined(
     All CG iterations run in float32; the operator's float64 form, the
     accumulated solution and the outer residual stay in float64 (native on
     the H100). Round 1 is peeled and followed by the one full residual of the
-    solve; later rounds update the residual incrementally, r ← r − A·d."""
+    solve; later rounds update the residual incrementally, r ← r − A·d.
+    ``prep``: `prepare` on the same problem and config."""
     _check_config(config)
     if hasattr(problem64, "residual64"):
         p32 = problem64.p32
@@ -261,11 +319,12 @@ def solve_refined(
         residual64 = lambda x: problem64.b - problem64.apply(x)  # noqa: E731
         apply_delta = problem64.apply
         b64 = problem64.b
-    fused_ops = _fused_solver_ops(p32, config)
+    _check_prep(p32, config, prep)
+    fused_ops = _fused_solver_ops(p32, config, prep)
     wdepth = resolve_wdepth(config, p32.grid.shape)
     if fused_ops is None:
         apply32 = _make_apply(p32, config)
-        precond = _make_precond(p32, config, apply32)
+        precond = _make_precond(p32, config, apply32, prep)
     bnorm2 = torch.clamp_min(_dot(b64, b64), torch.finfo(torch.float64).tiny)
     tol2 = config.tol * config.tol * bnorm2
     # float32 inner solves stagnate around ~1e-4 relative (rounding floor).

@@ -15,6 +15,9 @@ of 20 calls, CUDA events) through:
 - ``no_edges``: the interior form at every node (what the edge windows cost);
 - ``per_sweep``: the same phase through the per-sweep kernel
   (``fused_smooth``, ``csrc/jacobi_sweep.cu``);
+- ``cycle_route``: the same phase through the kernel the multigrid cycle
+  sends it to (``multigrid._kernel_smoother``: the per-sweep kernel at
+  radius 3, this kernel below);
 - with ``--parent DIR``, another checkout's ``fused_smooth_2d``, in a
   process of its own (a tree whose ``fused_smooth_2d`` writes no residual
   with its apply kernel and a subtraction after the call).
@@ -57,6 +60,7 @@ PHASES = [
     ("1000x1030_r3_nu2_from_z", (1000, 1030), 3, 2, False, False, False),
     ("1000x1032_r3_nu2_from_z", (1000, 1032), 3, 2, False, False, False),
     ("1000x1030_r3_from_z_res", (1000, 1030), 3, 3, False, True, False),
+    ("1000x1030_r3_from_zero_res", (1000, 1030), 3, 3, True, True, False),
     ("1000x1030_r3_cheb_from_z", (1000, 1030), 3, 3, False, False, True),
     ("4096_r3_from_zero_res", (4096, 4096), 3, 3, True, True, False),
 ]
@@ -161,6 +165,7 @@ def main():
         return
     import torch
     import field_interpolation_tpu_torch as ft
+    from field_interpolation_tpu_torch import multigrid as tmg
     from field_interpolation_tpu_torch.ops import _build, smooth
     h = helpers()
     h.require(torch.cuda.is_available(), "torch.cuda.is_available() is False")
@@ -171,8 +176,16 @@ def main():
     rows = {}
     for name, (r, z, coeff, sid, w, nu, fz, res, cf) in ops.items():
         rec = {}
-        for variant, lib in [*libs.items(), ("per_sweep", library())]:
-            if variant == "per_sweep":
+        for variant, lib in [*libs.items(), ("per_sweep", library()),
+                             ("cycle_route", library())]:
+            if variant == "cycle_route":
+                _build.library = library
+                route = tmg._kernel_smoother(coeff, sid, w, 2,
+                                             None if cf is None else (lambda n, cf=cf: cf))
+
+                def call():
+                    return route(r, z, nu, fz, res)
+            elif variant == "per_sweep":
                 _build.library = library
 
                 def call():

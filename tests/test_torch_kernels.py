@@ -752,3 +752,100 @@ def test_sharded_solves_on_card_launch_the_ext_kernels(cuda):
         assert float((x - xr.cpu()).abs().max()) <= 2e-3 * float(xr.abs().max())
         for name in kernels:
             assert all(p["launches"][name] > 0 for p in parts), (name, parts[0]["launches"])
+
+
+# ---- the public-API slice: interpolate, prepare, the session, solve_implicit -----
+
+
+def _values_cloud(shape, n=100, seed=0):
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0, np.asarray(shape) - 1, (n, len(shape))).astype(np.float32)
+    return pos, rng.standard_normal(n).astype(np.float32)
+
+
+@pytest.mark.parametrize("cfg", [dict(tol=5e-4, preconditioner="none", maxiter=20000),
+                                 dict(tol=1e-4)], ids=["config1-cg", "multigrid"])
+def test_interpolate_on_card_matches_cpu(cuda, cfg):
+    pos, vals = _values_cloud((64, 64))
+    args = (ft.Grid((64, 64)), ft.Weights(model_1=0.1, model_2=1.0))
+    before = fused_normal_apply.launches
+    xg, ig = ft.interpolate(*args, torch.as_tensor(pos, device=cuda),
+                            torch.as_tensor(vals, device=cuda), config=ft.SolverConfig(**cfg))
+    assert fused_normal_apply.launches > before
+    xc, ic = ft.interpolate(*args, torch.as_tensor(pos), torch.as_tensor(vals),
+                            config=ft.SolverConfig(**cfg))
+    assert bool(ig.converged) and bool(ic.converged)
+    assert abs(int(ig.iterations) - int(ic.iterations)) <= 2
+    assert float((xg.cpu() - xc).abs().max()) <= 2e-3 * float(xc.abs().max())
+
+
+@pytest.mark.parametrize("shape,change", [((64, 64), {}), ((64, 64), dict(mg_pre_smooth=2)),
+                                          ((24, 24, 24), {})], ids=["fused", "levels", "3d"])
+def test_prepared_solve_on_card_matches_cold(cuda, shape, change):
+    """The same operands with and without a prep: the same iterations and
+    field on the card."""
+    p = _problem(shape, cuda, n=300)
+    cfg = ft.SolverConfig(tol=1e-4, **change)
+    x, info = ft.solve(p, cfg)
+    xp, ip = ft.solve(p, cfg, prep=ft.prepare(p, cfg))
+    assert bool(ip.converged) and int(ip.iterations) == int(info.iterations)
+    assert float((xp - x).abs().max()) <= 1e-5 * float(x.abs().max())
+
+
+def test_session_on_card_matches_cold(cuda):
+    """A precise session's frame equals sdf_from_points_precise on the card
+    and launches the segment kernel."""
+    shape, n = (64, 64), 150
+    rng = np.random.default_rng(2)
+    theta = rng.uniform(0, 2 * np.pi, n)
+    nrm = torch.as_tensor(np.stack([np.cos(theta), np.sin(theta)], 1).astype(np.float32),
+                          device=cuda)
+    pts = 31.5 + 20.0 * nrm
+    grid, w, cfg = ft.Grid(shape), ft.Weights(model_2=0.3), ft.SolverConfig(tol=1e-6)
+    s = ft.Solver(grid, w, pts, config=cfg, precise=True)
+    before = fused_pcg_solve.launches
+    x, info = s.solve(torch.zeros(n, device=cuda), gradients=nrm)
+    assert fused_pcg_solve.launches > before
+    xc, ic = ft.sdf_from_points_precise(grid, w, pts, nrm, config=cfg)
+    assert bool(info.converged) and abs(int(info.iterations) - int(ic.iterations)) <= 2
+    assert float((x - xc).abs().max()) <= 2e-4 * float(xc.abs().max())
+
+
+def test_solve_implicit_on_card_matches_cpu(cuda):
+    """Gradients through the assembly on the card (apply and whole V-cycle
+    kernels, forward and adjoint) against the same on CPU tensors, within
+    1e-3·max|g| (float32 solves to tol 1e-6 in another order)."""
+    shape, n = (32, 32), 40
+    rng = np.random.default_rng(7)
+    pos = rng.uniform(2, 29, (n, 2)).astype(np.float32)
+    vals = rng.standard_normal(n).astype(np.float32)
+    target = rng.standard_normal(shape).astype(np.float32)
+    grid, w = ft.Grid(shape), ft.Weights(model_1=0.1, model_2=0.5)
+    cfg = ft.SolverConfig(tol=1e-6, maxiter=3000)
+
+    def grads(device):
+        p = torch.tensor(pos, device=device, requires_grad=True)
+        v = torch.tensor(vals, device=device, requires_grad=True)
+        x = ft.solve_implicit(ft.operators.assemble(grid, w, p, v), cfg)
+        loss = torch.sum((x - torch.as_tensor(target, device=device)) ** 2)
+        return [g.cpu() for g in torch.autograd.grad(loss, (p, v))]
+    before = (fused_normal_apply.launches, fused_vcycle_2d.launches)
+    got = grads(cuda)
+    assert fused_normal_apply.launches > before[0] and fused_vcycle_2d.launches > before[1]
+    for g, want in zip(got, grads(torch.device("cpu"))):
+        assert float((g - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+
+def test_radius3_cycle_smooths_through_the_per_sweep_kernel(cuda):
+    """A level-by-level 2-D cycle with radius-3 weights and Galerkin coarse
+    data: every 9-channel phase goes to the per-sweep kernel, none to the
+    multi-sweep kernel; the cycle equals the plain one (kernels=False)."""
+    p = _problem((64, 64), cuda, n=300, weights=dict(model_2=0.5, model_3=0.8))
+    cfg = ft.SolverConfig(mg_pre_smooth=2, mg_cycle="w", mg_coarse_data="galerkin")
+    r = torch.as_tensor(np.random.default_rng(5).standard_normal((64, 64)).astype(np.float32),
+                        device=cuda)
+    before = (fused_smooth.launches, fused_smooth_2d.launches)
+    got = tmg.make_vcycle_preconditioner(p, cfg, kernels=True)(r)
+    assert fused_smooth.launches > before[0] and fused_smooth_2d.launches == before[1]
+    want = tmg.make_vcycle_preconditioner(p, cfg)(r)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())

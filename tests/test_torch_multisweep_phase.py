@@ -18,7 +18,11 @@ package, on the same numpy-seeded inputs:
   tests/test_torch_multigrid.py's bar rtol 1e-4.
 * the residual the cycle takes from each 9-channel smoothing call equals
   that level's r − A z, and no level apply computes it (a spy on
-  `multigrid.fused_smooth_2d`, `_Level.apply` and the fine apply)."""
+  `multigrid.fused_smooth_2d`, `_Level.apply` and the fine apply).
+* the route of each 9-channel phase: the multi-sweep kernel below radius 3,
+  the per-sweep kernel (`fused_smooth`) at radius 3, where it is the faster
+  on every such phase measured on the card (PERF.md); a spy on both
+  wrappers, and the cycle against the reference's at both radii."""
 
 import functools
 
@@ -131,18 +135,18 @@ def test_phase_with_residual_matches_striped_and_tiled_kernels(kernel, shape, ti
     _check(want, r, z, coeff, sid, cf, radius, sweeps, from_zero)
 
 
-def _pair(shape, n=300, seed=0):
+def _pair(shape, n=300, seed=0, weights=dict(model_2=0.3)):
     """The reference's Problem and the port's copy: oriented points on a
     circle (tests/test_torch_multigrid.py:_pair)."""
     rng = np.random.default_rng(seed)
     nrm = rng.standard_normal((n, 2))
     nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
     pos = (np.asarray(shape) - 1) / 2.0 + 0.3 * min(shape) * nrm
-    jp = jassemble(fi.Grid(shape), fi.Weights(model_2=0.3),
+    jp = jassemble(fi.Grid(shape), fi.Weights(**weights),
                    jnp.asarray(pos, jnp.float32), jnp.zeros(n, jnp.float32),
                    gradients=jnp.asarray(nrm, jnp.float32))
     tp = problem_from_numpy(jp.coeff, jp.b, jp.diag, ft.Grid(shape),
-                            ft.Weights(model_2=0.3))
+                            ft.Weights(**weights))
     return jp, tp
 
 
@@ -222,3 +226,40 @@ def test_cycle_takes_the_residual_from_the_multisweep_call(monkeypatch, post):
     monkeypatch.undo()
     want = tmg.make_vcycle_preconditioner(tp, cfg)(r)
     _close(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("radius", [2, 3])
+def test_nine_channel_phases_route_by_radius(monkeypatch, radius):
+    """Every 9-channel smoothing phase of a W-cycle with Galerkin coarse
+    data goes to `fused_smooth_2d` at radius 2 and to `fused_smooth` at
+    radius 3; the cycle equals the reference's XLA cycle either way
+    (rtol 1e-4, as test_kernel_cycle_matches_reference_cycle)."""
+    shape = (64, 64)
+    change = dict(mg_pre_smooth=2, mg_cycle="w", mg_coarse_data="galerkin")
+    jp, tp = _pair(shape, weights=WEIGHTS[radius])
+    cfg = ft.SolverConfig(**change)
+    routes = []
+    inner2d, inner = tmg.fused_smooth_2d, tmg.fused_smooth
+
+    def spy2d(r, z, coeff, *args, **kwargs):
+        routes.append(("multi-sweep", coeff.ndim))
+        return inner2d(r, z, coeff, *args, **kwargs)
+
+    def spy(r, z, coeff, *args, **kwargs):
+        routes.append(("per-sweep", coeff.ndim))
+        return inner(r, z, coeff, *args, **kwargs)
+
+    monkeypatch.setattr(tmg, "fused_smooth_2d", spy2d)
+    monkeypatch.setattr(tmg, "fused_smooth", spy)
+    r = np.random.default_rng(5).standard_normal(shape).astype(np.float32)
+    got = tmg.make_vcycle_preconditioner(tp, cfg, kernels=True)(torch.as_tensor(r))
+    monkeypatch.undo()
+    levels = tmg.build_levels(tp, cfg)
+    assert len(levels) == 2 and all(l.data_coeff is not None for l in levels)
+    # The fine level and both visits of level 1, pre- and post-smoothing.
+    assert len(routes) == 6
+    want_route = "multi-sweep" if radius < 3 else "per-sweep"
+    assert routes == [(want_route, 3)] * 6
+    want = jmg.make_vcycle_preconditioner(jp, fi.SolverConfig(**change))(jnp.asarray(r))
+    want = np.asarray(want, np.float64)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4 * np.abs(want).max())
