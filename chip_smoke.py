@@ -173,7 +173,28 @@ toolkit (``nvcc``). Phases, each fatal on failure:
     whole-cycle V kernels launched forward and backward; their times;
 37. the apply kernel's device time from ``torch.profiler`` at 256², 480²,
     992², 4096² and 128³ beside its single-call and back-to-back times
-    and its bound.
+    and its bound;
+38. the batched kernels against their plain versions, each lane to the
+    single-field bars (segment: iterations within ±2, x within
+    2e-3·max|x|; apply: 1e-5·max|plain|), timed single and back to back
+    beside their bounds: the batched segment on config 3's operands at
+    B = 8 (V, damped Jacobi, one lane with b = 0 and one with budget 0:
+    both 0 iterations and x untouched) and B = 1024 (the whole batch), W
+    and Chebyshev at B = 4, 128²,
+    and B = 3 at 256²; the batched apply at B = 16 and 1024 (128²) and
+    B = 4 at 32³;
+39. BASELINE config 3 (bench.py:166-187): ``sdf_from_points_batch`` on
+    1024 fields of 128², 256 oriented points each, tol 1e-4: every lane
+    converged and finite, 8 lanes within ±2 iterations and 2e-3·max|x| of
+    their single-field ``sdf_from_points``; the batched segment launched
+    once per outer round for the whole batch; ms per batch (CUDA events),
+    µs/field, fields/s, and from ``torch.profiler`` device-busy ms, kernels
+    and launch calls per batch, at B = 64 and 1024;
+40. config 3 at a TRUE 1e-6 (bench.py:189-210): B = 256 through
+    ``sdf_from_points_precise_batch``, every lane ≤ 1e-6 against the plain
+    float64 operator with the reported residual within 2%;
+41. 32 of config 3's lanes one after another through the single-field
+    ``sdf_from_points``: ms per field, as context for the batch.
 
 Each phase's wall time follows it in brackets. The lines before the last
 are the kernel record (JSON: per kernel its
@@ -504,12 +525,13 @@ def phase_segment(problem, ops, device, wdepth=0, label=""):
     dev_ms = batch_ms(lambda: fused_pcg_solve(*args, wdepth=wdepth))
     plain_ms = cuda_ms(lambda: fused_pcg_solve_plain(*args, wdepth=wdepth), PLAIN_REPS)
     # The segment's work: the cycle's operands and x, r read once, x
-    # written; ik + 1 cycles, ik applies and CG updates; 3 + cycle phases
-    # per iteration and for the start.
+    # written; ik cycles, applies and CG updates (the kernel runs no cycle
+    # it does not use); per iteration the cycle's phases and 3 more, and
+    # one for the start.
     n = b.numel()
     cb, cf, cp = cycle_work(ops, 3, 3, wdepth, cheb=cfs is not None)
-    work = (cb + 4 * n, (ik + 1) * cf + ik * n * (apply_flops(lw[0], 2, False) + 12))
-    phases = (ik + 1) * (cp + 2)
+    work = (cb + 4 * n, ik * cf + ik * n * (apply_flops(lw[0], 2, False) + 12))
+    phases = 1 + ik * (cp + 3)
     print(f"segment{label} tol 1e-4, wdepth {wdepth}: iterations kernel {ik} plain {ip}; "
           f"max|x_kernel-x_plain| {err:.3e} (bar {2e-3 * scale:.3e}); "
           f"rr kernel {float(rrk.item()):.4e} plain {float(rrp.item()):.4e}; "
@@ -1198,12 +1220,13 @@ def counters_zero():
     """Set every kernel's launch counts to 0; returns a function that reads
     them: {name: launches, name_cheb: launches in Chebyshev mode}."""
     from field_interpolation_tpu_torch.ops.cycle import fused_vcycle_2d, fused_wcycle_2d
-    from field_interpolation_tpu_torch.ops.pcg import fused_pcg_solve
+    from field_interpolation_tpu_torch.ops.pcg import fused_pcg_solve, fused_pcg_solve_batch
     from field_interpolation_tpu_torch.ops.smooth import fused_smooth, fused_smooth_2d
-    from field_interpolation_tpu_torch.ops.stencil import fused_normal_apply
-    counters = (fused_normal_apply, fused_smooth, fused_smooth_2d, fused_pcg_solve,
-                fused_vcycle_2d, fused_wcycle_2d)
-    moded = counters[1:]  # every kernel but the apply has a Chebyshev mode
+    from field_interpolation_tpu_torch.ops.stencil import (fused_normal_apply,
+                                                           fused_normal_apply_batch)
+    counters = (fused_normal_apply, fused_normal_apply_batch, fused_smooth, fused_smooth_2d,
+                fused_pcg_solve, fused_pcg_solve_batch, fused_vcycle_2d, fused_wcycle_2d)
+    moded = counters[2:]  # every kernel but the applies has a Chebyshev mode
     for c in counters:
         c.launches = 0
     for c in moded:
@@ -1988,6 +2011,9 @@ FRAMES = 9
 MAX_TURN_DEG = 2.0
 TIMED_REPS = 16  # CUDA-event medians of the new paths
 LARGE_REPS = 5   # ms/field medians at 1024² (in turns, cold and fmg)
+# The sparse 1024² cloud's solves stall (ROADMAP §3): 200 iterations show
+# it; the 2000 of the default budget took ~2 min of the script's time.
+SPARSE_MAXITER = 200
 PREPARE_REPS = 8  # config 4 cold and prepared, in turns (a run spreads ±40%)
 
 
@@ -2095,8 +2121,9 @@ def phase_interp_large(ft, device, shape=SHAPE_I, n=N_POINTS_I, n_sparse=N_POINT
     With 4000 points (a 13x sparser cloud) the float32 solve stalls above
     tol 1e-4 in the reference too (on the CPU at 512² with the same
     density, both packages stop at maxiter with a residual of 8.2e-4):
-    that case runs once cold and once with fmg_start=1 and is reported,
-    finite and of the grid's shape, its convergence not required."""
+    that case runs once cold and once with fmg_start=1 for SPARSE_MAXITER
+    iterations and is reported, finite and of the grid's shape, its
+    convergence not required."""
     from field_interpolation_tpu_torch import sdf as tsdf
     from field_interpolation_tpu_torch.ops.smooth import (fused_smooth, fused_smooth_2d,
                                                           fused_smooth_plain)
@@ -2137,9 +2164,9 @@ def phase_interp_large(ft, device, shape=SHAPE_I, n=N_POINTS_I, n_sparse=N_POINT
         2e-5, sweep_work(r1, dd, lvl.weights, 2, 3, True, residual=True), True)
     del p, levels, sids, x, r, z
 
-    def runs(pts, vals):
-        return (lambda: ft.interpolate(grid, w, pts, vals, config=cfg),
-                lambda: ft.interpolate(grid, w, pts, vals, config=cfg, fmg_start=1))
+    def runs(pts, vals, config=cfg):
+        return (lambda: ft.interpolate(grid, w, pts, vals, config=config),
+                lambda: ft.interpolate(grid, w, pts, vals, config=config, fmg_start=1))
     cold, fmg = runs(pts, vals)
     cold(), fmg()  # warm-up
     torch.cuda.synchronize()
@@ -2176,12 +2203,13 @@ def phase_interp_large(ft, device, shape=SHAPE_I, n=N_POINTS_I, n_sparse=N_POINT
                      ("fused_smooth_2d", "fused_smooth", "fused_normal_apply"),
                      ("fused_pcg_solve",))
     del xc, xf
-    cold, fmg = runs(*cloud(n_sparse))
+    cold, fmg = runs(*cloud(n_sparse), ft.SolverConfig(tol=1e-4, maxiter=SPARSE_MAXITER))
     for label, fn in (("cold", cold), ("fmg_start=1", fmg)):
         (xx, info), t = timed(fn)
         require(tuple(xx.shape) == shape and bool(torch.isfinite(xx).all()),
                 f"interpolate {name}, {n_sparse} points, {label}: not finite or wrong shape")
-        print(f"interpolate {name}, {n_sparse} points, tol 1e-4, {label}: converged "
+        print(f"interpolate {name}, {n_sparse} points, tol 1e-4, maxiter {SPARSE_MAXITER}, "
+              f"{label}: converged "
               f"{bool(info.converged)}, {int(info.iterations)} iterations, rel "
               f"{float(info.rel_residual):.3e}, {t:.3f} ms")
         med[f"sparse_{label}"] = dict(ms=t, iterations=int(info.iterations),
@@ -2474,6 +2502,279 @@ def phase_apply_profile(ft, device, cases=None, calls=20):
     torch.cuda.empty_cache()
     return out
 
+SHAPE3B = (128, 128)   # BASELINE config 3: 1024 independent fields of 128²
+B3 = 1024
+N_POINTS3B = 256
+B3_PRECISE = 256       # its TRUE-1e-6 form (bench.py:189-210)
+B3_CHECK = 8           # lanes held against their single-field solves
+B3_PROFILE_SMALL = 64  # the batch size whose launches config 3's must not pass
+B3_LANE_BY_LANE = 32   # lanes timed through the single-field path, as context
+BATCH_REPS = 3         # timed config-3 batches, after a warm-up
+
+
+def config3_inputs(device, B=None, shape=None, n=None):
+    """bench.py:166-171 with numpy default_rng(1): per lane n oriented
+    points on a circle about the center, radius 0.25-0.4 of the width
+    (B3 lanes of N_POINTS3B points in SHAPE3B unless given)."""
+    B, shape, n = B or B3, shape or SHAPE3B, n or N_POINTS3B
+    rng = np.random.default_rng(1)
+    theta = rng.uniform(0, 2 * np.pi, (B, n))
+    nrm = np.stack([np.cos(theta), np.sin(theta)], -1).astype(np.float32)
+    radii = rng.uniform(0.25, 0.4, (B, 1, 1)) * shape[0]
+    pts = ((np.asarray(shape) - 1.0) / 2.0 + radii * nrm).astype(np.float32)
+    return torch.as_tensor(pts, device=device), torch.as_tensor(nrm, device=device)
+
+
+def batch_segment_work(ops, x, iters, nu, wdepth, cheb):
+    """(bytes, operations) of one batched segment: every lane's x and r read
+    and x written, its cycle operands read once (the shared Rs once over
+    their nonzeros); a lane of k iterations runs k cycles, k applies and
+    the CG updates (csrc/pcg_segment.cu runs no cycle it does not use)."""
+    coeffs, sids, Rs, inv_c, lw = ops[:5]
+    lane0 = ([c[0] for c in coeffs], [t[0] for t in sids], Rs, inv_c[0], lw)
+    cb, cf, _ = cycle_work(lane0, nu, nu, wdepth, cheb)
+    rs_bytes = 4 * sum(int(torch.count_nonzero(R)) for R in Rs)
+    B, n = x.shape[0], x[0].numel()
+    per_lane = cb - rs_bytes - 8 * n + 12 * n
+    k = int(iters.sum())
+    return (B * per_lane + rs_bytes,
+            k * (cf + n * (apply_flops(lw[0], 2, False) + 12)))
+
+
+def compare_segment_batch(label, probs, cfg, device, budget=None, plain_reps=PLAIN_REPS):
+    """The batched segment kernel against its plain version at tol 1e-4 from
+    x = 0 on ``probs``' fused operands, lane by lane to the single-field
+    bars; lanes with budget 0 or b = 0 must run 0 iterations and keep x.
+    Timed single and back to back; returns the record."""
+    from field_interpolation_tpu_torch.multigrid import (build_fused_solver_operands,
+                                                         resolve_wdepth)
+    from field_interpolation_tpu_torch.ops.pcg import (fused_pcg_solve_batch,
+                                                       fused_pcg_solve_batch_plain)
+    ops = build_fused_solver_operands(probs, cfg)
+    coeffs, sids, Rs, inv32, lw, cfs = ops
+    b = probs.b
+    B = b.shape[0]
+    x0 = torch.zeros_like(b)
+    tol2 = (1e-4 ** 2 * torch.sum(b * b, dim=(1, 2))).contiguous()
+    if budget is None:
+        budget = torch.full((B,), 2000, dtype=torch.int32, device=device)
+    wdepth = resolve_wdepth(cfg, tuple(b.shape[1:]))
+    nu = cfg.mg_pre_smooth
+    args = (x0, b, tol2, budget, coeffs, sids, Rs, inv32, lw, nu)
+    kw = dict(cheb_coefs=cfs, wdepth=wdepth)
+    xk, ik, rrk = fused_pcg_solve_batch(*args, **kw)
+    xp, ip, rrp = fused_pcg_solve_batch_plain(*args, **kw)
+    torch.cuda.synchronize()
+    d_it = int((ik - ip).abs().max())
+    scale = xp.abs().amax(dim=(1, 2)).clamp_min(1e-30)
+    rel = float(((xk - xp).abs().amax(dim=(1, 2)) / scale).max())
+    err = float((xk - xp).abs().max())
+    frozen = (budget == 0) | (torch.sum(b * b, dim=(1, 2)) == 0)
+    kept = bool(torch.equal(xk[frozen], x0[frozen])) and int(ik[frozen].abs().sum()) == 0
+    ms = cuda_ms(lambda: fused_pcg_solve_batch(*args, **kw))
+    b2b = batch_ms(lambda: fused_pcg_solve_batch(*args, **kw))
+    plain_ms = cuda_ms(lambda: fused_pcg_solve_batch_plain(*args, **kw), plain_reps)
+    rec = dict(max_abs_err=err, max_rel_lane_err=rel, ms=ms, batch_ms=b2b, plain_ms=plain_ms,
+               lanes=B, iterations_sum=int(ik.sum()), iterations_max=int(ik.max()),
+               frozen_lanes=int(frozen.sum()),
+               **bound(*batch_segment_work(ops, b, ik, nu, wdepth, cfs is not None)))
+    print(f"batched segment {label} (B={B}, {shape_str(tuple(b.shape[1:]))}, wdepth {wdepth}, "
+          f"{'Chebyshev' if cfs is not None else 'Jacobi'}): iterations kernel "
+          f"{ik.tolist()} plain {ip.tolist()}; max lane |x_k - x_p|/max|x_p| {rel:.3e} "
+          f"(bar 2e-3); frozen lanes {int(frozen.sum())} kept {kept}; kernel {ms:.4f} ms, "
+          f"back to back {b2b:.4f} ms ({1e3 * b2b / max(int(ik.sum()), 1):.2f} us per lane "
+          f"iteration), plain {plain_ms:.4f} ms; bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']})")
+    require(d_it <= 2, f"batched segment {label}: iterations {ik.tolist()} vs {ip.tolist()}")
+    require(bool(torch.isfinite(xk).all()), f"batched segment {label}: x not finite")
+    require(rel <= 2e-3, f"batched segment {label}: lane error {rel} > 2e-3·max|x|")
+    require(kept, f"batched segment {label}: a frozen lane ran or moved")
+    return rec
+
+
+def phase_batch_kernels(ft, device):
+    """Phase 38: each batched kernel against its plain version (the
+    segment also on config 3's whole batch, its shapes on the main path)."""
+    from field_interpolation_tpu_torch import batch as tb
+    from field_interpolation_tpu_torch.ops.stencil import (fused_normal_apply_batch,
+                                                           fused_normal_apply_plain)
+    w = ft.Weights(model_2=0.3)
+    recs = {}
+    pts, nrm = config3_inputs(device, B=8)
+    pts[0] += 1e4  # lane 0: every point out of bounds, b = 0
+    zeros = torch.zeros(pts.shape[:2], device=device)
+    p8 = tb.assemble_batch(ft.Grid(SHAPE3B), w, pts, zeros, gradients=nrm)
+    budget = torch.full((8,), 2000, dtype=torch.int32, device=device)
+    budget[1] = 0
+    cfg = ft.SolverConfig(tol=1e-4)
+    recs["seg"] = compare_segment_batch("config 3 V", p8, cfg, device, budget)
+    pts3, nrm3 = config3_inputs(device)
+    p3 = tb.assemble_batch(ft.Grid(SHAPE3B), w, pts3, torch.zeros(pts3.shape[:2], device=device),
+                           gradients=nrm3)
+    recs["seg_config3"] = compare_segment_batch("config 3, every lane", p3, cfg, device,
+                                                plain_reps=1)
+    del p3
+    p4 = tb.assemble_batch(ft.Grid(SHAPE3B), w, pts[4:], zeros[4:], gradients=nrm[4:])
+    recs["seg_w"] = compare_segment_batch("config 3 W", p4, ft.SolverConfig(
+        tol=1e-4, mg_cycle="w"), device)
+    recs["seg_cheb"] = compare_segment_batch("config 3 Chebyshev", p4, ft.SolverConfig(
+        tol=1e-4, **CHEB), device)
+    clouds = [headline_inputs(s, device) for s in range(3)]
+    p256 = tb.assemble_batch(ft.Grid(SHAPE), w, torch.stack([c[0] for c in clouds]),
+                             torch.zeros(3, N_POINTS, device=device),
+                             gradients=torch.stack([c[1] for c in clouds]))
+    recs["seg_256"] = compare_segment_batch("headline clouds", p256, cfg, device)
+    del p8, p4, p256
+    rng = np.random.default_rng(15)
+    for label, shape, B in [("apply_16", SHAPE3B, 16), ("apply_1024", SHAPE3B, B3),
+                            ("apply_32_3d", (32, 32, 32), 4)]:
+        if len(shape) == 2:
+            bp, bn = config3_inputs(device, B=B)
+        else:
+            cl = [sphere_inputs(s, device, shape, 1000) for s in range(B)]
+            bp, bn = torch.stack([c[0] for c in cl]), torch.stack([c[1] for c in cl])
+        probs = tb.assemble_batch(ft.Grid(shape), w, bp, torch.zeros(bp.shape[:2],
+                                                                     device=device),
+                                  gradients=bn)
+        x = torch.as_tensor(rng.standard_normal((B,) + shape).astype(np.float32),
+                            device=device)
+        nd = len(shape)
+        print(f"batched apply {label}: B={B}, {shape_str(shape)}")
+        recs[label] = compare(f"batched apply {label}",
+                              lambda: fused_normal_apply_batch(x, probs.coeff, w, nd),
+                              lambda: fused_normal_apply_plain(x, probs.coeff, w, nd), 1e-5,
+                              apply_work(x, probs.coeff, w, nd))
+        del probs, x
+    torch.cuda.empty_cache()
+    return recs
+
+
+def batch_check_lanes(ft, label, grid, w, pts, nrm, cfg, x, info, lanes):
+    """``lanes`` of a float32 batch against their single-field solves:
+    iterations within ±2, x within 2e-3·max|x|."""
+    worst = 0.0
+    for i in lanes:
+        xi, ii = ft.sdf_from_points(grid, w, pts[i], nrm[i], config=cfg)
+        d = abs(int(info.iterations[i]) - int(ii.iterations))
+        e = float((x[i] - xi).abs().max()) / max(float(xi.abs().max()), 1e-30)
+        worst = max(worst, e)
+        require(d <= 2 and e <= 2e-3,
+                f"{label} lane {i}: iterations {int(info.iterations[i])} vs single "
+                f"{int(ii.iterations)}, error {e} of max|x|")
+    print(f"{label}: lanes {list(lanes)} within ±2 iterations and {worst:.3e}·max|x| of "
+          f"their single-field solves")
+
+
+def phase_config3(ft, device):
+    """Phase 39: BASELINE config 3 on the card, through sdf_from_points_batch."""
+    from field_interpolation_tpu_torch import batch as tb
+    grid, w = ft.Grid(SHAPE3B), ft.Weights(model_2=0.3)
+    cfg = ft.SolverConfig(tol=1e-4, preconditioner="multigrid")
+    pts, nrm = config3_inputs(device)
+    probe = tb.assemble_batch(grid, w, pts, torch.zeros(B3, N_POINTS3B, device=device),
+                              gradients=nrm)
+    require(tb.solve_route(probe, tb._batch_config(grid, cfg, B3)) == "fused",
+            "config 3 does not take the batched fused route")
+    del probe
+
+    def run(B=B3):
+        return tb.sdf_from_points_batch(grid, w, pts[:B], nrm[:B], config=cfg)
+    run()  # warm-up
+    torch.cuda.synchronize()
+    read = counters_zero()
+    (x, info), first_ms = timed(run)
+    launches = read()
+    ms = [first_ms] + [timed(run)[1] for _ in range(BATCH_REPS - 1)]
+    its = info.iterations
+    require(bool(info.converged.all()), f"config 3: {int((~info.converged).sum())} lanes "
+            "did not converge")
+    require(tuple(x.shape) == (B3,) + SHAPE3B and bool(torch.isfinite(x).all()),
+            "config 3: fields not finite or of the wrong shape")
+    med = statistics.median(ms)
+    rounds = launches["fused_pcg_solve_batch"]
+    print(f"config 3: {B3} fields of {shape_str(SHAPE3B)}, {N_POINTS3B} points each, tol 1e-4: "
+          f"all converged; iterations max {int(its.max())}, mean {float(its.float().mean()):.2f}, "
+          f"sum {int(its.sum())}; {statistics.median(ms):.3f} ms per batch (CUDA events, "
+          f"median of {len(ms)}: {', '.join(f'{t:.3f}' for t in ms)}), {1e3 * med / B3:.2f} "
+          f"us/field, {B3 / (med / 1e3):.0f} fields/s; launches per batch {launches}")
+    require(rounds >= 1 and launches["fused_pcg_solve"] == 0,
+            f"config 3: batched segment launched {rounds} times, single segment "
+            f"{launches['fused_pcg_solve']}")
+    require(launches["fused_normal_apply_batch"] >= rounds,
+            "config 3: the batched apply did not verify every round")
+    batch_check_lanes(ft, "config 3", grid, w, pts, nrm, cfg, x, info,
+                      range(0, B3, B3 // B3_CHECK))
+    prof = {B: profile_fields(f"config 3 batch of {B}", [lambda: run(B)], ("segment kernel",))
+            for B in (B3_PROFILE_SMALL, B3)}
+    # Setup and rounds, not lanes, set the launches: 16x the lanes may add
+    # an outer round, not 16x the calls.
+    require(prof[B3]["launch_calls"] <= 1.25 * prof[B3_PROFILE_SMALL]["launch_calls"],
+            f"config 3: launch calls grow with B: {prof[B3_PROFILE_SMALL]['launch_calls']} at "
+            f"{B3_PROFILE_SMALL}, {prof[B3]['launch_calls']} at {B3}")
+    p = prof[B3]
+    print(f"config 3: device busy {p['busy_ms']:.3f} ms per batch ({1 - p['idle']:.3f} of the "
+          f"span), {p['kernels']:.0f} kernels, {p['launch_calls']:.0f} launch calls per batch "
+          f"(B={B3_PROFILE_SMALL}: {prof[B3_PROFILE_SMALL]['kernels']:.0f} kernels, "
+          f"{prof[B3_PROFILE_SMALL]['launch_calls']:.0f} launch calls)")
+    return launches, dict(ms=med, us_per_field=1e3 * med / B3, fields_per_s=B3 / (med / 1e3),
+                          iterations_max=int(its.max()),
+                          iterations_mean=float(its.float().mean()), profile=prof)
+
+
+def phase_config3_precise(ft, device):
+    """Phase 40: config 3 at a TRUE 1e-6, B = 256."""
+    from field_interpolation_tpu_torch import batch as tb
+    grid, w = ft.Grid(SHAPE3B), ft.Weights(model_2=0.3)
+    cfg = ft.SolverConfig(tol=1e-6, preconditioner="multigrid")
+    pts, nrm = config3_inputs(device)
+    pts, nrm = pts[:B3_PRECISE], nrm[:B3_PRECISE]
+
+    def run():
+        return tb.sdf_from_points_precise_batch(grid, w, pts, nrm, config=cfg)
+    run()
+    read = counters_zero()
+    (x, info), first_ms = timed(run)
+    launches = read()
+    ms = [first_ms] + [timed(run)[1] for _ in range(BATCH_REPS - 1)]
+    pp = tb.assemble_precise_batch(grid, w, pts, torch.zeros(pts.shape[:2], device=device),
+                                   gradients=nrm)
+    true = (torch.linalg.vector_norm(pp.residual64(x), dim=(1, 2))
+            / torch.linalg.vector_norm(pp.b64, dim=(1, 2)))
+    rep = info.rel_residual.double()
+    gap = float(((true - rep).abs() / true).max())
+    med = statistics.median(ms)
+    print(f"config 3 at TRUE 1e-6: {B3_PRECISE} fields, true rel max {float(true.max()):.4e}, "
+          f"reported within {gap:.4f} of true; iterations max {int(info.iterations.max())}, "
+          f"mean {float(info.iterations.float().mean()):.2f}; {med:.3f} ms per batch (median "
+          f"of {len(ms)}), {1e3 * med / B3_PRECISE:.2f} us/field, "
+          f"{B3_PRECISE / (med / 1e3):.0f} fields/s; launches {launches}")
+    require(bool(info.converged.all()), "config 3 at 1e-6: a lane did not converge")
+    require(bool(torch.isfinite(x).all()), "config 3 at 1e-6: fields not finite")
+    require(float(true.max()) <= TOL, f"config 3 at 1e-6: true residual {float(true.max())}")
+    require(gap <= 0.02, f"config 3 at 1e-6: reported residual {gap} from the true one")
+    require(launches["fused_pcg_solve_batch"] >= 1, "config 3 at 1e-6: no batched segment")
+    return launches, dict(ms=med, us_per_field=1e3 * med / B3_PRECISE,
+                          true_max=float(true.max()))
+
+
+def phase_batch_lanes(ft, device):
+    """Phase 41: config 3's first lanes one after another through the
+    single-field path (context for the batch, not a target)."""
+    grid, w = ft.Grid(SHAPE3B), ft.Weights(model_2=0.3)
+    cfg = ft.SolverConfig(tol=1e-4, preconditioner="multigrid")
+    pts, nrm = config3_inputs(device, B=B3_LANE_BY_LANE)
+    ft.sdf_from_points(grid, w, pts[0], nrm[0], config=cfg)
+
+    def run():
+        return [ft.sdf_from_points(grid, w, pts[i], nrm[i], config=cfg)
+                for i in range(B3_LANE_BY_LANE)]
+    _, ms = timed(run)
+    print(f"config 3 lane by lane: {B3_LANE_BY_LANE} fields through sdf_from_points, "
+          f"{ms:.3f} ms, {ms / B3_LANE_BY_LANE:.3f} ms/field "
+          f"({ms / B3_LANE_BY_LANE * B3 / 1e3:.2f} s for {B3} at that rate)")
+    return dict(ms_per_field=ms / B3_LANE_BY_LANE)
+
+
 def run_phase(fn, *args, **kwargs):
     """fn(*args, **kwargs), then its wall time on a line of its own."""
     t0 = time.perf_counter()
@@ -2543,6 +2844,12 @@ def main():
     launches_p4, _ = run_phase(phase_prepare4, ft, device)
     launches_imp, _, cycle_imp_rec = run_phase(phase_implicit, ft, device)
     apply_prof = run_phase(phase_apply_profile, ft, device)
+    # The batch slice: the batched kernels, then config 3 and its 1e-6 form,
+    # each with the counts set to 0 just before it and read just after.
+    batch_recs = run_phase(phase_batch_kernels, ft, device)
+    launches_b3, config3 = run_phase(phase_config3, ft, device)
+    launches_b3p, config3p = run_phase(phase_config3_precise, ft, device)
+    lanes3 = run_phase(phase_batch_lanes, ft, device)
 
     src = "field_interpolation_tpu_torch/csrc/"
     ref = "field_interpolation_tpu/ops/pallas_stencil.py:"
@@ -2658,6 +2965,24 @@ def main():
              replaces=ref + "1052,1114",
              launches=sum(l["fused_vcycle_2d"] for l in launches_imp.values()),
              **cycle_imp_rec),
+        # The batch slice: launches on config 3's run (tol 1e-4, B = 1024).
+        dict(name="fused_pcg_solve_batch", route="cuda", source=src + "pcg_segment.cu",
+             replaces=ref + "1484", launches=launches_b3["fused_pcg_solve_batch"],
+             **{**batch_recs["seg_config3"], "max_abs_err": max(
+                 batch_recs[k]["max_abs_err"] for k in ("seg_config3", "seg", "seg_w",
+                                                        "seg_cheb", "seg_256"))},
+             ragged_b8=batch_recs["seg"], wcycle=batch_recs["seg_w"],
+             chebyshev=batch_recs["seg_cheb"],
+             headline_256=batch_recs["seg_256"],
+             precise_launches=launches_b3p["fused_pcg_solve_batch"], config3=config3,
+             config3_precise=config3p, lane_by_lane=lanes3),
+        dict(name="fused_normal_apply_batch", route="cuda", source=src + "normal_apply.cu",
+             replaces=ref + "170", launches=launches_b3["fused_normal_apply_batch"],
+             **{**batch_recs["apply_1024"], "max_abs_err": max(
+                 batch_recs[k]["max_abs_err"] for k in ("apply_16", "apply_1024",
+                                                        "apply_32_3d"))},
+             b16=batch_recs["apply_16"], b4_32cubed=batch_recs["apply_32_3d"],
+             precise_launches=launches_b3p["fused_normal_apply_batch"]),
     ]
     for k in kernels:
         k["library_ms"] = None  # no one PyTorch call computes any of these functions

@@ -7,11 +7,13 @@ in damped-Jacobi and Chebyshev form), the whole 2-D multigrid cycle and the
 whole 2-D multigrid-PCG segment as hand-written CUDA kernels for the H100
 (``ops/``, ``csrc/``); lumped or Galerkin coarse data; value interpolation
 and sampling, reusable setup (`prepare`, the `Solver` session) and implicit
-differentiation (`solve_implicit`); the sharded solve in ``parallel/``.
+differentiation (`solve_implicit`); batched solves of many independent
+fields in ``batch`` (one launch of the batched segment and apply kernels
+for all lanes); the sharded solve in ``parallel/``.
 Every entry point runs on the device of the tensors it is given; on CPU
 tensors every kernel runs its plain PyTorch version.
 The JAX package stays the reference; names here are its names. Not ported
-yet (ROADMAP.md): ``batch``, ``SolverConfig(debug=True)`` and contouring.
+yet (ROADMAP.md): ``SolverConfig(debug=True)`` and contouring.
 """
 
 from .grid import Grid, grid_2d, grid_3d

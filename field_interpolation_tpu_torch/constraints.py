@@ -21,6 +21,7 @@ Out-of-bounds, non-finite and zero-weight samples contribute nothing
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -79,18 +80,19 @@ def _cell_frac(grid: Grid, positions: torch.Tensor):
 
 def _corner_rows(grid: Grid, cell: torch.Tensor, frac: torch.Tensor):
     """(corner_idx [n,C] int64, row_coeffs [n,1+D,C] in frac's dtype):
-    the multilinear value row + D gradient rows (SPEC.md conventions)."""
+    the multilinear value row + D gradient rows (SPEC.md conventions).
+    Leading lane axes of cell and frac ([B, n, D]) lead the results."""
     D = grid.ndim
     dev = cell.device
     strides = torch.as_tensor(grid.strides, device=dev)
     bits = torch.as_tensor(corner_bits(D), device=dev).long()  # [C, D]
 
-    corner_coords = cell[:, None, :] + bits[None, :, :]        # [n, C, D]
+    corner_coords = cell[..., None, :] + bits                   # [n, C, D]
     corner_idx = torch.sum(corner_coords * strides, dim=-1)     # [n, C]
 
     # Per-axis 1-D weights at each corner: bits ? frac : 1-frac.
-    f = frac[:, None, :].expand(-1, bits.shape[0], -1)
-    w1d = torch.where(bits[None] == 1, f, 1.0 - f)              # [n, C, D]
+    f = frac[..., None, :].expand(*frac.shape[:-1], bits.shape[0], D)
+    w1d = torch.where(bits == 1, f, 1.0 - f)                    # [n, C, D]
     value_row = torch.prod(w1d, dim=-1)                         # [n, C]
 
     # Gradient row for axis a: sign_a(c) * prod_{d != a} w1d (a masked
@@ -102,13 +104,14 @@ def _corner_rows(grid: Grid, cell: torch.Tensor, frac: torch.Tensor):
                              dim=-1)
         sign = torch.where(bits[:, a] == 1, 1.0, -1.0).to(frac.dtype)
         grad_rows.append(sign * partial)                        # [n, C]
-    return corner_idx, torch.stack([value_row, *grad_rows], dim=1)
+    return corner_idx, torch.stack([value_row, *grad_rows], dim=-2)
 
 
 def multilinear_corner_data(grid: Grid, positions: torch.Tensor):
     """Per-sample cell/corner geometry for all samples at once.
 
-    positions: [n, D] continuous lattice coordinates.
+    positions: [n, D] continuous lattice coordinates ([B, n, D] for B
+    lanes: every result then leads with B).
 
     Returns (corner_idx [n, C] int64 flat node indices,
              row_coeffs [n, 1+D, C] (positions' dtype), value then D gradient rows,
@@ -131,26 +134,36 @@ def densify_data_term(
     Returns (coeff [3^D, *grid], b [*grid]) with
       (DᵀWD x)_i = Σ_o coeff[o, i] · x_{i+o}     and   b = Dᵀ W t.
     One ``index_add_`` carries the C²+C values of every sample: b rides
-    along as plane 3^D of a (3^D + 1)-plane target.
+    along as plane 3^D of a (3^D + 1)-plane target. With a leading lane
+    axis on every input ([B, n, C], ...) the target is [B·(3^D + 1)·N],
+    each lane's indices offset by its own block, still one ``index_add_``,
+    and the results are [B, 3^D, *grid] and [B, *grid].
     """
     D = grid.ndim
     C = grid.num_corners
     N = grid.num_nodes
-    n = corner_idx.shape[0]
-    Bw = row_coeffs * row_weights[:, :, None]          # weighted rows [n, R, C]
+    lanes = tuple(corner_idx.shape[:-2])
+    n = corner_idx.shape[-2]
+    Bw = row_coeffs * row_weights[..., None]           # weighted rows [n, R, C]
     tw = row_targets * row_weights                     # weighted targets [n, R]
-    M = torch.einsum("nrc,nrd->ncd", Bw, Bw)           # [n, C, C]
-    bvec = torch.einsum("nrc,nr->nc", Bw, tw)          # [n, C]
+    M = torch.einsum("...nrc,...nrd->...ncd", Bw, Bw)  # [n, C, C]
+    bvec = torch.einsum("...nrc,...nr->...nc", Bw, tw)  # [n, C]
 
-    chan = torch.as_tensor(_offset_channels(D), device=corner_idx.device).long()
-    idx_cc = corner_idx[:, :, None].expand(n, C, C)
-    flat_idx = torch.cat([(chan[None] * N + idx_cc).reshape(-1),
-                          (3**D) * N + corner_idx.reshape(-1)])
+    dev = corner_idx.device
+    chan = torch.as_tensor(_offset_channels(D), device=dev).long()
+    idx_cc = corner_idx[..., None].expand(*lanes, n, C, C)
+    block = (3**D + 1) * N
+    lane_off = (torch.arange(math.prod(lanes), device=dev).reshape(lanes)
+                * block)[..., None, None]           # each lane's block start
+    flat_idx = torch.cat([(chan * N + idx_cc + lane_off[..., None]).reshape(-1),
+                          ((3**D) * N + corner_idx + lane_off).reshape(-1)])
     updates = torch.cat([M.reshape(-1), bvec.reshape(-1)])
-    out = torch.zeros((3**D + 1) * N, dtype=M.dtype, device=M.device)
+    out = torch.zeros(math.prod(lanes) * block, dtype=M.dtype, device=M.device)
     out.index_add_(0, flat_idx, updates)
-    coeff = out[:3**D * N].reshape((3**D,) + grid.shape)
-    b = out[3**D * N:].reshape(grid.shape)
+    out = out.reshape(lanes + (block,))
+    # Contiguous (a copy only for lanes): the kernels read by flat index.
+    coeff = out[..., :3**D * N].reshape(lanes + (3**D,) + grid.shape).contiguous()
+    b = out[..., 3**D * N:].reshape(lanes + grid.shape).contiguous()
     return coeff, b
 
 
@@ -198,8 +211,8 @@ def sample_row_weights(
 ) -> torch.Tensor:
     """Per-row weights [n, R]: value row scaled by data_pos, gradient rows by
     data_gradient; out-of-bounds or padded (weight-0) samples contribute
-    nothing (SPEC.md)."""
+    nothing (SPEC.md). Lanes ([B, n] inputs) give [B, n, R]."""
     wp = torch.where(in_bounds, point_weights, torch.zeros_like(point_weights))
     g = weights.data_gradient if with_gradient else 0.0
     cols = [wp * weights.data_pos] + [wp * g for _ in range(ndim)]
-    return torch.stack(cols, dim=1).to(point_weights.dtype)
+    return torch.stack(cols, dim=-1).to(point_weights.dtype)

@@ -1,9 +1,9 @@
 """Carry the JAX package's assembled state across into the port's tensors.
 
 Each function takes the reference's arrays as numpy (``np.asarray`` of its
-``Problem``, ``PreciseProblem`` or ``build_fused_solver_operands`` result)
-and returns the port's objects on ``device``, so the same operands can be
-fed to both packages. Nothing here imports JAX.
+``Problem``, ``PreciseProblem`` or ``build_fused_solver_operands`` result,
+single or batched) and returns the port's objects on ``device``, so the
+same operands can be fed to both packages. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -54,3 +54,16 @@ def fused_operands_from_numpy(coeffs, sids, Rs, inv32, level_weights,
     return ([_t(c, device, f32) for c in coeffs], [_t(s, device, f32) for s in sids],
             [_t(R, device, f32) for R in Rs], _t(inv32, device, f32),
             list(level_weights), None)
+
+
+def problems_from_numpy(ref, grid: Grid, weights: Weights,
+                        device: torch.device | str = "cpu"):
+    """A reference batched ``Problem`` or ``PreciseProblem`` (its leaves
+    numpy arrays, or anything ``np.asarray`` reads, with a leading lane
+    axis) as the port's batched object (``batch``): float32 problem leaves,
+    float64 and int64 precise leaves, each keeping its lane axis."""
+    if hasattr(ref, "b64"):
+        p32 = problems_from_numpy(ref.p32, grid, weights, device)
+        return precise_problem_from_numpy(p32, ref.b64, ref.corner_idx, ref.rows64,
+                                          ref.tw64, grid, weights, device)
+    return problem_from_numpy(ref.coeff, ref.b, ref.diag, grid, weights, device)

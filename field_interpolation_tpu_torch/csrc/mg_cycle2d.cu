@@ -44,11 +44,11 @@ struct Args {
 
 __global__ void __launch_bounds__(kThreads)
 mg_cycle2d_kernel(const __grid_constant__ Args a) {
-    cg::grid_group g = cg::this_grid();
+    GridSync s{cg::this_grid()};
     __shared__ float sh[kThreads];
-    const float* z0 = cycle(a.cyc, g, sh, nullptr);
+    const float* z0 = cycle(s, a.cyc, sh, nullptr);
     // z0 was written before the cycle's last grid barrier.
-    for (int i = gtid(); i < nodes(a.cyc.lv[0]); i += gstride()) a.z_out[i] = z0[i];
+    for (int i = s.tid(); i < nodes(a.cyc.lv[0]); i += s.stride()) a.z_out[i] = z0[i];
 }
 
 }  // namespace

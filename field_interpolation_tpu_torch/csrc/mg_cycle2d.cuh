@@ -1,8 +1,11 @@
 // One symmetric multigrid cycle (V or W) on a 2-D hierarchy, damped-Jacobi
-// or Chebyshev smoothing, run by every block of a cooperative grid with grid
-// barriers between dependent phases. Shared by the PCG segment kernel
-// (pcg_segment.cu), which runs it as its preconditioner, and the whole-cycle
-// kernel (mg_cycle2d.cu).
+// or Chebyshev smoothing, run either by every block of a cooperative grid
+// with grid barriers between dependent phases (GridSync: the single-field
+// PCG segment kernel, pcg_segment.cu, which runs it as its preconditioner,
+// and the whole-cycle kernel, mg_cycle2d.cu) or by one block with block
+// barriers (BlockSync: one lane of the batched PCG segment kernel, which
+// hands each block its lane's Cycle). The phases are the same code either
+// way; the policy says which threads share a phase and how it ends.
 //
 // The cycle of field_interpolation_tpu/ops/pallas_stencil.py:_vcycle_refs
 // (1439-1481) with _lvl_smooth (1037-1049: _smooth_inplace 1016-1027 or
@@ -25,7 +28,7 @@
 // z_l before the second visit reuses level l+1's buffers.
 //
 // The visits follow from L, ν and wdepth alone, so every block walks the
-// same schedule and reaches the same grid barriers. The schedule is walked
+// same schedule and reaches the same barriers. The schedule is walked
 // iteratively (a descent, then an ascent that may turn back down), with
 // one small per-level table, not by device recursion.
 #pragma once
@@ -69,8 +72,28 @@ struct Cycle {
     const float* inv;   // [Nc, Nc] dense inverse of the coarsest operator
 };
 
-__device__ __forceinline__ int gtid() { return blockIdx.x * blockDim.x + threadIdx.x; }
-__device__ __forceinline__ int gstride() { return gridDim.x * blockDim.x; }
+// Who runs a phase: tid()/stride() spread a level's nodes over the threads
+// that share it, sync() ends the phase, and a dot product's share of the
+// block goes to partials[part()] of parts() (total() sums them).
+struct GridSync {       // every block of a cooperative grid
+    static constexpr bool kOneBlock = false;
+    cg::grid_group g;
+    __device__ int tid() const { return blockIdx.x * blockDim.x + threadIdx.x; }
+    __device__ int stride() const { return gridDim.x * blockDim.x; }
+    __device__ void sync() { g.sync(); }
+    __device__ int part() const { return blockIdx.x; }
+    __device__ int parts() const { return gridDim.x; }
+};
+
+struct BlockSync {      // one block on its own (one lane of a batch)
+    static constexpr bool kOneBlock = true;
+    __device__ int tid() const { return threadIdx.x; }
+    __device__ int stride() const { return blockDim.x; }
+    __device__ void sync() { __syncthreads(); }
+    __device__ int part() const { return 0; }
+    __device__ int parts() const { return 1; }
+};
+
 __host__ __device__ __forceinline__ int nodes(const Level& lv) { return lv.op.n0 * lv.op.n1; }
 // The ping-pong buffer that does not hold z.
 __device__ __forceinline__ float* other(const Level& lv, const float* z) {
@@ -90,10 +113,26 @@ static __device__ float block_sum(float v, float* sh) {
     return r;
 }
 
-// This block's share of a grid-wide sum, into partials[blockIdx.x].
-static __device__ void write_partial(float* partials, float v, float* sh) {
-    const float s = block_sum(v, sh);
-    if (threadIdx.x == 0) partials[blockIdx.x] = s;
+// This block's share of a sum over the phase's threads, into
+// partials[s.part()].
+template <class S>
+static __device__ void write_partial(const S& s, float* partials, float v, float* sh) {
+    const float t = block_sum(v, sh);
+    if (threadIdx.x == 0) partials[s.part()] = t;
+}
+
+// After the barrier that follows write_partial: every block sums the
+// partials in the same order, so all blocks hold the same bits and take the
+// same branch. One block's total is its one partial.
+template <class S>
+static __device__ float total(const S& s, const float* partials, float* sh) {
+    if constexpr (S::kOneBlock) {
+        return partials[0];
+    } else {
+        float v = 0.f;
+        for (int i = threadIdx.x; i < s.parts(); i += kThreads) v += partials[i];
+        return block_sum(v, sh);
+    }
 }
 
 // Sweep k on level lv: z_out = z_in + sid·(r − A z_in) (Jacobi) or
@@ -102,14 +141,15 @@ static __device__ void write_partial(float* partials, float v, float* sh) {
 // (c2_0·sid·r; pallas_stencil.py:1019-1024, 491-497); z_prev == nullptr
 // means z_prev = 0, and z_prev may be z_out. Returns this thread's share of
 // Σ r·z_out when want_dot.
-static __device__ float sweep(const Level& lv, const float* zin, const float* zprev,
-                              float* zout, int k, bool want_dot) {
+template <class S>
+static __device__ float sweep(const S& s, const Level& lv, const float* zin,
+                              const float* zprev, float* zout, int k, bool want_dot) {
     const int N = nodes(lv), n1 = lv.op.n1;
     const bool cheb = lv.cf != nullptr;
     const float c1 = cheb ? lv.cf[2 * k] : 0.f;
     const float c2 = cheb ? lv.cf[2 * k + 1] : 1.f;
     float acc = 0.f;
-    for (int i = gtid(); i < N; i += gstride()) {
+    for (int i = s.tid(); i < N; i += s.stride()) {
         const float r = lv.r[i];
         float z;
         if (zin == nullptr) {
@@ -125,29 +165,33 @@ static __device__ float sweep(const Level& lv, const float* zin, const float* zp
     return acc;
 }
 
-static __device__ void fill_zero(const Level& lv, float* z) {
-    for (int i = gtid(); i < nodes(lv); i += gstride()) z[i] = 0.f;
+template <class S>
+static __device__ void fill_zero(const S& s, const Level& lv, float* z) {
+    for (int i = s.tid(); i < nodes(lv); i += s.stride()) z[i] = 0.f;
 }
 
-static __device__ void apply_phase(const Level& lv, const float* z, float* az) {
+template <class S>
+static __device__ void apply_phase(const S& s, const Level& lv, const float* z, float* az) {
     const int N = nodes(lv), n1 = lv.op.n1;
-    for (int i = gtid(); i < N; i += gstride()) az[i] = apply_at(lv.op, z, i / n1, i % n1);
+    for (int i = s.tid(); i < N; i += s.stride()) az[i] = apply_at(lv.op, z, i / n1, i % n1);
 }
 
 // r −= A z on one level (the W step's residual update; r is not read by
 // the apply, so no other thread needs the old value).
-static __device__ void residual_update(const Level& lv, const float* z) {
+template <class S>
+static __device__ void residual_update(const S& s, const Level& lv, const float* z) {
     const int N = nodes(lv), n1 = lv.op.n1;
-    for (int i = gtid(); i < N; i += gstride()) lv.r[i] -= apply_at(lv.op, z, i / n1, i % n1);
+    for (int i = s.tid(); i < N; i += s.stride()) lv.r[i] -= apply_at(lv.op, z, i / n1, i % n1);
 }
 
 // r_c = R0 · (r_f − A z_f) · R1ᵀ over the bands of R0 and R1.
-static __device__ void restrict_phase(const Cycle& c, int l) {
+template <class S>
+static __device__ void restrict_phase(const S& s, const Cycle& c, int l) {
     const Level& f = c.lv[l];
     const Level& cl = c.lv[l + 1];
     const Transfer& t = c.tr[l];
     const int nf0 = f.op.n0, nf1 = f.op.n1, nc1 = cl.op.n1;
-    for (int jj = gtid(); jj < nodes(cl); jj += gstride()) {
+    for (int jj = s.tid(); jj < nodes(cl); jj += s.stride()) {
         const int j0 = jj / nc1, j1 = jj % nc1;
         const int s0 = t.rb0[2 * j0], c0 = t.rb0[2 * j0 + 1];
         const int s1 = t.rb1[2 * j1], c1 = t.rb1[2 * j1 + 1];
@@ -166,13 +210,14 @@ static __device__ void restrict_phase(const Cycle& c, int l) {
 }
 
 // z_f += R0ᵀ · z_c · R1 over the bands; returns Σ r·z_f when want_dot.
-static __device__ float prolong_phase(const Cycle& c, int l, const float* zc, float* zf,
-                                      bool want_dot) {
+template <class S>
+static __device__ float prolong_phase(const S& s, const Cycle& c, int l, const float* zc,
+                                      float* zf, bool want_dot) {
     const Level& f = c.lv[l];
     const Transfer& t = c.tr[l];
     const int nf0 = f.op.n0, nf1 = f.op.n1, nc1 = c.lv[l + 1].op.n1;
     float dot = 0.f;
-    for (int ii = gtid(); ii < nodes(f); ii += gstride()) {
+    for (int ii = s.tid(); ii < nodes(f); ii += s.stride()) {
         const int i0 = ii / nf1, i1 = ii % nf1;
         const int s0 = t.pb0[2 * i0], c0 = t.pb0[2 * i0 + 1];
         const int s1 = t.pb1[2 * i1], c1 = t.pb1[2 * i1 + 1];
@@ -195,11 +240,12 @@ static __device__ float prolong_phase(const Cycle& c, int l, const float* zc, fl
 
 // z_c = inv · r_c into the coarsest level's za, one warp per row, lanes
 // striding the columns.
-static __device__ void coarse_phase(const Cycle& c) {
+template <class S>
+static __device__ void coarse_phase(const S& s, const Cycle& c) {
     const Level& cl = c.lv[c.L - 1];
     const int Nc = nodes(cl);
     const int lane = threadIdx.x & 31;
-    for (int row = gtid() >> 5; row < Nc; row += gstride() >> 5) {
+    for (int row = s.tid() >> 5; row < Nc; row += s.stride() >> 5) {
         float acc = 0.f;
         for (int k = lane; k < Nc; k += 32) acc += c.inv[row * Nc + k] * cl.r[k];
         for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -208,18 +254,19 @@ static __device__ void coarse_phase(const Cycle& c) {
 }
 
 // ν pre-sweeps on level l from zero; returns the buffer holding the result.
-static __device__ float* pre_smooth(const Level& lv, int nu, cg::grid_group& g) {
+template <class S>
+static __device__ float* pre_smooth(S& s, const Level& lv, int nu) {
     if (nu == 0) {
-        fill_zero(lv, lv.za);
-        g.sync();
+        fill_zero(s, lv, lv.za);
+        s.sync();
         return lv.za;
     }
     float* cur = nullptr;        // null: the first sweep reads no z
     const float* prev = nullptr;  // Chebyshev's z_prev, 0 from zero
-    for (int s = 0; s < nu; ++s) {
+    for (int k = 0; k < nu; ++k) {
         float* nxt = cur ? other(lv, cur) : lv.za;
-        sweep(lv, cur, prev, nxt, s, false);
-        g.sync();
+        sweep(s, lv, cur, prev, nxt, k, false);
+        s.sync();
         prev = cur;
         cur = nxt;
     }
@@ -228,9 +275,9 @@ static __device__ float* pre_smooth(const Level& lv, int nu, cg::grid_group& g) 
 
 // One cycle on lv[0].r; returns the buffer holding z_0. With rz_partials,
 // also leaves each block's share of Σ r·z_0 (from the last phase that
-// writes z_0) in rz_partials[blockIdx.x].
-static __device__ const float* cycle(const Cycle& c, cg::grid_group& g, float* sh,
-                                     float* rz_partials) {
+// writes z_0) in rz_partials[s.part()].
+template <class S>
+static __device__ const float* cycle(S& s, const Cycle& c, float* sh, float* rz_partials) {
     const int L = c.L;
     float* z[kMaxLevels];
     int visits[kMaxLevels];  // child visits finished in level l's current visit
@@ -238,34 +285,34 @@ static __device__ const float* cycle(const Cycle& c, cg::grid_group& g, float* s
     for (;;) {
         for (; l < L - 1; ++l) {                          // down: pre-smooth, restrict
             const Level& lv = c.lv[l];
-            z[l] = pre_smooth(lv, c.nu_pre, g);
-            apply_phase(lv, z[l], lv.az);
-            g.sync();
-            restrict_phase(c, l);
-            g.sync();
+            z[l] = pre_smooth(s, lv, c.nu_pre);
+            apply_phase(s, lv, z[l], lv.az);
+            s.sync();
+            restrict_phase(s, c, l);
+            s.sync();
             visits[l] = 0;
         }
-        coarse_phase(c);                                  // coarsest: dense solve
-        g.sync();
+        coarse_phase(s, c);                               // coarsest: dense solve
+        s.sync();
         z[L - 1] = c.lv[L - 1].za;
         for (l = L - 2;; --l) {                           // up: prolong-add, post-smooth
             const bool again = visits[l] == 0 && l < c.wdepth && l + 1 < L - 1;
             ++visits[l];
             const bool last = l == 0 && c.nu_post == 0 && !again && rz_partials;
-            const float d = prolong_phase(c, l, z[l + 1], z[l], last);
-            if (again) residual_update(c.lv[l + 1], z[l + 1]);
-            if (last) write_partial(rz_partials, d, sh);
-            g.sync();
+            const float d = prolong_phase(s, c, l, z[l + 1], z[l], last);
+            if (again) residual_update(s, c.lv[l + 1], z[l + 1]);
+            if (last) write_partial(s, rz_partials, d, sh);
+            s.sync();
             if (again) break;                             // W: visit level l+1 again
             const Level& lv = c.lv[l];
             float* cur = z[l];
             const float* prev = cur;  // Chebyshev from z: z_prev = z
-            for (int s = 0; s < c.nu_post; ++s) {
-                const bool want = l == 0 && s == c.nu_post - 1 && rz_partials;
+            for (int k = 0; k < c.nu_post; ++k) {
+                const bool want = l == 0 && k == c.nu_post - 1 && rz_partials;
                 float* nxt = other(lv, cur);
-                const float ds = sweep(lv, cur, prev, nxt, s, want);
-                if (want) write_partial(rz_partials, ds, sh);
-                g.sync();
+                const float ds = sweep(s, lv, cur, prev, nxt, k, want);
+                if (want) write_partial(s, rz_partials, ds, sh);
+                s.sync();
                 prev = cur;
                 cur = nxt;
             }

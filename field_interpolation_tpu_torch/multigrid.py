@@ -226,22 +226,24 @@ def _galerkin_band_tensors(n_c: int, n_f: int, dtype: torch.dtype,
             torch.tensor(T, dtype=dtype, device=device))
 
 
-def _galerkin_axis(x: torch.Tensor, d: int, ndim: int, n_c: int) -> torch.Tensor:
-    """Contract the stencil pair of axis d of x [(3,)*D, *fine] with the
-    banded triple product: the offset axis d (3 wide) becomes p (5 wide),
-    the node axis D + d becomes the coarse one. The reference's tensordot
-    (multigrid.py:315-318) over the nonzeros only: 3·W gathers of n_c rows."""
-    rows, T = _galerkin_band_tensors(n_c, x.shape[ndim + d], x.dtype, x.device)
-    node_ax = ndim + d - 1  # the node axis once the offset axis is selected
+def _galerkin_axis(x: torch.Tensor, d: int, ndim: int, n_c: int,
+                   base: int = 0) -> torch.Tensor:
+    """Contract the stencil pair of axis d of x [*lanes, (3,)*D, *fine]
+    (``base`` lane axes) with the banded triple product: the offset axis d
+    (3 wide) becomes p (5 wide), the node axis D + d becomes the coarse one.
+    The reference's tensordot (multigrid.py:315-318) over the nonzeros only:
+    3·W gathers of n_c rows."""
+    rows, T = _galerkin_band_tensors(n_c, x.shape[base + ndim + d], x.dtype, x.device)
+    node_ax = base + ndim + d - 1  # the node axis once the offset axis is selected
     out = None
     for o in range(3):
-        xo = x.select(d, o)
+        xo = x.select(base + d, o)
         for w in range(rows.shape[0]):
             g = torch.index_select(xo, node_ax, rows[w]).unsqueeze(0)
             t = T[:, o, w].reshape((5,) + (1,) * node_ax + (n_c,)
                                    + (1,) * (g.ndim - node_ax - 2))
             out = t * g if out is None else out + t * g
-    return out.movedim(0, d)
+    return out.movedim(0, base + d)
 
 
 def galerkin_coarse_coeff(coeff: torch.Tensor,
@@ -254,31 +256,36 @@ def galerkin_coarse_coeff(coeff: torch.Tensor,
     each symmetric pair is dropped and |e| added to both row diagonals,
     A_fold = PᵀAP + Σ |e|·(e_j ∓ e_{j+p})(e_j ∓ e_{j+p})ᵀ ⪰ PᵀAP. (The
     reference found that a row-sum-preserving inward fold makes the
-    stencil indefinite and breaks CG; do not fold inward.)"""
+    stencil indefinite and breaks CG; do not fold inward.) Leading lane
+    axes of ``coeff`` ([B, 3^D, *fine]) are kept: each lane is transferred
+    on its own."""
     ndim = len(coarse_shape)
+    lanes = tuple(coeff.shape[:-(ndim + 1)])
     fine_shape = tuple(coeff.shape[-ndim:])
-    x = coeff.reshape((3,) * ndim + fine_shape)
+    x = coeff.reshape(lanes + (3,) * ndim + fine_shape)
     widths = []
     for d, (n_f, n_c) in enumerate(zip(fine_shape, coarse_shape)):
         if n_f == n_c:
             widths.append(3)
             continue
-        x = _galerkin_axis(x, d, ndim, n_c)
+        x = _galerkin_axis(x, d, ndim, n_c, len(lanes))
         widths.append(5)
     kept, extra = {}, None
+    lane_idx = (slice(None),) * len(lanes)
     for idx in itertools.product(*[range(w) for w in widths]):
         p = tuple(i - w // 2 for i, w in zip(idx, widths))
+        term = x[lane_idx + idx]
         if all(abs(c) <= 1 for c in p):
-            kept[p] = x[idx]
+            kept[p] = term
         else:
-            extra = x[idx].abs() if extra is None else extra + x[idx].abs()
+            extra = term.abs() if extra is None else extra + term.abs()
     center = (0,) * ndim
     chans = []
     for off in offset_list(ndim):
         p = tuple(int(v) for v in off)
         chans.append(kept[p] + extra if extra is not None and p == center
                      else kept[p])
-    return torch.stack(chans)
+    return torch.stack(chans, dim=len(lanes))
 
 
 def chebyshev_coefs(rho: torch.Tensor, nu: int, config: SolverConfig) -> torch.Tensor:
@@ -288,26 +295,28 @@ def chebyshev_coefs(rho: torch.Tensor, nu: int, config: SolverConfig) -> torch.T
     recurrence z⁺ = z + c1_k·(z − z_prev) + c2_k·D⁻¹(r − A z) starts from
     z_prev = z (or 0 from zero). "chebyshev": the first-kind polynomial on
     [ρ̂/mg_cheb_ratio, ρ̂]; "chebyshev4": the fourth-kind one on (0, ρ̂],
-    c1_k = (2k−3)/(2k+1), c2_k = (8k−4)/((2k+1)·ρ̂), k = 1..ν."""
+    c1_k = (2k−3)/(2k+1), c2_k = (8k−4)/((2k+1)·ρ̂), k = 1..ν. A [B] ``rho``
+    (one bound per lane) gives the lanes' [B, ν, 2] schedules."""
     if nu <= 0:
-        return torch.zeros((0, 2), dtype=torch.float32, device=rho.device)
+        return torch.zeros(tuple(rho.shape) + (0, 2), dtype=torch.float32,
+                           device=rho.device)
     if config.mg_smoother == "chebyshev4":
         rows = [torch.stack([torch.full_like(rho, (2.0 * k - 3.0) / (2.0 * k + 1.0)),
-                             (8.0 * k - 4.0) / ((2.0 * k + 1.0) * rho)])
+                             (8.0 * k - 4.0) / ((2.0 * k + 1.0) * rho)], dim=-1)
                 for k in range(1, nu + 1)]
-        return torch.stack(rows).to(torch.float32)
+        return torch.stack(rows, dim=-2).to(torch.float32)
     lmax = rho
     lmin = rho / config.mg_cheb_ratio
     theta = 0.5 * (lmax + lmin)
     delta = 0.5 * (lmax - lmin)
     sigma = theta / delta
-    rows = [torch.stack([torch.zeros_like(theta), 1.0 / theta])]
+    rows = [torch.stack([torch.zeros_like(theta), 1.0 / theta], dim=-1)]
     rho_prev = 1.0 / sigma
     for _ in range(1, nu):
         rho_k = 1.0 / (2.0 * sigma - rho_prev)
-        rows.append(torch.stack([rho_k * rho_prev, 2.0 * rho_k / delta]))
+        rows.append(torch.stack([rho_k * rho_prev, 2.0 * rho_k / delta], dim=-1))
         rho_prev = rho_k
-    return torch.stack(rows).to(torch.float32)
+    return torch.stack(rows, dim=-2).to(torch.float32)
 
 
 @functools.lru_cache(maxsize=None)
@@ -342,17 +351,19 @@ def _smoothness_dense_matrix(shape: tuple[int, ...], weights: Weights) -> np.nda
 
 def _dense_data_matrix(data_coeff: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
     """Dense [n, n] matrix of a 3^D-channel data stencil: A[i, i+o] =
-    coeff[o, i]. Entries that would wrap across a row are the (zero)
-    out-of-grid coefficients, so diagonal placement is exact."""
+    coeff[o, i] ([B, n, n] for lanes [B, 3^D, *shape]). Entries that would
+    wrap across a row are the (zero) out-of-grid coefficients, so diagonal
+    placement is exact."""
     ndim = len(shape)
     n = math.prod(shape)
+    lanes = tuple(data_coeff.shape[:-(ndim + 1)])
     strides = Grid(shape).strides
-    flat = data_coeff.reshape(3 ** ndim, n)
-    A = torch.zeros((n, n), dtype=flat.dtype, device=flat.device)
+    flat = data_coeff.reshape(lanes + (3 ** ndim, n))
+    A = torch.zeros(lanes + (n, n), dtype=flat.dtype, device=flat.device)
     for ci, off in enumerate(offset_list(ndim)):
         k = int(sum(int(o) * s for o, s in zip(off, strides)))
         idx = torch.arange(max(0, -k), min(n, n - k), device=flat.device)
-        A[idx, idx + k] += flat[ci][idx]
+        A[..., idx, idx + k] += flat[..., ci, idx]
     return A
 
 
@@ -370,20 +381,23 @@ def _coarse_dense_inverse(lvl: "_Level") -> torch.Tensor:
     symmetric preconditioner. A singular operator (no data rows under a
     smoothness term with a null space) gives NaN, as the reference's
     factorization does, instead of raising: a solve whose right-hand side
-    is zero never applies it."""
+    is zero never applies it. A level with lanes ([B, *shape] leaves) gives
+    [B, n, n]: one batched factorization, each lane on its own."""
     dtype, dev = lvl.diag.dtype, lvl.diag.device
     f64 = torch.float64
+    lanes = tuple(lvl.diag.shape[:-len(lvl.shape)])
     S = torch.tensor(_smoothness_dense_matrix(lvl.shape, lvl.weights),
                      dtype=f64, device=dev)
     if lvl.data_coeff is not None:
         A_c = S + _dense_data_matrix(lvl.data_coeff.to(f64), lvl.shape)
     else:
-        A_c = S + torch.diag(lvl.data_diag.reshape(-1).to(f64))
+        A_c = S + torch.diag_embed(lvl.data_diag.reshape(lanes + (-1,)).to(f64))
     L, info = torch.linalg.cholesky_ex(A_c)
-    eye = torch.eye(A_c.shape[0], dtype=f64, device=dev)
+    eye = torch.eye(A_c.shape[-1], dtype=f64, device=dev)
     Linv = torch.linalg.solve_triangular(L, eye, upper=False)
-    inv = Linv.T @ Linv
-    inv = torch.where(info == 0, 0.5 * (inv + inv.T), torch.nan)
+    inv = Linv.mT @ Linv
+    ok = (info == 0).reshape(lanes + (1, 1))
+    inv = torch.where(ok, 0.5 * (inv + inv.mT), torch.nan)
     return inv.to(dtype)
 
 
@@ -464,10 +478,16 @@ def build_levels(problem: Problem, config: SolverConfig,
     return levels
 
 
-def _rho_bound(row_abs: torch.Tensor, diag: torch.Tensor) -> torch.Tensor:
-    """Gershgorin bound on ρ(D⁻¹A): max_i (Σ_j |A_ij|) / A_ii."""
+def _rho_bound(row_abs: torch.Tensor, diag: torch.Tensor,
+               ndim: int | None = None) -> torch.Tensor:
+    """Gershgorin bound on ρ(D⁻¹A): max_i (Σ_j |A_ij|) / A_ii; with
+    ``ndim``, over the trailing ``ndim`` grid axes only (one bound per
+    lane of [B, *grid] operands)."""
     safe = torch.where(diag > 0, diag, torch.ones_like(diag))
-    return torch.max(row_abs / safe)
+    q = row_abs / safe
+    if ndim is None or q.ndim == ndim:
+        return torch.max(q)
+    return torch.amax(q, dim=tuple(range(-ndim, 0)))
 
 
 def fine_lumped(config: SolverConfig, fine_shape: tuple[int, ...]) -> bool:
@@ -482,13 +502,14 @@ def level_rhos(levels) -> list[torch.Tensor]:
     """The Gershgorin bound ρ̂_l of every coarse level."""
     rhos = []
     for lvl in levels:
+        nd = len(lvl.shape)
         rowabs = stencils.smoothness_row_abs_sum(lvl.shape, lvl.weights,
                                                  lvl.diag.dtype, lvl.diag.device)
         if lvl.data_coeff is not None:
-            rowabs = rowabs + torch.sum(torch.abs(lvl.data_coeff), dim=0)
+            rowabs = rowabs + torch.sum(torch.abs(lvl.data_coeff), dim=-(nd + 1))
         else:
             rowabs = rowabs + lvl.data_diag
-        rhos.append(_rho_bound(rowabs, lvl.diag))
+        rhos.append(_rho_bound(rowabs, lvl.diag, nd))
     return rhos
 
 
@@ -507,7 +528,7 @@ def build_smoothing_setup(problem: Problem, levels: list, config) -> tuple:
         fine_rowabs = base + fine_ddiag
     else:
         fine_rowabs = base + torch.sum(torch.abs(problem.coeff), dim=-(ndim + 1))
-    rhos = [_rho_bound(fine_rowabs, problem.diag)] + level_rhos(levels)
+    rhos = [_rho_bound(fine_rowabs, problem.diag, ndim)] + level_rhos(levels)
     taus = [2.0 * config.mg_omega / r for r in rhos]
     return lump, fine_ddiag, taus, rhos
 
@@ -536,7 +557,10 @@ def _fused_vcycle_operands(problem, levels, taus, fine_inv_diag, inv_diags,
     cfs). coeffs as `_level_coeffs`. Jacobi: sids = τ_l·D_l⁻¹, cfs None;
     Chebyshev: sids = D_l⁻¹ unscaled, cfs[l] the [ν, 2] schedule of
     `chebyshev_coefs` for ρ̂_l. None if the working set exceeds the
-    reference's 12 MB VMEM budget (TPU policy, kept for parity)."""
+    reference's 12 MB VMEM budget (TPU policy, kept for parity). On a
+    problem with lanes (leaves [B, ...]) every operand but Rs and the level
+    Weights has the lane axis first: τ_l, ρ̂_l and the schedules are per
+    lane."""
     if not _fused_operands_fit(problem, levels, config):
         return None
     ndim = problem.grid.ndim
@@ -551,7 +575,9 @@ def _fused_vcycle_operands(problem, levels, taus, fine_inv_diag, inv_diags,
         sids = [d.to(f32).contiguous() for d in inv_all]
         cfs = [chebyshev_coefs(r, config.mg_pre_smooth, config) for r in rhos]
     else:
-        sids = [(t * d).to(f32).contiguous() for t, d in zip(taus, inv_all)]
+        # A lane's τ_l scales that lane's grid.
+        sids = [((t.reshape(t.shape + (1,) * ndim) if t.ndim else t) * d)
+                .to(f32).contiguous() for t, d in zip(taus, inv_all)]
     dev = problem.coeff.device
     Rs = [_restriction_tensor(shapes_all[i][d], shapes_all[i + 1][d], dev)
           for i in range(len(shapes_all) - 1) for d in range(ndim)]
@@ -559,16 +585,39 @@ def _fused_vcycle_operands(problem, levels, taus, fine_inv_diag, inv_diags,
     return coeffs, sids, Rs, inv32, lw, cfs
 
 
-def _fused_operands_fit(problem: Problem, levels, config: SolverConfig) -> bool:
-    """The reference's 12 MB VMEM budget for the fused-cycle operands
-    (multigrid.py:635-639; TPU policy, kept for parity): every level's data
-    term (a Galerkin level's 3^D channels), the dense coarsest inverse and
-    3 fine arrays of scratch, 4 under Chebyshev (z_prev)."""
-    n_c = math.prod(levels[-1].shape)
+def _operands_fit(shapes, config: SolverConfig) -> bool:
+    """The reference's 12 MB VMEM budget for the fused-cycle operands of one
+    field (multigrid.py:635-639; TPU policy, kept for parity) on a hierarchy
+    of ``shapes`` (the fine grid first): every level's data term (the fine
+    level's and a Galerkin level's 3^D channels), the dense coarsest
+    inverse and 3 fine arrays of scratch, 4 under Chebyshev (z_prev)."""
+    ndim = len(shapes[0])
+    coarse_chans = 3 ** ndim if config.mg_coarse_data == "galerkin" else 1
+    n_c = math.prod(shapes[-1])
     scratch = 4 if _is_cheb(config) else 3
-    est = (sum(c.numel() for c in _level_coeffs(problem, levels)) + n_c * n_c
-           + scratch * problem.grid.num_nodes) * 4
+    est = (sum((3 ** ndim if l == 0 else coarse_chans) * math.prod(s)
+               for l, s in enumerate(shapes))
+           + n_c * n_c + scratch * math.prod(shapes[0])) * 4
     return est <= 12 * 1024 * 1024
+
+
+def _fused_operands_fit(problem: Problem, levels, config: SolverConfig) -> bool:
+    """`_operands_fit` on a built hierarchy."""
+    return _operands_fit([problem.grid.shape] + [l.shape for l in levels], config)
+
+
+def fused_levels_ok(fine_shape: tuple[int, ...], config: SolverConfig) -> bool:
+    """The fused segment's conditions on the hierarchy below ``fine_shape``
+    (the reference's multigrid.py:745-752), from shapes and config alone:
+    at least one coarse level, a coarsest of ≤ 4096 nodes, every level
+    inside `fits_vmem`, a fine level smoothed with its full data stencil
+    and the operands inside `_operands_fit`. With `_fused_gate` it decides
+    the fused path before anything is built."""
+    levels = level_shapes(fine_shape, config.mg_min_size, config.mg_coarse_solver)
+    return (bool(levels) and math.prod(levels[-1]) <= 4096
+            and all(fits_vmem(s) for s in levels)
+            and not fine_lumped(config, fine_shape)
+            and _operands_fit((fine_shape,) + levels, config))
 
 
 def _fused_gate(problem: Problem, config: SolverConfig) -> bool:
@@ -586,14 +635,10 @@ def _fused_operands(problem: Problem, config: SolverConfig, levels, setup=None,
     """The fused segment's operands on a built hierarchy past `_fused_gate`,
     or None where the levels rule the path out; ``setup``
     (`build_smoothing_setup`) and ``coarse_dense`` are built when None."""
-    if not levels or math.prod(levels[-1].shape) > 4096:
+    if not fused_levels_ok(problem.grid.shape, config):
         return None
-    if not all(fits_vmem(l.shape) for l in levels):
-        return None
-    lump, _, taus, rhos = (build_smoothing_setup(problem, levels, config)
-                           if setup is None else setup)
-    if lump:
-        return None  # the fused kernel smooths with the full data stencil
+    _, _, taus, rhos = (build_smoothing_setup(problem, levels, config)
+                        if setup is None else setup)
     if coarse_dense is None:
         coarse_dense = _coarse_dense_inverse(levels[-1])
     return _fused_vcycle_operands(problem, levels, taus, _inv_diag(problem.diag),

@@ -47,6 +47,15 @@ def assemble(
     """Vectorized assembly of the full normal-equations problem, in the
     dtype and on the device of ``positions``. Zero-weight samples act as
     padding, so callers can use fixed-size arrays."""
+    check_inputs(grid, positions, values, gradients, point_weights)
+    return assemble_lanes(grid, weights, positions, values, gradients, point_weights)
+
+
+def check_inputs(grid: Grid, positions: torch.Tensor, values: torch.Tensor,
+                 gradients: Optional[torch.Tensor],
+                 point_weights: Optional[torch.Tensor]) -> None:
+    """Raise ValueError unless the inputs are one field's: positions [n, D],
+    values [n], gradients [n, D], point_weights [n]."""
     if positions.ndim != 2 or positions.shape[-1] != grid.ndim:
         raise ValueError(
             f"positions must be [n, {grid.ndim}] for grid {grid.shape}, "
@@ -60,21 +69,30 @@ def assemble(
     if point_weights is not None and tuple(point_weights.shape) != (n,):
         raise ValueError(
             f"point_weights must be [{n}], got {tuple(point_weights.shape)}")
+
+
+def assemble_lanes(grid: Grid, weights: Weights, positions: torch.Tensor,
+                   values: torch.Tensor, gradients: Optional[torch.Tensor],
+                   point_weights: Optional[torch.Tensor]) -> Problem:
+    """`assemble` without its shape checks, over any leading lane axes:
+    positions [*lanes, n, D] give a Problem whose leaves lead with the lanes
+    (``batch.assemble_batch``: [B, 3^D, *grid], [B, *grid]), all lanes in
+    one scatter."""
     ensure_full_fp32(positions.device)
     dtype, dev = positions.dtype, positions.device
     if point_weights is None:
-        point_weights = torch.ones((n,), dtype=dtype, device=dev)
+        point_weights = torch.ones(positions.shape[:-1], dtype=dtype, device=dev)
     with_gradient = gradients is not None
 
     corner_idx, row_coeffs, in_bounds = cons.multilinear_corner_data(grid, positions)
     row_w = cons.sample_row_weights(weights, in_bounds, point_weights.to(dtype),
                                     grid.ndim, with_gradient)
     if with_gradient:
-        row_t = torch.cat([values[:, None].to(dtype), gradients.to(dtype)], dim=1)
+        row_t = torch.cat([values[..., None].to(dtype), gradients.to(dtype)], dim=-1)
     else:
-        row_coeffs = row_coeffs[:, :1, :]
-        row_w = row_w[:, :1]
-        row_t = values[:, None].to(dtype)
+        row_coeffs = row_coeffs[..., :1, :]
+        row_w = row_w[..., :1]
+        row_t = values[..., None].to(dtype)
 
     coeff, b = cons.densify_data_term(grid, corner_idx, row_coeffs, row_w, row_t)
     diag = (stencils.smoothness_diag(grid.shape, weights, dtype=dtype, device=dev)

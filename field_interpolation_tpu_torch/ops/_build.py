@@ -33,13 +33,14 @@ _F = ctypes.c_float
 # C entry points and their argument types (see csrc/*.cu).
 _SIGNATURES = {
     # x, coeff, out, ndim, n0, n1, n2, w2_0..w2_3, diag, stream
-    "fi_normal_apply": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P),
+    "fi_normal_apply": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P),
     # x_ext, coeff, out, ndim, n0..n2 (local), g0..g2 (global start),
     # N0..N2 (global extents), r, w2_0..w2_3, diag, stream
     "fi_normal_apply_ext": (_P, _P, _P) + (_I,) * 11 + (_F,) * 4 + (_I, _P),
     # x_ext1, from_top, from_bot, coeff, out, n0, n1, g0, g1, N0, N1, r,
     # w2_0..w2_3, stream
     "fi_normal_apply_ext_striped": (_P,) * 5 + (_I,) * 7 + (_F,) * 4 + (_P,),
+    # x, coeff, out, B, ndim, n0, n1, n2, w2_0..w2_3, diag, stream
     # r, z (null: from zero), coeff, sid, zout, tmp, res (null: not wanted),
     # ndim, n0, n1, n2, w2_0..w2_3, diag, cf (null: Jacobi), count,
     # from_zero, launches (out), stream
@@ -54,6 +55,7 @@ _SIGNATURES = {
     "fi_multisweep2d_max_halo": (),
     # pointer table, int table, w2 table (all host), stream
     "fi_pcg_segment": (_P, _P, _P, _P),
+    "fi_pcg_segment_batch": (_P, _P, _P, _P),
     "fi_mg_cycle2d": (_P, _P, _P, _P),
 }
 

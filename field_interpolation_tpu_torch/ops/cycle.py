@@ -62,7 +62,10 @@ def mg_cycle_plain(r, coeffs, sids, Rs, inv_c, level_weights: list[Weights],
     sweeps are `fused_smooth_plain`'s, damped Jacobi or, with
     ``cheb_coefs[l]``, Chebyshev. A transition l < ``wdepth`` with l + 1
     above the coarsest level visits level l+1 a second time, on the
-    residual the first visit leaves (the W-cycle of _vcycle_refs)."""
+    residual the first visit leaves (the W-cycle of _vcycle_refs). Lanes:
+    r [B, n0, n1] with every operand but Rs and the Weights leading with
+    B (inv_c [B, Nc, Nc], cheb_coefs[l] [B, ν, 2]), each lane cycled on its
+    own."""
     L = len(coeffs)
 
     def A(l, v):
@@ -78,6 +81,8 @@ def mg_cycle_plain(r, coeffs, sids, Rs, inv_c, level_weights: list[Weights],
 
     def cycle(r_l, l):
         if l == L - 1:
+            if r_l.ndim == 3:  # lanes
+                return (inv_c @ r_l.reshape(r_l.shape[0], -1, 1)).reshape(r_l.shape)
             return (inv_c @ r_l.reshape(-1)).reshape(r_l.shape)
         R0, R1 = Rs[2 * l], Rs[2 * l + 1]
         z = smooth(l, r_l, None, nu_pre)
@@ -166,18 +171,20 @@ def check_cycle_operands(what: str, device, coeffs, sids, Rs, inv_c,
 
 
 def cycle_tables(coeffs, sids, Rs, level_weights, nu_pre, nu_post, wdepth, device,
-                 cheb_coefs=None):
+                 cheb_coefs=None, lanes: int = 1):
     """The cycle's part of the host tables of csrc/mg_cycle2d.cuh:fill_cycle,
     and the level buffers: (pointers, ints, w2s, scratch). Level 0's r
     pointer is 0: each entry point sets it to its own residual; a level's
     schedule pointer is 0 under damped Jacobi. The caller keeps ``scratch``
-    alive until the launch is queued."""
+    alive until the launch is queued. ``lanes``: the level buffers of that
+    many lanes, lane b's ``scratch.numel() // lanes`` floats past lane 0's
+    (the operands given are lane 0's)."""
     shapes = level_shapes(coeffs)
     L = len(coeffs)
     # One allocation for every level's buffers: (r,) za, zb, az, level 0
     # without r (each entry point passes its own).
     counts = [(3 if l == 0 else 4) * s[0] * s[1] for l, s in enumerate(shapes)]
-    scratch = torch.empty(sum(counts), dtype=torch.float32, device=device)
+    scratch = torch.empty(lanes * sum(counts), dtype=torch.float32, device=device)
     ptrs, addr = [], scratch.data_ptr()
     for l, s in enumerate(shapes):
         n = s[0] * s[1]

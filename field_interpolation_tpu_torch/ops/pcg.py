@@ -19,6 +19,12 @@ reads the transfers only over their bands.
 operands, its cycle `ops.cycle.mg_cycle_plain`) for CPU tensors, and
 counts its launches in ``fused_pcg_solve.launches``, those in Chebyshev mode
 also in ``.cheb_launches``.
+
+``fused_pcg_solve_batch`` is ``fused_pcg_solve`` under ``vmap`` (BASELINE
+config 3): B independent segments in one launch of the same source's
+``pcg_segment_batch_kernel``, one block per lane, each lane doing only its
+own iterations; ``fused_pcg_solve_batch_plain`` is its plain version, with
+per-lane masks. Same counters on the batched wrapper.
 """
 
 from __future__ import annotations
@@ -27,9 +33,9 @@ import torch
 
 from ..weights import Weights
 from . import _build
-from .cycle import (_ok, call_tables, check_cycle_operands, check_schedules,
-                    cycle_tables, mg_cycle_plain)
-from .stencil import fused_normal_apply_plain
+from .cycle import (MAX_LEVELS, _ok, call_tables, check_cycle_operands,
+                    check_schedules, cycle_tables, mg_cycle_plain)
+from .stencil import check_lanes, fused_normal_apply_plain
 
 # Upper bound on the kernel's grid; the C entry point never launches more
 # blocks than this (nor more than can be co-resident on the card).
@@ -39,35 +45,15 @@ _MAX_BLOCKS = 4096
 def fused_pcg_solve_plain(x, r, tol2, iter_budget, coeffs, sids, Rs, inv_c,
                           level_weights: list[Weights], nu: int,
                           cheb_coefs=None, wdepth: int = 0):
-    """The segment in plain torch ops; same contract as `fused_pcg_solve`."""
-    def precond(v):
-        return mg_cycle_plain(v, coeffs, sids, Rs, inv_c, level_weights, nu, nu,
-                              wdepth, cheb_coefs)
-
-    zero = torch.zeros((), dtype=x.dtype, device=x.device)
-    xo, rw = x.clone(), r.clone()
-    z = precond(rw)
-    p = z
-    rz = torch.sum(rw * z)
-    rr = torch.sum(rw * rw)
-    tol2_s = tol2.reshape(())
-    budget = int(iter_budget.reshape(()).item())
-    k = 0
-    while bool(rr > tol2_s) and k < budget:
-        Ap = fused_normal_apply_plain(p, coeffs[0], level_weights[0], 2)
-        pAp = torch.sum(p * Ap)
-        alpha = torch.where(pAp > 0, rz / pAp, zero)
-        xo = xo + alpha * p
-        rw = rw - alpha * Ap
-        rr = torch.sum(rw * rw)
-        z = precond(rw)
-        rz_new = torch.sum(rw * z)
-        beta = torch.where(rz > 0, rz_new / rz, zero)
-        p = z + beta * p
-        rz = rz_new
-        k += 1
-    iters = torch.full((1, 1), k, dtype=torch.int32, device=x.device)
-    return xo, iters, rr.reshape(1, 1)
+    """The segment in plain torch ops; same contract as `fused_pcg_solve`:
+    `fused_pcg_solve_batch_plain` on one lane."""
+    cfs = None if cheb_coefs is None else [None if cf is None else cf[None]
+                                           for cf in cheb_coefs]
+    xo, iters, rr = fused_pcg_solve_batch_plain(
+        x[None], r[None], tol2.reshape(1), iter_budget.reshape(1),
+        [c[None] for c in coeffs], [s[None] for s in sids], Rs, inv_c[None],
+        level_weights, nu, cfs, wdepth)
+    return xo[0], iters.reshape(1, 1), rr.reshape(1, 1)
 
 
 def _check_operands(x, r, tol2, iter_budget, coeffs, sids, Rs, inv_c) -> None:
@@ -145,3 +131,123 @@ def fused_pcg_solve(x, r, tol2, iter_budget, coeffs, sids, Rs, inv_c,
 
 
 fused_pcg_solve.launches = fused_pcg_solve.cheb_launches = 0
+
+
+def _lane_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-lane Σ a·b over the grid axes of [B, n0, n1]."""
+    return torch.sum(a * b, dim=(-2, -1))
+
+
+def fused_pcg_solve_batch_plain(x, r, tol2, iter_budget, coeffs, sids, Rs, inv_c,
+                                level_weights: list[Weights], nu: int, cheb_coefs=None,
+                                wdepth: int = 0):
+    """The batched segment in plain torch ops; same contract as
+    `fused_pcg_solve_batch`, and on one lane `fused_pcg_solve_plain`. The
+    lanes step together, and a lane whose exit test holds (‖r‖² ≤ tol2 or
+    its budget spent) is frozen by masks from then on."""
+    def precond(v):
+        return mg_cycle_plain(v, coeffs, sids, Rs, inv_c, level_weights, nu, nu,
+                              wdepth, cheb_coefs)
+
+    B = x.shape[0]
+    tol2 = tol2.reshape(B)
+    budget = iter_budget.reshape(B)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    xo, rw = x.clone(), r.clone()
+    rr = _lane_dot(rw, rw)
+    k = torch.zeros(B, dtype=torch.int32, device=x.device)
+    active = (rr > tol2) & (k < budget)
+    if not bool(active.any()):
+        return xo, k, rr
+    z = precond(rw)
+    p, rz = z, _lane_dot(rw, z)
+    while True:
+        grid = active[:, None, None]
+        Ap = fused_normal_apply_plain(p, coeffs[0], level_weights[0], 2)
+        pAp = _lane_dot(p, Ap)
+        alpha = torch.where(pAp > 0, rz / pAp, zero)[:, None, None]
+        xo = torch.where(grid, xo + alpha * p, xo)
+        rw = torch.where(grid, rw - alpha * Ap, rw)
+        rr = torch.where(active, _lane_dot(rw, rw), rr)
+        k = k + active.to(torch.int32)
+        active = active & (rr > tol2) & (k < budget)
+        if not bool(active.any()):
+            break
+        z = precond(rw)
+        rz_new = _lane_dot(rw, z)
+        beta = torch.where(rz > 0, rz_new / rz, zero)[:, None, None]
+        p = torch.where(active[:, None, None], z + beta * p, p)
+        rz = torch.where(active, rz_new, rz)
+    return xo, k, rr
+
+
+def _check_batch_operands(x, r, tol2, iter_budget, coeffs, sids, Rs, inv_c) -> int:
+    """The batched segment's operands: every per-lane operand [B, ...]
+    contiguous, each lane's as `_check_operands` wants one field's; Rs
+    shared. Returns B."""
+    B, _ = check_lanes("fused_pcg_solve_batch", x, coeffs[0], 2, r)
+    lanes = [("tol2", tol2, torch.float32), ("iter_budget", iter_budget, torch.int32)]
+    bad = [f"{name} {tuple(t.shape)} {t.dtype}" for name, t, dtype in lanes
+           if not _ok(t, x.device, (B,), dtype)]
+    per_lane = list(coeffs) + list(sids) + [inv_c]
+    bad += [f"lane axis of {tuple(t.shape)}" for t in per_lane
+            if t.ndim < 1 or t.shape[0] != B or not t.is_contiguous()]
+    check_cycle_operands("fused_pcg_solve_batch", x.device, [c[0] for c in coeffs],
+                         [s[0] for s in sids], Rs, inv_c[0], bad)
+    return B
+
+
+def fused_pcg_solve_batch(x, r, tol2, iter_budget, coeffs, sids, Rs, inv_c,
+                          level_weights: list[Weights], nu: int, cheb_coefs=None,
+                          wdepth: int = 0):
+    """B independent safeguard SEGMENTS of 2-D multigrid PCG in one launch
+    (pallas_stencil.py:1484 under vmap, BASELINE config 3).
+
+    x, r: [B, n0, n1] float32, each lane's iterate and TRUE residual.
+    tol2, iter_budget: [B] float32 / int32; a lane with budget 0 (or
+    already ‖r‖² ≤ tol2) runs no cycle and keeps its x. coeffs, sids: per
+    level [B, ...] as `fused_pcg_solve`'s per field; inv_c [B, Nc, Nc];
+    cheb_coefs: per level [B, ≥ ν, 2] (each lane's schedule) or None; Rs
+    and level_weights shared. Returns (x_out [B, n0, n1], iters [B] int32,
+    rr [B] float32)."""
+    if int(nu) < 0 or int(wdepth) < 0:
+        raise ValueError(f"fused_pcg_solve_batch: nu and wdepth must be >= 0, got {nu}, "
+                         f"{wdepth}")
+    if cheb_coefs is not None:
+        if any(not isinstance(cf, torch.Tensor) or cf.ndim != 3 or cf.shape[0] != x.shape[0]
+               or not cf.is_contiguous() for cf in cheb_coefs[:len(coeffs) - 1]):
+            raise ValueError("fused_pcg_solve_batch: Chebyshev schedules must be "
+                             "contiguous [B, >= nu, 2] per level")
+        check_schedules("fused_pcg_solve_batch", [cf[0] for cf in cheb_coefs],
+                        len(coeffs), nu, x.device)
+    if x.device.type == "cpu":
+        return fused_pcg_solve_batch_plain(x, r, tol2, iter_budget, coeffs, sids, Rs,
+                                           inv_c, level_weights, nu, cheb_coefs, wdepth)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_pcg_solve_batch: no kernel for device {x.device}")
+    B = _check_batch_operands(x, r, tol2, iter_budget, coeffs, sids, Rs, inv_c)
+    lib = _build.library()
+    dev = x.device
+    x_out = torch.empty_like(x)
+    iters = torch.empty(B, dtype=torch.int32, device=dev)
+    rr = torch.empty(B, dtype=torch.float32, device=dev)
+    rw, p = torch.empty_like(x), torch.empty_like(x)
+    lane0_cfs = None if cheb_coefs is None else [cf[0] for cf in cheb_coefs]
+    lp, li, w2s, scratch = cycle_tables([c[0] for c in coeffs], [s[0] for s in sids], Rs,
+                                        level_weights, nu, nu, wdepth, dev, lane0_cfs,
+                                        lanes=B)
+    cf_strides = [0] * MAX_LEVELS
+    if cheb_coefs is not None:
+        for l in range(len(coeffs) - 1):
+            cf_strides[l] = cheb_coefs[l][0].numel()
+    ptrs = [t.data_ptr() for t in (x, r, tol2, iter_budget, x_out, iters, rr, rw, p,
+                                   inv_c)] + lp
+    ints = [B, scratch.numel() // B] + cf_strides + li
+    rc = call_tables(lib.fi_pcg_segment_batch, ptrs, ints, w2s, dev)
+    _build.check(rc, "fused_pcg_solve_batch")
+    fused_pcg_solve_batch.launches += 1
+    fused_pcg_solve_batch.cheb_launches += cheb_coefs is not None
+    return x_out, iters, rr
+
+
+fused_pcg_solve_batch.launches = fused_pcg_solve_batch.cheb_launches = 0

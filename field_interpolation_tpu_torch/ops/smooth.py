@@ -85,7 +85,9 @@ def fused_smooth_plain(r: torch.Tensor, z: torch.Tensor, coeff: torch.Tensor,
     Chebyshev (``cheb_coefs``, the [ν, 2] schedule; _cheb_inplace 483-507):
     from zero, z = c2_0·sid·r with z_prev = 0 and 0 sweeps return zeros;
     from z, z_prev = z, so the c1 term of the first sweep vanishes. With
-    ``residual``, returns (z, r − A z)."""
+    ``residual``, returns (z, r − A z). Lanes ([B, *grid] arrays, [B, 3^D,
+    *grid] or [B, *grid] coefficients) smooth each on its own, under
+    [B, ν, 2] schedules."""
     out = _smooth_plain(r, z, coeff, scaled_inv_diag, weights, ndim, sweeps, from_zero,
                         cheb_coefs)
     if residual:
@@ -93,20 +95,29 @@ def fused_smooth_plain(r: torch.Tensor, z: torch.Tensor, coeff: torch.Tensor,
     return out
 
 
+def _schedule_entry(cf: torch.Tensor, k: int, j: int, ndim: int) -> torch.Tensor:
+    """cf[k, j] of a [ν, 2] schedule; of lanes' [B, ν, 2] schedules, the
+    lanes' entries shaped to scale their [B, *grid] arrays."""
+    if cf.ndim == 2:
+        return cf[k, j]
+    return cf[..., k, j].reshape(cf.shape[:-2] + (1,) * ndim)
+
+
 def _smooth_plain(r, z, coeff, scaled_inv_diag, weights, ndim, sweeps, from_zero,
                   cheb_coefs):
     if cheb_coefs is not None:
-        cf = cheb_coefs
+        def cf(k, j):
+            return _schedule_entry(cheb_coefs, k, j, ndim)
         if from_zero:
             if sweeps == 0:
                 return torch.zeros_like(r)
-            out, prev, start = cf[0, 1] * (scaled_inv_diag * r), torch.zeros_like(r), 1
+            out, prev, start = cf(0, 1) * (scaled_inv_diag * r), torch.zeros_like(r), 1
         else:
             out, prev, start = z, z, 0
         for k in range(start, sweeps):
             az = fused_normal_apply_plain(out, coeff, weights, ndim)
-            out, prev = out + (cf[k, 0] * (out - prev)
-                               + cf[k, 1] * (scaled_inv_diag * (r - az))), out
+            out, prev = out + (cf(k, 0) * (out - prev)
+                               + cf(k, 1) * (scaled_inv_diag * (r - az))), out
         return out
     if from_zero:
         out, n = scaled_inv_diag * r, sweeps - 1

@@ -13,6 +13,12 @@ kernels.
 
 ``fused_normal_apply`` launches the kernel for a CUDA tensor and runs
 ``fused_normal_apply_plain`` for a CPU tensor; nothing else decides.
+``fused_normal_apply_batch`` is the same function over a leading lane axis
+(the reference's ``fused_normal_apply`` under ``vmap``): one launch of the
+same kernels for B fields, the lane from ``blockIdx.y`` (one field is one
+lane); its plain version is
+``fused_normal_apply_plain`` too, which takes lanes. Each counts its
+launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -39,9 +45,11 @@ def order_w2(weights: Weights) -> tuple[float, float, float, float]:
 def fused_normal_apply_plain(x: torch.Tensor, coeff: torch.Tensor,
                              weights: Weights, ndim: int) -> torch.Tensor:
     """(S + data) x with plain torch ops. ``coeff`` is the [3^D, *grid]
-    stencil, or a bare [*grid] diagonal (multigrid coarse levels)."""
+    stencil, or a bare [*grid] diagonal (multigrid coarse levels); lane
+    axes in front of x's grid lead coeff's too ([B, *grid] with [B, 3^D,
+    *grid] or [B, *grid])."""
     s = stencils.smoothness_apply(x, weights, ndim)
-    if coeff.ndim == ndim:
+    if coeff.ndim == x.ndim:
         return s + coeff * x
     return s + cons.data_apply(x, coeff, ndim)
 
@@ -92,7 +100,7 @@ def fused_normal_apply(x: torch.Tensor, coeff: torch.Tensor, weights: Weights,
     lib = _build.library()
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        rc = lib.fi_normal_apply(x.data_ptr(), coeff.data_ptr(), out.data_ptr(),
+        rc = lib.fi_normal_apply(x.data_ptr(), coeff.data_ptr(), out.data_ptr(), 1,
                                  *kernel_dims(tuple(x.shape)), *order_w2(weights),
                                  int(diag), _build.stream_handle(x.device))
     _build.check(rc, "fused_normal_apply")
@@ -101,3 +109,47 @@ def fused_normal_apply(x: torch.Tensor, coeff: torch.Tensor, weights: Weights,
 
 
 fused_normal_apply.launches = 0
+
+
+# gridDim.y's limit; csrc/normal_apply.cu takes the lane from blockIdx.y.
+_MAX_LANES = 65535
+
+
+def check_lanes(what: str, x: torch.Tensor, coeff: torch.Tensor, ndim: int,
+                *others: torch.Tensor) -> tuple[int, bool]:
+    """`check_operands` for B lanes: x [B, *grid], coeff [B, 3^D, *grid] or
+    [B, *grid], ``others`` like x, all contiguous; each lane must suit the
+    kernels as one field would. Returns (B, diagonal data)."""
+    tensors = (x, coeff) + others
+    if (x.ndim != ndim + 1 or x.shape[0] < 1
+            or any(t.shape[0] != x.shape[0] or not t.is_contiguous() for t in tensors)):
+        raise ValueError(f"{what}: needs contiguous lanes [B, ...] with B >= 1 on every "
+                         "operand; got " + ", ".join(str(tuple(t.shape)) for t in tensors))
+    return x.shape[0], check_operands(what, x[0], coeff[0], ndim, *(t[0] for t in others))
+
+
+def fused_normal_apply_batch(x: torch.Tensor, coeff: torch.Tensor, weights: Weights,
+                             ndim: int) -> torch.Tensor:
+    """B independent fused (S + DᵀWD) x in one launch (pallas_stencil.py:170
+    under vmap): x [B, *grid] with coeff [B, 3^D, *grid] (or [B, *grid],
+    diagonal data), 2-D or 3-D; the Weights are shared."""
+    if x.device.type == "cpu":
+        return fused_normal_apply_plain(x, coeff, weights, ndim)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_normal_apply_batch: no kernel for device {x.device}")
+    B, diag = check_lanes("fused_normal_apply_batch", x, coeff, ndim)
+    if B > _MAX_LANES:
+        raise ValueError(f"fused_normal_apply_batch: at most {_MAX_LANES} lanes in one "
+                         f"launch (the kernel's lane is blockIdx.y), got {B}")
+    lib = _build.library()
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = lib.fi_normal_apply(x.data_ptr(), coeff.data_ptr(), out.data_ptr(), B,
+                                       *kernel_dims(tuple(x.shape[1:])), *order_w2(weights),
+                                       int(diag), _build.stream_handle(x.device))
+    _build.check(rc, "fused_normal_apply_batch")
+    fused_normal_apply_batch.launches += 1
+    return out
+
+
+fused_normal_apply_batch.launches = 0

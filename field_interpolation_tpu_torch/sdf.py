@@ -15,6 +15,7 @@ integer-grid emulation is needed.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -24,7 +25,7 @@ from . import constraints as cons
 from . import stencils
 from .grid import Grid
 from .multigrid import prolong
-from .operators import Problem, assemble
+from .operators import Problem, assemble, assemble_lanes, check_inputs
 from .solver import SolveInfo, _check_config, solve, solve_refined
 from .weights import SolverConfig, Weights
 
@@ -99,7 +100,10 @@ def sdf_from_points(
 class PreciseProblem:
     """Mixed-precision problem for solver.solve_refined: the float32 problem
     (densified data stencil, the kernels' path) plus a float64 system kept
-    MATTER-FREE as per-sample weighted rows."""
+    MATTER-FREE as per-sample weighted rows. A batch of problems
+    (``batch.assemble_precise_batch``) has a leading lane axis on every
+    tensor leaf, its own included: each lane's float64 rows act on that
+    lane's field."""
 
     p32: Problem
     b64: torch.Tensor          # [*grid] float64, Aᵀb of the f64 system
@@ -109,18 +113,35 @@ class PreciseProblem:
     grid: Grid
     weights: Weights
 
+    def _lanes(self) -> tuple[int, ...]:
+        """The leading lane axes of a batched problem (``batch``), or ()."""
+        return tuple(self.corner_idx.shape[:-2])
+
     def _rows_apply(self, x: torch.Tensor) -> torch.Tensor:
-        """B x: [grid] → [n, R] per-sample row values."""
+        """B x: [grid] → [n, R] per-sample row values (each lane's own)."""
+        lanes = self._lanes()
+        if lanes:
+            flat = x.reshape(lanes + (-1,))
+            xc = torch.gather(flat, -1, self.corner_idx.reshape(lanes + (-1,))
+                              ).reshape(self.corner_idx.shape)  # [B, n, C]
+            return torch.einsum("...nrc,...nc->...nr", self.rows64, xc)
         xc = x.reshape(-1)[self.corner_idx]                     # [n, C]
         return torch.einsum("nrc,nc->nr", self.rows64, xc)
 
     def _scatter(self, y: torch.Tensor) -> torch.Tensor:
-        """Bᵀ y: [n, R] row values → [*grid], one float64 index_add_."""
-        contrib = torch.einsum("nrc,nr->nc", self.rows64, y)    # [n, C]
-        out = torch.zeros(self.grid.num_nodes, dtype=torch.float64,
+        """Bᵀ y: [n, R] row values → [*grid], one float64 index_add_ (over
+        [B·N] with each lane's indices offset by its block for lanes)."""
+        lanes = self._lanes()
+        N = self.grid.num_nodes
+        contrib = torch.einsum("...nrc,...nr->...nc", self.rows64, y)  # [n, C]
+        out = torch.zeros(math.prod(lanes) * N, dtype=torch.float64,
                           device=contrib.device)
-        out.index_add_(0, self.corner_idx.reshape(-1), contrib.reshape(-1))
-        return out.reshape(self.grid.shape)
+        idx = self.corner_idx
+        if lanes:
+            idx = idx + (torch.arange(math.prod(lanes), device=idx.device)
+                         .reshape(lanes + (1, 1)) * N)
+        out.index_add_(0, idx.reshape(-1), contrib.reshape(-1))
+        return out.reshape(lanes + self.grid.shape)
 
     def residual64(self, x: torch.Tensor) -> torch.Tensor:
         """r = b − A x in least-squares form −S x + Bᵀ(t − B x), all float64."""
@@ -144,28 +165,39 @@ def assemble_precise(
     """Assemble for the mixed-precision refined solve: a float32 problem from
     the float32-rounded inputs, and float64 rows from the inputs as given
     (float32 inputs cast exactly, so the rows equal the reference's)."""
+    check_inputs(grid, positions, values, gradients, point_weights)
+    return assemble_precise_lanes(grid, weights, positions, values, gradients,
+                                  point_weights)
+
+
+def assemble_precise_lanes(grid: Grid, weights: Weights, positions: torch.Tensor,
+                           values: torch.Tensor, gradients: Optional[torch.Tensor],
+                           point_weights: Optional[torch.Tensor]) -> PreciseProblem:
+    """`assemble_precise` over any leading lane axes of its inputs
+    (positions [*lanes, n, D]; ``batch.assemble_precise_batch``)."""
     f32, f64 = torch.float32, torch.float64
-    n = positions.shape[0]
     dev = positions.device
-    pw = (torch.ones((n,), dtype=f64, device=dev) if point_weights is None
-          else point_weights.to(f64))
+    pw = (torch.ones(positions.shape[:-1], dtype=f64, device=dev)
+          if point_weights is None else point_weights.to(f64))
     with_gradient = gradients is not None
     corner_idx, row_coeffs, in_bounds = cons.multilinear_corner_data(
         grid, positions.to(f64))
     row_w = cons.sample_row_weights(weights, in_bounds, pw, grid.ndim,
                                     with_gradient)
     if with_gradient:
-        row_t = torch.cat([values[:, None].to(f64), gradients.to(f64)], dim=1)
+        row_t = torch.cat([values[..., None].to(f64), gradients.to(f64)], dim=-1)
     else:
-        row_coeffs = row_coeffs[:, :1, :]
-        row_w = row_w[:, :1]
-        row_t = values[:, None].to(f64)
-    rows64 = row_coeffs * row_w[:, :, None]
+        row_coeffs = row_coeffs[..., :1, :]
+        row_w = row_w[..., :1]
+        row_t = values[..., None].to(f64)
+    rows64 = row_coeffs * row_w[..., None]
     tw = row_t * row_w
-    p32 = assemble(grid, weights, positions.to(f32), values.to(f32),
-                   gradients=None if gradients is None else gradients.to(f32),
-                   point_weights=pw.to(f32))
-    pp = PreciseProblem(p32=p32, b64=torch.zeros(grid.shape, dtype=f64, device=dev),
+    p32 = assemble_lanes(grid, weights, positions.to(f32), values.to(f32),
+                         None if gradients is None else gradients.to(f32),
+                         pw.to(f32))
+    lanes = tuple(positions.shape[:-2])
+    pp = PreciseProblem(p32=p32, b64=torch.zeros(lanes + grid.shape, dtype=f64,
+                                                 device=dev),
                         corner_idx=corner_idx, rows64=rows64, tw64=tw,
                         grid=grid, weights=weights)
     return dataclasses.replace(pp, b64=pp._scatter(tw))  # b64 = residual64(0)

@@ -7,8 +7,9 @@ Marked ``gpu``: each test skips without a CUDA card. On the GPU host run
 (``--noconftest`` because tests/conftest.py configures JAX, which this file
 does not use). Bars: the apply within 1e-5·max|plain| and a sweep within
 2e-5·max|plain| (float32 sums in another order); the segment and the solves
-within ±2 iterations and 2e-3·max|x| (tests/test_solver.py:191-195); the
-whole-cycle kernel within 3e-5·max|plain| (tests/test_mg_options.py:269-271)."""
+within ±2 iterations and 2e-3·max|x| (tests/test_solver.py:191-195), the
+batched ones lane by lane; the whole-cycle kernel within 3e-5·max|plain|
+(tests/test_mg_options.py:269-271)."""
 
 import math
 
@@ -849,3 +850,208 @@ def test_radius3_cycle_smooths_through_the_per_sweep_kernel(cuda):
     assert fused_smooth.launches > before[0] and fused_smooth_2d.launches == before[1]
     want = tmg.make_vcycle_preconditioner(p, cfg)(r)
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+# ---- the batch slice: a lane index inside the segment and apply kernels -----
+
+def _batch(shape, device, B, n=256, seed=1, zero_lanes=(), weights=dict(model_2=0.3)):
+    """B circles (config 3's cloud, bench.py:166-171) assembled as lanes;
+    ``zero_lanes`` have every point out of bounds (b = 0)."""
+    from field_interpolation_tpu_torch import batch as tb
+    rng = np.random.default_rng(seed)
+    theta = rng.uniform(0, 2 * np.pi, (B, n))
+    nrm = np.stack([np.cos(theta), np.sin(theta)], -1).astype(np.float32)
+    radii = rng.uniform(0.25, 0.4, (B, 1, 1)) * min(shape)
+    pts = ((np.asarray(shape) - 1) / 2.0 + radii * nrm).astype(np.float32)
+    pts[list(zero_lanes)] += 1e4
+    return tb.assemble_batch(ft.Grid(shape), ft.Weights(**weights),
+                             torch.as_tensor(pts, device=device),
+                             torch.zeros(B, n, device=device),
+                             gradients=torch.as_tensor(nrm, device=device))
+
+
+def _segment_batch_check(probs, cfg, budget=None, nu=3):
+    from field_interpolation_tpu_torch.ops.pcg import (fused_pcg_solve_batch,
+                                                       fused_pcg_solve_batch_plain)
+    ops = tmg.build_fused_solver_operands(probs, cfg)
+    coeffs, sids, Rs, inv32, lw, cfs = ops
+    b = probs.b
+    B = b.shape[0]
+    x0 = torch.zeros_like(b)
+    tol2 = (1e-4 ** 2 * torch.sum(b * b, dim=(1, 2))).contiguous()
+    if budget is None:
+        budget = torch.full((B,), 2000, dtype=torch.int32, device=b.device)
+    wdepth = tmg.resolve_wdepth(cfg, tuple(b.shape[1:]))
+    args = (x0, b, tol2, budget, coeffs, sids, Rs, inv32, lw, nu)
+    before = fused_pcg_solve_batch.launches
+    xk, ik, rrk = fused_pcg_solve_batch(*args, cheb_coefs=cfs, wdepth=wdepth)
+    xp, ip, _ = fused_pcg_solve_batch_plain(*args, cheb_coefs=cfs, wdepth=wdepth)
+    torch.cuda.synchronize()
+    assert fused_pcg_solve_batch.launches == before + 1
+    assert ik.dtype == torch.int32 and tuple(ik.shape) == (B,) and tuple(rrk.shape) == (B,)
+    assert int((ik - ip).abs().max()) <= 2, (ik.tolist(), ip.tolist())
+    for i in range(B):
+        scale = float(xp[i].abs().max())
+        assert float((xk[i] - xp[i]).abs().max()) <= 2e-3 * scale, i
+        if int(ik[i]) > 0:
+            assert float(rrk[i]) <= float(tol2[i])
+    frozen = (budget == 0) | (torch.sum(b * b, dim=(1, 2)) == 0)
+    assert torch.equal(xk[frozen], x0[frozen]) and int(ik[frozen].abs().sum()) == 0
+    return ik
+
+
+@pytest.mark.parametrize("change", [{}, dict(mg_cycle="w"), dict(mg_smoother="chebyshev4"),
+                                    dict(mg_coarse_data="galerkin"),
+                                    dict(mg_smoother="chebyshev4", mg_coarse_data="galerkin")],
+                         ids=str)
+def test_segment_batch_matches_plain(cuda, change):
+    """The batched segment on ragged lanes: a lane with b = 0 and a lane with
+    budget 0 run no iteration and keep x; the others match the plain
+    batched segment lane by lane."""
+    probs = _batch((128, 128), cuda, 6, zero_lanes=(0,))
+    budget = torch.tensor([2000, 2000, 0, 2000, 2000, 2000], dtype=torch.int32, device=cuda)
+    ik = _segment_batch_check(probs, ft.SolverConfig(tol=1e-4, **change), budget)
+    assert int(ik[1]) > 0
+
+
+@pytest.mark.parametrize("shape,B", [((97, 130), 3), ((256, 256), 2), ((32, 32), 9)], ids=str)
+def test_segment_batch_shapes(cuda, shape, B):
+    _segment_batch_check(_batch(shape, cuda, B, n=200), ft.SolverConfig(tol=1e-4))
+
+
+def test_segment_batch_lanes_equal_single_kernel(cuda):
+    """Each lane of a batch runs the single-field kernel's iteration count
+    (the same cycle and CG code under block barriers), and is the same on
+    every run (fixed-order reductions)."""
+    from field_interpolation_tpu_torch.ops.pcg import fused_pcg_solve_batch
+    probs = _batch((128, 128), cuda, 4)
+    coeffs, sids, Rs, inv32, lw, cfs = tmg.build_fused_solver_operands(
+        probs, ft.SolverConfig(tol=1e-4))
+    b = probs.b
+    tol2 = (1e-4 ** 2 * torch.sum(b * b, dim=(1, 2))).contiguous()
+    budget = torch.full((4,), 2000, dtype=torch.int32, device=cuda)
+    args = (torch.zeros_like(b), b, tol2, budget, coeffs, sids, Rs, inv32, lw, 3)
+    x1, i1, _ = fused_pcg_solve_batch(*args)
+    x2, i2, _ = fused_pcg_solve_batch(*args)
+    assert torch.equal(x1, x2) and torch.equal(i1, i2)
+    for i in range(4):
+        xs, its, _ = fused_pcg_solve(torch.zeros_like(b[i]), b[i], tol2[i].reshape(1, 1),
+                                     budget[i].reshape(1, 1), [c[i] for c in coeffs],
+                                     [s[i] for s in sids], Rs, inv32[i], lw, 3)
+        assert abs(int(its) - int(i1[i])) <= 2
+        assert float((xs - x1[i]).abs().max()) <= 2e-3 * float(xs.abs().max())
+
+
+@pytest.mark.parametrize("shape,B", [((128, 128), 16), ((33, 17), 5), ((20, 18, 22), 4),
+                                     ((128, 128), 1)], ids=str)
+@pytest.mark.parametrize("diag", [False, True])
+def test_apply_batch_matches_plain(cuda, shape, B, diag):
+    from field_interpolation_tpu_torch.ops.stencil import fused_normal_apply_batch
+    rng = np.random.default_rng(2)
+    x = torch.as_tensor(rng.standard_normal((B,) + shape).astype(np.float32), device=cuda)
+    w = ft.Weights(model_1=0.2, model_2=0.3)
+    cshape = (B,) + shape if diag else (B, 3 ** len(shape)) + shape
+    coeff = torch.as_tensor(rng.uniform(0, 2, cshape).astype(np.float32), device=cuda)
+    before = fused_normal_apply_batch.launches
+    got = fused_normal_apply_batch(x, coeff, w, len(shape))
+    assert fused_normal_apply_batch.launches == before + 1
+    _close(got, fused_normal_apply_plain(x, coeff, w, len(shape)), 1e-5)
+
+
+def test_batch_kernels_past_2gib_of_coefficients(cuda):
+    """Lane offsets are 64-bit: 4,096 lanes of 128² hold 2.4 GB of
+    coefficient planes (past 2³¹ bytes). The last lanes' applies and
+    segments match their plain versions."""
+    from field_interpolation_tpu_torch.ops.pcg import fused_pcg_solve_batch
+    from field_interpolation_tpu_torch.ops.stencil import fused_normal_apply_batch
+    B, shape = 4096, (128, 128)
+    probs = _batch(shape, cuda, B, n=64)
+    assert probs.coeff.numel() * 4 > 2 ** 31
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor(rng.standard_normal((B,) + shape).astype(np.float32), device=cuda)
+    got = fused_normal_apply_batch(x, probs.coeff, probs.weights, 2)
+    tail = slice(B - 3, B)
+    _close(got[tail], fused_normal_apply_plain(x[tail], probs.coeff[tail], probs.weights, 2),
+           1e-5)
+    del got, x
+    coeffs, sids, Rs, inv32, lw, _ = tmg.build_fused_solver_operands(
+        probs, ft.SolverConfig(tol=1e-4))
+    b = probs.b
+    tol2 = (1e-4 ** 2 * torch.sum(b * b, dim=(1, 2))).contiguous()
+    budget = torch.zeros(B, dtype=torch.int32, device=cuda)
+    budget[-2:] = 2000  # only the last two lanes work
+    xk, ik, _ = fused_pcg_solve_batch(torch.zeros_like(b), b, tol2, budget, coeffs, sids, Rs,
+                                      inv32, lw, 3)
+    for i in (B - 2, B - 1):
+        xs, its, _ = fused_pcg_solve_plain(torch.zeros_like(b[i]), b[i],
+                                           tol2[i].reshape(1, 1),
+                                           budget[i].reshape(1, 1),
+                                           [c[i] for c in coeffs], [s[i] for s in sids], Rs,
+                                           inv32[i], lw, 3)
+        assert abs(int(its) - int(ik[i])) <= 2 and int(ik[i]) > 0
+        assert float((xs - xk[i]).abs().max()) <= 2e-3 * float(xs.abs().max())
+    assert int(ik[:-2].abs().sum()) == 0
+
+
+def test_config3_batch_on_card_matches_cpu(cuda):
+    """sdf_from_points_batch on the card (the batched fused route) against
+    the same batch on the CPU (the plain versions), lane by lane; and
+    sdf_from_points_precise_batch to a TRUE 1e-6."""
+    from field_interpolation_tpu_torch import batch as tb
+    rng = np.random.default_rng(4)
+    B, n, shape = 8, 200, (128, 128)  # the smallest batch of 128² that takes the route
+    theta = rng.uniform(0, 2 * np.pi, (B, n))
+    nrm = np.stack([np.cos(theta), np.sin(theta)], -1).astype(np.float32)
+    pts = (63.5 + rng.uniform(0.25, 0.4, (B, 1, 1)) * 128 * nrm).astype(np.float32)
+    g, w, cfg = ft.Grid(shape), ft.Weights(model_2=0.3), ft.SolverConfig(tol=1e-4)
+    from field_interpolation_tpu_torch.ops.pcg import fused_pcg_solve_batch
+    before = fused_pcg_solve_batch.launches
+    xg, ig = tb.sdf_from_points_batch(g, w, torch.as_tensor(pts, device=cuda),
+                                      torch.as_tensor(nrm, device=cuda), config=cfg)
+    assert fused_pcg_solve_batch.launches > before
+    xc, ic = tb.sdf_from_points_batch(g, w, torch.as_tensor(pts), torch.as_tensor(nrm),
+                                      config=cfg)
+    assert bool(ig.converged.all())
+    assert int((ig.iterations.cpu() - ic.iterations).abs().max()) <= 2
+    for i in range(B):
+        assert float((xg[i].cpu() - xc[i]).abs().max()) <= 2e-3 * float(xc[i].abs().max())
+    xp, ip = tb.sdf_from_points_precise_batch(g, w, torch.as_tensor(pts, device=cuda),
+                                              torch.as_tensor(nrm, device=cuda),
+                                              config=ft.SolverConfig(tol=1e-6))
+    pp = tb.assemble_precise_batch(g, w, torch.as_tensor(pts, device=cuda),
+                                   torch.zeros(B, n, device=cuda),
+                                   gradients=torch.as_tensor(nrm, device=cuda))
+    true = (torch.linalg.vector_norm(pp.residual64(xp), dim=(1, 2))
+            / torch.linalg.vector_norm(pp.b64, dim=(1, 2)))
+    assert bool(ip.converged.all()) and float(true.max()) <= 1e-6
+    assert float(((true - ip.rel_residual.double()).abs() / true).max()) <= 0.02
+
+
+def test_batch_launches_do_not_grow_with_lanes(cuda):
+    """torch.profiler: the launch calls of a config-3 batch come from its
+    setup and outer rounds, not its lanes: B = 1024 makes no more than
+    B = 64 does, beyond the rounds a slower lane adds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from field_interpolation_tpu_torch import batch as tb
+    from field_interpolation_tpu_torch.ops.pcg import fused_pcg_solve_batch
+    probs = _batch((128, 128), cuda, 1024)
+    cfg = ft.SolverConfig(tol=1e-4)
+    counts = {}
+    for B in (64, 1024):
+        sub = ft.Problem(coeff=probs.coeff[:B], b=probs.b[:B], diag=probs.diag[:B],
+                         grid=probs.grid, weights=probs.weights)
+        tb.solve_batch(sub, cfg)  # warm-up
+        torch.cuda.synchronize()
+        before = fused_pcg_solve_batch.launches
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            tb.solve_batch(sub, cfg)
+            torch.cuda.synchronize()
+        rounds = fused_pcg_solve_batch.launches - before
+        calls = sum(e.count for e in prof.key_averages()
+                    if e.key in ("cudaLaunchKernel", "cudaLaunchCooperativeKernel"))
+        counts[B] = (calls, rounds)
+    (c64, r64), (c1024, r1024) = counts[64], counts[1024]
+    assert r1024 >= 1 and c1024 > 0, counts
+    per_round = c64 / max(r64, 1)
+    assert c1024 <= c64 + per_round * max(r1024 - r64, 0) + 16, counts
