@@ -1,10 +1,15 @@
 #!/usr/bin/env python3
 """Where a batch of fused-path fields should go, and what bounds the batched segment, on one card.
 
-    python3 batch_probe.py [--crossover] [--scaling] [--out FILE]
+    python3 batch_probe.py [--crossover] [--scaling] [--lane T,M] [--out FILE]
+    python3 batch_probe.py --ab DIR     # DIR and this tree in turn, eight runs; then a table
+    python3 batch_probe.py --tree DIR   # one tree's batched segment times; one JSON line
+    python3 batch_probe.py --split      # where a lane-iteration's time goes
 
 Run from the repository root on a machine with one CUDA card and nvcc; with
-no flag both parts run.
+no flag ``--crossover`` and ``--scaling`` both run. ``--lane T,M`` sets the
+batched segment's geometry for the run (`ops.pcg.LANE_GEOMETRY`: T threads
+a lane, M lanes an SM).
 
 ``--crossover``: B fields of n² (n = 32, 64, 128, 256; B = 1 to 64; 2n
 oriented points a lane on circles as `chip_smoke.config3_inputs` makes
@@ -26,6 +31,28 @@ HBM's rate takes time in proportion to B from the first lanes on; one
 bound by each block's own latency takes the same time for every B up to
 the lanes the card holds at once, then steps.
 
+``--ab DIR``: the batched segment of two trees timed in turn, as
+``cycle_ab.py --ab`` does: DIR (A; for example the parent commit unpacked
+with ``git archive`` into a git-ignored directory) and this tree (B), each
+run a process of its own that builds its tree's ``csrc`` and imports its
+package (``--tree``), in the order A B B A B A A B. Each run times, back to
+back, the ``--scaling`` points at 128² (B = 1, 8, 396, 1024) and 256² (B =
+1, 396), every lane 8 iterations, and config 3's whole batch (1024 × 128²,
+tol 1e-4 from zero, the operands of ``chip_smoke.py`` phase 38's "config 3,
+every lane"), and reads the ptxas registers and spills of the batched
+kernel from its build. Prints each run's record, then per measurement each
+side's median and B/A, and the iterations of config 3's batch on each side.
+
+``--split``: where a lane-iteration's time goes. One-line variants of the
+lane body (``csrc/lane2d.cuh``, the ``SPLIT`` table: ``fine_only``, the
+cycle's work on level 0 alone, with no restriction's coarse visit, coarse
+solve or prolongation; ``no_data``, the 9-channel data term read as one
+plane) are built into ``build/batch_probe/<name>/`` and timed, with this
+tree, at the ``--ab`` scaling points (every lane 8 iterations, so the work
+per lane is the same whatever a variant does to the preconditioner), each
+run a process of its own, in the order of the table and then the table
+reversed; prints each variant's median per point beside this tree's.
+
 Prints the card and one JSON line per measurement, and writes all of them
 to ``--out`` (default ``build/batch_probe.json``).
 """
@@ -34,6 +61,7 @@ import argparse
 import importlib.util
 import json
 import statistics
+import subprocess
 import sys
 from pathlib import Path
 
@@ -44,6 +72,18 @@ REPS = 3
 SCALING = {(128, 128): [1, 8, 66, 132, 264, 396, 528, 660, 792, 1024],
            (256, 256): [1, 3, 33, 132, 264, 396, 528]}
 BUDGET = 8
+AB_SCALING = {(128, 128): [1, 8, 396, 1024], (256, 256): [1, 396]}
+ORDER = "ABBABAAB"
+# One-line variants of csrc/lane2d.cuh for --split: (old, new) substitutions.
+SPLIT = {
+    "fine_only": [
+        ("        for (; l < Lv - 1; ++l) {", "        for (; l < 1; ++l) {"),
+        ("        coarse_phase<T>(L);", "        (void)0;"),
+        ("        for (l = Lv - 2;; --l) {", "        for (l = 0;; --l) {"),
+        ("            prolong_phase<T>(L, l, z[l + 1], z[l], last);", "            (void)last;"),
+    ],
+    "no_data": [("    if (D) {", "    if (true) {")],
+}
 
 
 def helpers():
@@ -84,13 +124,15 @@ def crossover(cs, ft, device, emit):
                   first_lanes_where_batched_wins=first))
 
 
-def scaling(cs, ft, device, emit):
+def scaling(cs, ft, device, emit, points=SCALING):
+    """The batched segment at equal work per lane (tol 0, a budget of
+    BUDGET iterations) for each grid and lane count of ``points``."""
     import torch
     from field_interpolation_tpu_torch import batch as tb
     from field_interpolation_tpu_torch.multigrid import build_fused_solver_operands
     from field_interpolation_tpu_torch.ops.pcg import fused_pcg_solve_batch
     cfg = ft.SolverConfig(tol=1e-4, preconditioner="multigrid")
-    for shape, lanes in SCALING.items():
+    for shape, lanes in points.items():
         p = problems(cs, ft, tb, shape, max(lanes), device)
         coeffs, sids, Rs, inv32, lw, cfs = build_fused_solver_operands(p, cfg)
         one_lane_ms = None
@@ -114,22 +156,166 @@ def scaling(cs, ft, device, emit):
         torch.cuda.empty_cache()
 
 
+def config3_segment(cs, ft, device):
+    """Config 3's whole batch through the batched segment at tol 1e-4 from
+    zero (chip_smoke.py phase 38's "config 3, every lane"): back-to-back
+    ms and the iterations of every lane."""
+    import torch
+    from field_interpolation_tpu_torch import batch as tb
+    from field_interpolation_tpu_torch.multigrid import build_fused_solver_operands
+    from field_interpolation_tpu_torch.ops.pcg import fused_pcg_solve_batch
+    cfg = ft.SolverConfig(tol=1e-4)
+    pts, nrm = cs.config3_inputs(device)
+    p = tb.assemble_batch(ft.Grid(cs.SHAPE3B), ft.Weights(model_2=0.3), pts,
+                          torch.zeros(cs.B3, cs.N_POINTS3B, device=device), gradients=nrm)
+    coeffs, sids, Rs, inv32, lw, cfs = build_fused_solver_operands(p, cfg)
+    b = p.b
+    tol2 = (1e-4 ** 2 * torch.sum(b * b, dim=(1, 2))).contiguous()
+    budget = torch.full((cs.B3,), 2000, dtype=torch.int32, device=device)
+    args = (torch.zeros_like(b), b, tol2, budget, coeffs, sids, Rs, inv32, lw, cfg.mg_pre_smooth)
+    _, iters, _ = fused_pcg_solve_batch(*args)
+    ms = cs.batch_ms(lambda: fused_pcg_solve_batch(*args), reps=5)
+    return dict(ms=ms, iterations_sum=int(iters.sum()), iterations_max=int(iters.max()))
+
+
+def measure(tree, lane=None, config3=True):
+    """One tree's batched segment: the AB_SCALING points and config 3's
+    batch, back to back (``lane``: the geometry, where the tree has one);
+    returns the record."""
+    sys.path.insert(0, str(tree))
+    import torch
+    import field_interpolation_tpu_torch as ft
+    from field_interpolation_tpu_torch.ops import _build, pcg
+    cs = helpers()
+    cs.require(torch.cuda.is_available(), "torch.cuda.is_available() is False")
+    cs.require(Path(ft.__file__).resolve().is_relative_to(tree),
+               f"imported {ft.__file__}, not the package of {tree}")
+    if lane:
+        pcg.LANE_GEOMETRY = lane
+    device = torch.device("cuda", 0)
+    _, build_s, log = _build.build()
+    _build.library()
+    rec = dict(tree=str(tree), card=cs.card_line(), build_s=build_s,
+               registers=cs.segment_ptxas(log), lane=getattr(pcg, "LANE_GEOMETRY", None))
+    points = []
+    scaling(cs, ft, device, points.append, AB_SCALING)
+    for r in points:
+        rec[f"{r['grid'][0]}_B{r['lanes']}"] = r["ms"]
+    if config3:
+        rec["config3"] = config3_segment(cs, ft, device)
+    return rec
+
+
+def split():
+    """The SPLIT variants beside this tree at the --ab scaling points."""
+    import shutil
+    trees = {"this tree": HERE}
+    for name, subs in SPLIT.items():
+        tree = HERE / "build" / "batch_probe" / name
+        shutil.rmtree(tree, ignore_errors=True)
+        shutil.copytree(HERE / "field_interpolation_tpu_torch",
+                        tree / "field_interpolation_tpu_torch",
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        src = tree / "field_interpolation_tpu_torch" / "csrc" / "lane2d.cuh"
+        text = src.read_text()
+        for old, new in subs:
+            if text.count(old) != 1:
+                raise SystemExit(f"batch_probe --split: {name}: {old!r} is not in the source once")
+            text = text.replace(old, new)
+        src.write_text(text)
+        trees[name] = tree
+    build = [subprocess.Popen([sys.executable, "-c", "from field_interpolation_tpu_torch.ops "
+                               "import _build; _build.build()"], cwd=tree)
+             for tree in trees.values()]
+    if any(p.wait() for p in build):
+        raise SystemExit("batch_probe --split: a build failed")
+    runs = {name: [] for name in trees}
+    for name in list(trees) + list(trees)[::-1]:
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--tree",
+                               str(trees[name]), "--no-config3"], capture_output=True, text=True,
+                              timeout=900)
+        if proc.returncode:
+            raise SystemExit(f"batch_probe --split: {name} exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(json.dumps(dict(rec, variant=name)), flush=True)
+        runs[name].append(rec)
+    print(f"card {runs['this tree'][0]['card']}; ms, median of {len(runs['this tree'])} runs, "
+          f"every lane {BUDGET} iterations")
+    for g, lanes in AB_SCALING.items():
+        for B in lanes:
+            key = f"{g[0]}_B{B}"
+            print(f"{g[0]}², B = {B}: " + "  ".join(
+                f"{name} {statistics.median(r[key] for r in recs):.4f}"
+                for name, recs in runs.items()))
+
+
+def ab(other):
+    """Run ``other`` (A) and this tree (B) as A B B A B A A B; print each run and the table."""
+    runs = []
+    for side in ORDER:
+        tree = other if side == "A" else HERE
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--tree",
+                               str(tree)], capture_output=True, text=True, timeout=900)
+        sys.stderr.write(proc.stderr[-4000:])
+        if proc.returncode:
+            raise SystemExit(f"batch_probe FAILED: the run of {tree} exited "
+                             f"{proc.returncode}:\n{proc.stdout[-4000:]}")
+        rec = dict(json.loads(proc.stdout.strip().splitlines()[-1]), side=side)
+        print(json.dumps(rec), flush=True)
+        runs.append(rec)
+    print(f"A = {other}, B = {HERE}; card {runs[0]['card']}")
+    for side in "AB":
+        regs = [r["registers"] for r in runs if r["side"] == side and r["registers"]]
+        print(f"{side} ptxas [registers, spill stores, spill loads]: "
+              f"{regs[0] if regs else 'not built in these runs'}")
+    keys = [f"{g[0]}_B{B}" for g, lanes in AB_SCALING.items() for B in lanes] + ["config3"]
+    for key in keys:
+        med = {side: statistics.median(r[key]["ms"] if key == "config3" else r[key]
+                                       for r in runs if r["side"] == side) for side in "AB"}
+        label = ("config 3 batch, tol 1e-4 from zero" if key == "config3" else
+                 f"{key.split('_')[0]}², B = {key.split('B')[1]}, {BUDGET} iterations a lane")
+        print(f"{label}: A {med['A']:.4f} ms  B {med['B']:.4f} ms  B/A "
+              f"{med['B'] / med['A']:.3f}")
+    for side in "AB":
+        its = {(r["config3"]["iterations_sum"], r["config3"]["iterations_max"])
+               for r in runs if r["side"] == side}
+        print(f"config 3 iterations (sum, max) {side}: {sorted(its)}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--crossover", action="store_true")
     ap.add_argument("--scaling", action="store_true")
+    ap.add_argument("--lane", help="the batched segment's threads a lane and lanes an SM, T,M")
+    ap.add_argument("--ab", type=Path, help="the other tree (A), timed beside this one (B)")
+    ap.add_argument("--tree", type=Path, help="the tree whose batched segment to time alone")
+    ap.add_argument("--split", action="store_true", help="time the lane body's variants")
+    ap.add_argument("--no-config3", action="store_true", help="--tree: the scaling points alone")
     ap.add_argument("--out", default=str(HERE / "build" / "batch_probe.json"))
     args = ap.parse_args()
+    if args.ab:
+        ab(args.ab.resolve())
+        return 0
+    if args.split:
+        split()
+        return 0
+    lane = tuple(int(v) for v in args.lane.split(",")) if args.lane else None
+    if args.tree:
+        print(json.dumps(measure(args.tree.resolve(), lane, not args.no_config3)))
+        return 0
     both = not (args.crossover or args.scaling)
     cs = helpers()
     import torch
     cs.require(torch.cuda.is_available(), "torch.cuda.is_available() is False")
     import field_interpolation_tpu_torch as ft
-    from field_interpolation_tpu_torch.ops import _build
+    from field_interpolation_tpu_torch.ops import _build, pcg
+    if lane:
+        pcg.LANE_GEOMETRY = lane
     _build.library()
     device = torch.device("cuda", 0)
     card = cs.card_line()
-    print(f"card: {card}", flush=True)
+    print(f"card: {card}; lane geometry {pcg.LANE_GEOMETRY}", flush=True)
     out = []
 
     def emit(rec):

@@ -182,7 +182,12 @@ toolkit (``nvcc``). Phases, each fatal on failure:
     both 0 iterations and x untouched) and B = 1024 (the whole batch), W
     and Chebyshev at B = 4, 128²,
     and B = 3 at 256²; the batched apply at B = 16 and 1024 (128²) and
-    B = 4 at 32³;
+    B = 4 at 32³. Each segment record carries its lane geometry (threads a
+    lane, lanes an SM, `ops.pcg.lane_geometry`) and its shared-memory
+    plan; its printed line adds the bytes this design moves a
+    lane-iteration (`lane_iteration_bytes`, a model of the kernel's loads,
+    kept out of the record); the kernel record carries ptxas' registers
+    and spills of the batched kernel;
 39. BASELINE config 3 (bench.py:166-187): ``sdf_from_points_batch`` on
     1024 fields of 128², 256 oriented points each, tol 1e-4: every lane
     converged and finite, 8 lanes within ±2 iterations and 2e-3·max|x| of
@@ -2541,6 +2546,68 @@ def batch_segment_work(ops, x, iters, nu, wdepth, cheb):
             k * (cf + n * (apply_flops(lw[0], 2, False) + 12)))
 
 
+def segment_ptxas(log):
+    """{kernel: [registers, spill store bytes, spill load bytes]} of the
+    segment kernels from ptxas' output of a build (the spills of the kernel
+    and of the functions it calls, summed), the batched kernel's
+    instantiations as pcg_segment_batch_kernel<threads, lanes an SM>."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"pcg_segment_batch_kernelILi(\d+)ELi(\d+)E", line)
+            name = (f"pcg_segment_batch_kernel<{m[1]},{m[2]}>" if m else
+                    "pcg_segment_kernel" if "pcg_segment_kernel" in line else None)
+            if name:
+                out[name] = [0, 0, 0]
+        elif name and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            out[name][1] += nums[1]
+            out[name][2] += nums[2]
+        elif name and "Used" in line and "registers" in line:
+            out[name][0] = int(line.split("Used")[1].split()[0])
+    return out
+
+
+def lane_iteration_bytes(shapes, diags, nu, wdepth, cheb, plan):
+    """The bytes one CG iteration of one lane of the batched segment moves
+    to and from global memory, counted from csrc/lane2d.cuh's loads and
+    stores: each array a phase touches once a phase (the windows' re-reads
+    from cache not counted), nothing of what ``plan`` (`ops.pcg.lane_plan`:
+    threads, lanes an SM holds, bitmask of coarse levels in shared memory,
+    level 0's residual) keeps in shared memory. A figure from the code, not
+    a reading."""
+    mask, az0 = plan[2:4]
+    L = len(shapes)
+    n = [a * b for a, b in shapes]
+    planes = [1 if d else 9 for d in diags]
+    glob = [l == 0 or not (mask >> l) & 1 for l in range(L)]
+    gaz = [not az0 if l == 0 else glob[l] for l in range(L)]
+
+    def sweeps(l, ks, cheb_prev):
+        # a sweep reads r, sid, z_in, the data planes (and z_prev) and writes z
+        return sum((4 + planes[l] + (cheb and cheb_prev(k))) * n[l] * glob[l] for k in ks)
+
+    def visit(l):
+        if l == L - 1:  # the dense solve: the lane's inverse, r_c, z_c
+            return n[l] ** 2 + 2 * n[l] * glob[l]
+        # pre-smoothing: sweep 0 from zero reads r and sid and writes z (on
+        # level 0 the CG update does it), the others are whole sweeps
+        out = sweeps(l, range(1, nu), lambda k: k >= 2)
+        out += (3 * n[l] * glob[l] if l > 0 else 0) if nu > 0 else n[l] * glob[l]
+        out += (2 + planes[l]) * n[l] * glob[l] + n[l] * gaz[l]          # residual
+        out += n[l] * gaz[l] + n[l + 1] * glob[l + 1]                    # restriction
+        twice = l < wdepth and l + 1 < L - 1
+        for _ in range(2 if twice else 1):
+            out += visit(l + 1)
+            out += 2 * n[l] * glob[l] + n[l + 1] * glob[l + 1]           # prolongation
+        if twice:  # the W step's r −= A z on level l + 1
+            out += (3 + planes[l + 1]) * n[l + 1] * glob[l + 1]
+        return out + sweeps(l, range(nu), lambda k: k >= 1)
+
+    cg = 3 * n[0] + (10 * n[0] + n[0] * gaz[0]) + (4 * n[0] + n[0] * gaz[0] + 3 * n[0])
+    return 4 * (visit(0) + cg)
+
+
 def compare_segment_batch(label, probs, cfg, device, budget=None, plain_reps=PLAIN_REPS):
     """The batched segment kernel against its plain version at tol 1e-4 from
     x = 0 on ``probs``' fused operands, lane by lane to the single-field
@@ -2548,8 +2615,10 @@ def compare_segment_batch(label, probs, cfg, device, budget=None, plain_reps=PLA
     Timed single and back to back; returns the record."""
     from field_interpolation_tpu_torch.multigrid import (build_fused_solver_operands,
                                                          resolve_wdepth)
-    from field_interpolation_tpu_torch.ops.pcg import (fused_pcg_solve_batch,
-                                                       fused_pcg_solve_batch_plain)
+    from field_interpolation_tpu_torch.ops.cycle import level_shapes
+    from field_interpolation_tpu_torch.ops.pcg import (_sms, fused_pcg_solve_batch,
+                                                       fused_pcg_solve_batch_plain,
+                                                       lane_geometry, lane_plan)
     ops = build_fused_solver_operands(probs, cfg)
     coeffs, sids, Rs, inv32, lw, cfs = ops
     b = probs.b
@@ -2574,9 +2643,15 @@ def compare_segment_batch(label, probs, cfg, device, budget=None, plain_reps=PLA
     ms = cuda_ms(lambda: fused_pcg_solve_batch(*args, **kw))
     b2b = batch_ms(lambda: fused_pcg_solve_batch(*args, **kw))
     plain_ms = cuda_ms(lambda: fused_pcg_solve_batch_plain(*args, **kw), plain_reps)
+    shapes = level_shapes([c[0] for c in coeffs])
+    diags = [c.ndim == 3 for c in coeffs]
+    plan = lane_plan(shapes, diags, nu, wdepth, lane_geometry(B, _sms(device)))
+    lane_bytes = lane_iteration_bytes(shapes, diags, nu, wdepth, cfs is not None, plan)
     rec = dict(max_abs_err=err, max_rel_lane_err=rel, ms=ms, batch_ms=b2b, plain_ms=plain_ms,
                lanes=B, iterations_sum=int(ik.sum()), iterations_max=int(ik.max()),
-               frozen_lanes=int(frozen.sum()),
+               frozen_lanes=int(frozen.sum()), threads_per_lane=plan[0], blocks_per_lane=1,
+               lanes_per_sm=plan[1], shared_levels_mask=plan[2], shared_residual=plan[3],
+               shared_bytes=plan[4],
                **bound(*batch_segment_work(ops, b, ik, nu, wdepth, cfs is not None)))
     print(f"batched segment {label} (B={B}, {shape_str(tuple(b.shape[1:]))}, wdepth {wdepth}, "
           f"{'Chebyshev' if cfs is not None else 'Jacobi'}): iterations kernel "
@@ -2584,7 +2659,9 @@ def compare_segment_batch(label, probs, cfg, device, budget=None, plain_reps=PLA
           f"(bar 2e-3); frozen lanes {int(frozen.sum())} kept {kept}; kernel {ms:.4f} ms, "
           f"back to back {b2b:.4f} ms ({1e3 * b2b / max(int(ik.sum()), 1):.2f} us per lane "
           f"iteration), plain {plain_ms:.4f} ms; bound {rec['bound_ms']:.4f} ms "
-          f"({rec['bound_by']})")
+          f"({rec['bound_by']}); {plan[0]} threads a lane, {plan[1]} lanes an SM, shared levels "
+          f"{plan[2]:#b}, residual shared {plan[3]}, {plan[4]} B; bytes this design moves "
+          f"(model): {lane_bytes / 1e6:.3f} MB a lane-iteration")
     require(d_it <= 2, f"batched segment {label}: iterations {ik.tolist()} vs {ip.tolist()}")
     require(bool(torch.isfinite(xk).all()), f"batched segment {label}: x not finite")
     require(rel <= 2e-3, f"batched segment {label}: lane error {rel} > 2e-3·max|x|")
@@ -2968,6 +3045,7 @@ def main():
         # The batch slice: launches on config 3's run (tol 1e-4, B = 1024).
         dict(name="fused_pcg_solve_batch", route="cuda", source=src + "pcg_segment.cu",
              replaces=ref + "1484", launches=launches_b3["fused_pcg_solve_batch"],
+             ptxas={k: v for k, v in segment_ptxas(log).items() if "batch" in k},
              **{**batch_recs["seg_config3"], "max_abs_err": max(
                  batch_recs[k]["max_abs_err"] for k in ("seg_config3", "seg", "seg_w",
                                                         "seg_cheb", "seg_256"))},

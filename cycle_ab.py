@@ -3,6 +3,7 @@
 
     python3 cycle_ab.py --ab DIR    # DIR and this tree in turn, eight runs; then a table
     python3 cycle_ab.py --tree DIR  # one tree (default: this one); one JSON line
+    python3 cycle_ab.py --ab DIR --kernels  # only the segment and whole-cycle kernels
 
 Run from the repository root on a machine with one CUDA card and nvcc. DIR
 is another checkout of the repository, for example the parent commit
@@ -56,6 +57,13 @@ warm-up; b2b: 20 calls back to back):
   multi-sweep wrappers;
 - the ptxas registers of the segment, cycle and smoothing kernels (from the
   run that built them).
+
+With ``--kernels`` a run stops after the segment and whole-cycle kernels,
+and the table has their rows and the registers alone (~1 min a run).
+``--ab`` also says whether the single-field segment kernel and the
+whole-cycle kernel compile to the same machine code in the two trees
+(``cuobjdump -sass`` of each tree's library, the anonymous-namespace tags
+taken out).
 
 Only what both designs share is used: the wrappers' signatures and the
 operand builders of ``multigrid``. ``--ab`` ends with every 9-channel
@@ -244,7 +252,7 @@ def fields(h, ft, device):
     return out
 
 
-def measure(tree):
+def measure(tree, kernels_only=False):
     import numpy as np
     import torch
     sys.path.insert(0, str(tree))
@@ -291,6 +299,8 @@ def measure(tree):
             return fused_vcycle_2d(r, *ops, 3, 3)
 
         rec[name] = dict(ms=h.cuda_ms(call), b2b_ms=h.batch_ms(call))
+    if kernels_only:
+        return rec
 
     grid = ft.Grid(h.SHAPE)
     cfg = ft.SolverConfig(tol=h.TOL, preconditioner="multigrid", maxiter=2000)
@@ -319,13 +329,44 @@ def measure(tree):
     return rec
 
 
-def ab(other):
+def same_sass(trees):
+    """{kernel: whether its SASS is the same in every tree's library} of
+    the single-field segment and whole-cycle kernels; None without
+    cuobjdump."""
+    import glob
+    import hashlib
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    seen = {}
+    for tree in trees:
+        lib = max(glob.glob(str(Path(tree) / "build" / "torch_kernels" / "*.so")),
+                  key=lambda f: Path(f).stat().st_mtime)
+        sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                              check=True).stdout
+        for func in re.split(r"\n\s*Function : ", sass)[1:]:
+            name = re.sub(r"_GLOBAL__N__[0-9a-f_]+", "", func.split("\n", 1)[0].strip())
+            key = next((k for tag, k in (("mg_cycle2d_kernel", "mg_cycle2d_kernel"),
+                                         ("18pcg_segment_kernel", "pcg_segment_kernel"))
+                        if tag in name), None)
+            if key:
+                code = "\n".join(l.split("*/", 1)[-1].strip() for l in func.split("\n")[1:]
+                                 if "/*" in l)
+                code = re.sub(r"_GLOBAL__N__[0-9a-f_]+", "", code)
+                seen.setdefault(key, set()).add(hashlib.sha256(code.encode()).hexdigest())
+    return {k: len(v) == 1 for k, v in seen.items()}
+
+
+def ab(other, kernels_only=False):
     """Run ``other`` (A) and this tree (B) as A B B A B A A B; print each run and the table."""
     runs = []
     for side in ORDER:
         tree = other if side == "A" else HERE
         proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--tree",
-                               str(tree)], capture_output=True, text=True, timeout=900)
+                               str(tree)] + (["--kernels"] if kernels_only else []),
+                              capture_output=True, text=True, timeout=900)
         sys.stderr.write(proc.stderr[-4000:])
         if proc.returncode:
             raise SystemExit(f"cycle_ab FAILED: the run of {tree} exited {proc.returncode}:\n"
@@ -334,6 +375,7 @@ def ab(other):
         print(json.dumps(rec), flush=True)
         runs.append(rec)
     print(f"A = {other}, B = {HERE}; card {runs[0]['card']}")
+    print(f"same SASS in A and B: {same_sass([other, HERE])}")
     for side in "AB":
         regs = [r["registers"] for r in runs if r["side"] == side and r["registers"]]
         print(f"{side} ptxas registers: {regs[0] if regs else 'not built in these runs'}")
@@ -352,6 +394,15 @@ def ab(other):
         return statistics.median(v for r in runs if r["side"] == side
                                  for v in values(r, key, sub))
 
+    if kernels_only:
+        for key in TIMES:
+            for sub in ("b2b_ms", "ms"):
+                a, b = med("A", key, sub), med("B", key, sub)
+                print(f"{key} {sub}: A {a:.4f}  B {b:.4f}  B/A {b / a:.3f}")
+        for key in TIMES[:4]:
+            print(f"{key} iterations: A {[r[key]['iterations'] for r in runs if r['side'] == 'A']}"
+                  f" B {[r[key]['iterations'] for r in runs if r['side'] == 'B']}")
+        return
     rows = [(f"{k} {s}", k, s) for k in TIMES + PHASES + PHASES_9CH for s in ("b2b_ms", "ms")]
     rows += [("headline ms/field", "headline_ms", None), ("field A ms/field", "field_a_ms", None),
              ("headline busy_ms", "headline_ms", "busy_ms"),
@@ -393,11 +444,13 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", type=Path, default=HERE, help="the tree to measure alone")
     ap.add_argument("--ab", type=Path, help="the other tree (A), measured beside this one (B)")
+    ap.add_argument("--kernels", action="store_true",
+                    help="only the segment and whole-cycle kernels")
     opts = ap.parse_args()
     if opts.ab:
-        ab(opts.ab.resolve())
+        ab(opts.ab.resolve(), opts.kernels)
     else:
-        print(json.dumps(measure(opts.tree.resolve())))
+        print(json.dumps(measure(opts.tree.resolve(), opts.kernels)))
 
 
 if __name__ == "__main__":

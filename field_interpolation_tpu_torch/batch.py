@@ -25,7 +25,7 @@ is built (`solve_route`):
 * ``"lanes"`` — every other multigrid config (3-D grids, 2-D grids past the
   gate, ν_pre ≠ ν_post, the Jacobi coarsest solve, ``backend="xla"``), and
   a fused-path batch too small to beat one single-field solve per lane
-  (fewer than 2 lanes, or than one lane per 2048 nodes of a field:
+  (fewer than 2 lanes, or than one lane per 16384 nodes of a field:
   `_batch_wins`): lane by lane through the single-field solve and its
   kernels.
 
@@ -71,11 +71,11 @@ def _batch_config(grid: Grid, config: SolverConfig, B: int) -> SolverConfig:
 
 # The batched segment runs a lane in one block, so its time grows with a
 # lane's nodes, while a single-field solve spreads its lane over the card
-# and costs the host ~3-4.5 ms a field at 32²-256². On the H100 the batch
-# was faster from B = 2 at 32² and 64², 8 at 128² and 32 at 256²
+# and costs the host ~3.6-5.9 ms a field at 32²-256². On the H100 the batch
+# was faster from B = 2 at 32², 64² and 128² and from B = 4 at 256²
 # (batch_probe.py --crossover): it takes B ≥ 2 lanes and ≥ 1 lane per
 # _NODES_PER_LANE nodes of a field.
-_NODES_PER_LANE = 2048
+_NODES_PER_LANE = 16384
 
 
 def _batch_wins(grid: Grid, B: int) -> bool:

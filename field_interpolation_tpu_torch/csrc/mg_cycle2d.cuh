@@ -1,11 +1,10 @@
 // One symmetric multigrid cycle (V or W) on a 2-D hierarchy, damped-Jacobi
-// or Chebyshev smoothing, run either by every block of a cooperative grid
-// with grid barriers between dependent phases (GridSync: the single-field
-// PCG segment kernel, pcg_segment.cu, which runs it as its preconditioner,
-// and the whole-cycle kernel, mg_cycle2d.cu) or by one block with block
-// barriers (BlockSync: one lane of the batched PCG segment kernel, which
-// hands each block its lane's Cycle). The phases are the same code either
-// way; the policy says which threads share a phase and how it ends.
+// or Chebyshev smoothing, run by every block of a cooperative grid with
+// grid barriers between dependent phases (GridSync: the single-field PCG
+// segment kernel, pcg_segment.cu, which runs it as its preconditioner, and
+// the whole-cycle kernel, mg_cycle2d.cu). The batched segment's lanes run
+// the same cycle with phase bodies of their own for one block
+// (lane2d.cuh), on this header's Cycle and its host tables.
 //
 // The cycle of field_interpolation_tpu/ops/pallas_stencil.py:_vcycle_refs
 // (1439-1481) with _lvl_smooth (1037-1049: _smooth_inplace 1016-1027 or
@@ -76,22 +75,12 @@ struct Cycle {
 // that share it, sync() ends the phase, and a dot product's share of the
 // block goes to partials[part()] of parts() (total() sums them).
 struct GridSync {       // every block of a cooperative grid
-    static constexpr bool kOneBlock = false;
     cg::grid_group g;
     __device__ int tid() const { return blockIdx.x * blockDim.x + threadIdx.x; }
     __device__ int stride() const { return gridDim.x * blockDim.x; }
     __device__ void sync() { g.sync(); }
     __device__ int part() const { return blockIdx.x; }
     __device__ int parts() const { return gridDim.x; }
-};
-
-struct BlockSync {      // one block on its own (one lane of a batch)
-    static constexpr bool kOneBlock = true;
-    __device__ int tid() const { return threadIdx.x; }
-    __device__ int stride() const { return blockDim.x; }
-    __device__ void sync() { __syncthreads(); }
-    __device__ int part() const { return 0; }
-    __device__ int parts() const { return 1; }
 };
 
 __host__ __device__ __forceinline__ int nodes(const Level& lv) { return lv.op.n0 * lv.op.n1; }
@@ -123,16 +112,12 @@ static __device__ void write_partial(const S& s, float* partials, float v, float
 
 // After the barrier that follows write_partial: every block sums the
 // partials in the same order, so all blocks hold the same bits and take the
-// same branch. One block's total is its one partial.
+// same branch.
 template <class S>
 static __device__ float total(const S& s, const float* partials, float* sh) {
-    if constexpr (S::kOneBlock) {
-        return partials[0];
-    } else {
-        float v = 0.f;
-        for (int i = threadIdx.x; i < s.parts(); i += kThreads) v += partials[i];
-        return block_sum(v, sh);
-    }
+    float v = 0.f;
+    for (int i = threadIdx.x; i < s.parts(); i += kThreads) v += partials[i];
+    return block_sum(v, sh);
 }
 
 // Sweep k on level lv: z_out = z_in + sid·(r − A z_in) (Jacobi) or

@@ -39,24 +39,39 @@
 // The batched form (pcg_segment_batch_kernel, BASELINE config 3: 1024 fields
 // of 128²): a lane of 16,384 nodes does not need the grid, and a grid
 // barrier costs ~2.5 µs where a block barrier costs well under one. So each
-// lane is one block of an ordinary launch (blockIdx.x is the lane), the
-// phases end in __syncthreads, and the cycle and the CG loop are the same
-// code as the single-field kernel's, run under BlockSync (mg_cycle2d.cuh).
-// Each block builds its lane's Params in shared memory from the batch's
-// base pointers and 64-bit lane offsets (4096 lanes of 128² hold 2.4 GB of
-// coefficient planes); the transfer bands and level weights are shared. A
-// lane does only its own iterations and leaves the card when it stops; a
-// lane with nothing to do (budget 0, or already ‖r‖² ≤ tol2) exits before
-// its first cycle. What bounds it: each block's own latency, not HBM's
-// rate. ~400 lanes are resident (3 blocks per SM); with every lane doing
-// the same iterations, a batch of 128² lanes takes the same time at 8
-// lanes as at 1, 2x that from 66 to 396 lanes (the lanes' ~1.3 MB working
-// sets no longer fit the 50 MB L2), and steps at each further wave of ~400
-// (batch_probe.py --scaling on the H100). A lane's ~40 barrier-separated
-// phases each walk its level with 256 threads, 64 nodes a thread on the
-// fine level, so a lane costs time in proportion to its nodes: a batch of
-// few large lanes is slower than one single-field launch per lane, and
-// batch.solve_route sends it there.
+// lane is one block of an ordinary launch (blockIdx.x is the lane) running
+// lane2d.cuh's body: the same segment and cycle, with phase bodies for one
+// block. Each block builds its lane's pointers in shared memory from the
+// batch's base pointers and 64-bit lane offsets (4096 lanes of 128² hold
+// 2.4 GB of coefficient planes). A lane does only its own iterations and
+// leaves the card when it stops; a lane with nothing to do (budget 0, or
+// already ‖r‖² ≤ tol2) exits before its first cycle.
+// What bounded the first form (one block of 256 threads a lane, a node a
+// thread per stride step, every load chained through global memory): each
+// block's own latency, 1.12 ms a 128² lane-iteration.
+// What bounds it now (batch_probe.py --split on the H100): the fine level's
+// nine data planes, which each of an iteration's seven applies streams. Read
+// as one plane they leave 0.41 of a 128² lane-iteration's time at 1024 lanes
+// and 0.56 at one; the coarse levels take 0.11. The kernel is at a few
+// percent of its operations bound: a design that read each data plane once
+// an iteration, not once an apply, is the next step.
+// What the design does about it: a thread takes runs of four nodes with
+// their window of x in registers and every load issued before it is used;
+// the transfer bands, the coarse levels that fit and level 0's residual sit
+// in shared memory; dot products add no barriers and sum in one order at
+// every width; the geometry follows the batch (ops/pcg.py:lane_geometry):
+// one lane of 1024 threads an SM while the lanes fit one wave of them (the
+// soonest lane), else two lanes of 256 an SM (the most lanes a second).
+// Measured and lost (batch_probe.py, PERF.md §6): 512 threads with two lanes
+// an SM (64 registers) or one (128) and 128 with four, 1.04-1.06× the time
+// of config 3's batch at 256 × 2; 256 with three (80 registers: its spills
+// grew with the one-order dot products, 1.02× at 1024 lanes, though 0.76×
+// at 396); evict-first loads of the arrays read once
+// a phase (1.09×: more spills); the run loop unrolled by two (1.17×); level
+// 0's data copied once a launch into rows interleaving the nine channels
+// (1.03×: the copy's cost, no gain in the applies: DRAM locality does not
+// bound it).
+#include "lane2d.cuh"
 #include "mg_cycle2d.cuh"
 
 namespace {
@@ -81,9 +96,9 @@ struct Params {
 
 __device__ float* slot(const Params& p, int s) { return p.partials + s * p.capacity; }
 
-// The segment, run by every thread of the grid (GridSync) or of one block
-// (BlockSync). Loop decisions come from `total`, which every block computes
-// the same way, so all take the same exit.
+// The segment, run by every thread of the grid (GridSync). Loop decisions
+// come from `total`, which every block computes the same way, so all take
+// the same exit.
 template <class S>
 __device__ __forceinline__ void segment(const Params& p, S& s, float* sh) {
     const Level& l0 = p.cyc.lv[0];
@@ -160,30 +175,35 @@ struct Lanes {
     int cf[kMaxLevels];      // a level's [ν, 2] schedule (0: damped Jacobi)
 };
 
-__global__ void __launch_bounds__(kThreads, 3)
-pcg_segment_batch_kernel(const __grid_constant__ Params base, const __grid_constant__ Lanes st) {
-    __shared__ float sh[kThreads];
-    __shared__ float parts[kSlots];
-    __shared__ Params p;
-    const int* src = reinterpret_cast<const int*>(&base);
-    for (int i = threadIdx.x; i < static_cast<int>(sizeof(Params) / sizeof(int)); i += kThreads)
-        reinterpret_cast<int*>(&p)[i] = src[i];
-    __syncthreads();
+// The host's plan for a lane's shared memory (lane2d.cuh:plan_layout).
+struct Plan {
+    unsigned levels;         // bit l: coarse level l's arrays in shared memory
+    int az0;                 // 1: level 0's residual buffer in shared memory
+};
+
+// One lane per block of T threads (lane2d.cuh). MinBlocks blocks per SM
+// cap the registers at 64 a thread.
+template <int T, int MinBlocks>
+__global__ void __launch_bounds__(T, MinBlocks)
+pcg_segment_batch_kernel(const __grid_constant__ Params base, const __grid_constant__ Lanes st,
+                         const __grid_constant__ Plan plan) {
+    extern __shared__ float4 dyn4[];
+    __shared__ lane2d::Lane L;
+    __shared__ const float* glob[2 * kMaxLevels];
     if (threadIdx.x == 0) {
         const size_t lane = blockIdx.x;
-        const size_t n0 = static_cast<size_t>(nodes(p.cyc.lv[0]));
-        p.x_in += lane * n0;
-        p.r_in += lane * n0;
-        p.x += lane * n0;
-        p.p += lane * n0;
-        p.tol2 += lane;
-        p.budget += lane;
-        p.iters_out += lane;
-        p.rr_out += lane;
-        p.partials = parts;
-        p.capacity = 1;
-        for (int l = 0; l < p.cyc.L; ++l) {
-            Level& lv = p.cyc.lv[l];
+        const size_t n0 = static_cast<size_t>(nodes(base.cyc.lv[0]));
+        L.cyc = base.cyc;
+        L.x_in = base.x_in + lane * n0;
+        L.r_in = base.r_in + lane * n0;
+        L.x = base.x + lane * n0;
+        L.p = base.p + lane * n0;
+        L.tol2 = base.tol2[lane];
+        L.budget = base.budget[lane];
+        L.iters_out = base.iters_out + lane;
+        L.rr_out = base.rr_out + lane;
+        for (int l = 0; l < L.cyc.L; ++l) {
+            Level& lv = L.cyc.lv[l];
             const size_t n = static_cast<size_t>(nodes(lv));
             lv.op.coeff += lane * n * (lv.op.diag ? 1 : 9);
             lv.sid += lane * n;
@@ -193,12 +213,32 @@ pcg_segment_batch_kernel(const __grid_constant__ Params base, const __grid_const
             lv.zb += lane * st.scratch;
             lv.az += lane * st.scratch;
         }
-        const size_t nc = static_cast<size_t>(nodes(p.cyc.lv[p.cyc.L - 1]));
-        p.cyc.inv += lane * nc * nc;
+        const size_t nc = static_cast<size_t>(nodes(L.cyc.lv[L.cyc.L - 1]));
+        L.cyc.inv += lane * nc * nc;
+        lane2d::place(L, reinterpret_cast<float*>(dyn4),
+                      lane2d::plan_layout(L.cyc, plan.levels, plan.az0), glob);
     }
     __syncthreads();
-    BlockSync s;
-    segment(p, s, sh);
+    lane2d::fill_shared<T>(L, glob);
+    __syncthreads();
+    lane2d::segment<T>(L);
+}
+
+// The launch, refused unless an SM holds MinBlocks lanes of this plan at
+// once (the geometry the host chose the plan's share for).
+template <int T, int MinBlocks>
+cudaError_t launch_batch(int B, const Params& p, const Lanes& st, const Plan& plan, size_t bytes,
+                         void* stream) {
+    auto kernel = pcg_segment_batch_kernel<T, MinBlocks>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+    int resident = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, T, bytes);
+    if (err != cudaSuccess) return err;
+    if (resident < MinBlocks) return cudaErrorInvalidConfiguration;
+    kernel<<<B, T, bytes, static_cast<cudaStream_t>(stream)>>>(p, st, plan);
+    return cudaGetLastError();
 }
 
 }  // namespace
@@ -240,9 +280,14 @@ extern "C" int fi_pcg_segment(const long long* ptrs, const int* ints,
 //         rr_out [B], rw, p, inv [B, Nc, Nc]; then the cycle's pointers of
 //         lane 0 as fi_pcg_segment's (Rs and bands shared by the lanes).
 //   ints: B, the floats of level scratch per lane, kMaxLevels schedule
-//         strides (floats per lane; 0 under damped Jacobi), then the
-//         cycle's ints.
+//         strides (floats per lane; 0 under damped Jacobi), threads per
+//         lane, the shared-memory plan (bit l: coarse level l; then 1:
+//         level 0's residual), the blocks an SM holds (the registers a
+//         thread may use), the plan's dynamic shared-memory bytes as the
+//         host counted them, then the cycle's ints.
 //   w2s:  4 per level, shared.
+// The host's count must be lane2d.cuh:plan_layout's, and an SM must hold
+// the lanes the geometry says: else the launch fails. Nothing falls back.
 extern "C" int fi_pcg_segment_batch(const long long* ptrs, const int* ints,
                                     const float* w2s, void* stream) {
     Params p{};
@@ -250,11 +295,12 @@ extern "C" int fi_pcg_segment_batch(const long long* ptrs, const int* ints,
     const int B = ints[0];
     st.scratch = ints[1];
     for (int l = 0; l < kMaxLevels; ++l) st.cf[l] = ints[2 + l];
+    const int threads = ints[2 + kMaxLevels];
+    Plan plan{static_cast<unsigned>(ints[3 + kMaxLevels]), ints[4 + kMaxLevels]};
     if (B < 1 || st.scratch < 0 ||
-        !fill_cycle(p.cyc, ptrs + 10, ints + 2 + kMaxLevels, w2s,
+        !fill_cycle(p.cyc, ptrs + 10, ints + 7 + kMaxLevels, w2s,
                     as_ptr<const float>(ptrs[9])))
         return static_cast<int>(cudaErrorInvalidValue);
-    p.capacity = 1;
     p.x_in = as_ptr<const float>(ptrs[0]);
     p.r_in = as_ptr<const float>(ptrs[1]);
     p.tol2 = as_ptr<const float>(ptrs[2]);
@@ -264,6 +310,16 @@ extern "C" int fi_pcg_segment_batch(const long long* ptrs, const int* ints,
     p.rr_out = as_ptr<float>(ptrs[6]);
     p.cyc.lv[0].r = as_ptr<float>(ptrs[7]);
     p.p = as_ptr<float>(ptrs[8]);
-    pcg_segment_batch_kernel<<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p, st);
-    return static_cast<int>(cudaGetLastError());
+    const size_t bytes = sizeof(float) * static_cast<size_t>(
+        lane2d::plan_layout(p.cyc, plan.levels, plan.az0).words);
+    const int per_sm = ints[5 + kMaxLevels];
+    if (bytes != static_cast<size_t>(ints[6 + kMaxLevels]))
+        return static_cast<int>(cudaErrorInvalidValue);
+#define FI_LANE_GEOMETRY(T, M) \
+    if (threads == T && per_sm == M) \
+        return static_cast<int>(launch_batch<T, M>(B, p, st, plan, bytes, stream));
+    FI_LANE_GEOMETRY(1024, 1)
+    FI_LANE_GEOMETRY(256, 2)
+#undef FI_LANE_GEOMETRY
+    return static_cast<int>(cudaErrorInvalidValue);
 }

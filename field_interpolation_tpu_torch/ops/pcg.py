@@ -22,8 +22,9 @@ also in ``.cheb_launches``.
 
 ``fused_pcg_solve_batch`` is ``fused_pcg_solve`` under ``vmap`` (BASELINE
 config 3): B independent segments in one launch of the same source's
-``pcg_segment_batch_kernel``, one block per lane, each lane doing only its
-own iterations; ``fused_pcg_solve_batch_plain`` is its plain version, with
+``pcg_segment_batch_kernel``, one block per lane running the lane body of
+``csrc/lane2d.cuh`` in `lane_geometry`'s geometry with `lane_plan`'s
+shared memory, each lane doing only its own iterations; ``fused_pcg_solve_batch_plain`` is its plain version, with
 per-lane masks. Same counters on the batched wrapper.
 """
 
@@ -33,8 +34,8 @@ import torch
 
 from ..weights import Weights
 from . import _build
-from .cycle import (MAX_LEVELS, _ok, call_tables, check_cycle_operands,
-                    check_schedules, cycle_tables, mg_cycle_plain)
+from .cycle import (MAX_LEVELS, _band_table, _ok, call_tables, check_cycle_operands,
+                    check_schedules, cycle_tables, level_shapes, mg_cycle_plain)
 from .stencil import check_lanes, fused_normal_apply_plain
 
 # Upper bound on the kernel's grid; the C entry point never launches more
@@ -181,6 +182,106 @@ def fused_pcg_solve_batch_plain(x, r, tol2, iter_budget, coeffs, sids, Rs, inv_c
     return xo, k, rr
 
 
+# The batched segment's lane geometry (csrc/lane2d.cuh): threads a lane
+# and the lanes an SM holds at once (which caps a thread's registers: 64 at
+# one lane of 1024 threads, 128 at two of 256), each one of
+# csrc/pcg_segment.cu's instantiations; per lanes an SM, the shared memory
+# one lane may fill (its transfer bands, then the coarse levels and level
+# 0's residual that save the most traffic), beside the L1 the fine level's
+# windows use. `lane_geometry` picks one from the number of lanes;
+# LANE_GEOMETRY, when set, overrides it (batch_probe.py --lane). A lane's
+# result does not depend on the geometry: its dot products sum in one order
+# at every width (lane2d.cuh: Dot).
+LANE_GEOMETRIES = ((1024, 1), (256, 2))
+LANE_GEOMETRY = None
+LANE_SMEM_BYTES = {1: 160 * 1024, 2: 100 * 1024}
+_SPAN_R, _SPAN_P = 4, 2  # lane2d.cuh: kSpanR, kSpanP
+
+
+def _round4(w: int) -> int:
+    return (w + 3) & ~3
+
+
+def _lane_candidates(shapes, diags, nu, wdepth):
+    """The words of the transfer bands, and (words, traffic saved a cycle)
+    of each candidate for shared memory: coarse levels 1..L-1 (a level's
+    arrays are read and written ~4ν + 6 times a visit), then level 0's
+    residual (4 times an iteration)."""
+    bands = 0
+    for (f0, f1), (c0, c1) in zip(shapes, shapes[1:]):
+        for nf, nc in ((f0, c0), (f1, c1)):
+            bands += 2 * _round4(nc) + nc * _SPAN_R + 2 * _round4(nf) + nf * _SPAN_P
+    L = len(shapes)
+    nodes = [a * b for a, b in shapes]
+    visits = [1] * L
+    for l in range(L - 1):
+        visits[l + 1] = visits[l] * (2 if l < wdepth and l + 1 < L - 1 else 1)
+    items = [(5 * _round4(nodes[l]) + _round4(nodes[l] if diags[l] else 9 * nodes[l]),
+              visits[l] * nodes[l] * (4 * nu + 6)) for l in range(1, L)]
+    return bands, items + [(_round4(nodes[0]), 4 * nodes[0])]
+
+
+def lane_geometry(B: int, sms: int) -> tuple[int, int]:
+    """(threads a lane, lanes an SM) for B lanes on a card of ``sms`` SMs:
+    the geometry with the fewest waves of lanes (B over the lanes the card
+    holds at once, rounded up), the fewest lanes an SM on a tie; so one
+    lane of 1024 threads an SM up to one wave of them (it finishes
+    soonest), else two of 256 (more lanes a second). On the H100 this is
+    the faster geometry on the main paths (config 3's 1024 lanes, its
+    1e-6 form's 256; PERF.md §6); at 265-396 lanes one lane an SM is 3-17%
+    faster and the rule does not take it."""
+    if LANE_GEOMETRY:
+        return LANE_GEOMETRY
+    return min(LANE_GEOMETRIES, key=lambda g: (-(-B // (sms * g[1])), g[1]))
+
+
+def _sms(device) -> int:
+    """The SMs of ``device``'s card; 132 (an H100's) for a host device, where
+    only the tables are built, never launched."""
+    if torch.device(device).type != "cuda":
+        return 132
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def lane_plan(shapes, diags, nu: int = 3, wdepth: int = 0, geometry=(1024, 1)):
+    """Where a lane of the batched segment keeps its arrays: (threads, lanes
+    an SM holds, bitmask of the coarse levels held in shared memory, 1 if
+    level 0's residual is too, the dynamic shared-memory bytes).
+    ``shapes``/``diags``: per level its (n0, n1) and whether its data is the
+    diagonal; ``nu``/``wdepth`` the cycle's. Of the sets of
+    `_lane_candidates` that fit the lane's share, the one that saves the most
+    traffic. The sizes are csrc/lane2d.cuh:plan_layout's: the kernel
+    refuses a launch whose bytes differ from the plan's."""
+    threads, per_sm = geometry
+    if (threads, per_sm) not in LANE_GEOMETRIES:
+        raise ValueError(f"lane_plan: the lane geometry (threads, lanes an SM holds) must "
+                         f"be one of {LANE_GEOMETRIES}, got {(threads, per_sm)}")
+    budget = LANE_SMEM_BYTES[per_sm] // 4
+    bands, items = _lane_candidates(shapes, diags, nu, wdepth)
+    best = (0, 0, 0)  # (saved, -words, set)
+    for chosen in range(1 << len(items)):
+        words = bands + sum(items[i][0] for i in range(len(items)) if chosen >> i & 1)
+        saved = sum(items[i][1] for i in range(len(items)) if chosen >> i & 1)
+        if words <= budget and (saved, -words) > best[:2]:
+            best = (saved, -words, chosen)
+    chosen, L = best[2], len(shapes)
+    mask = sum(1 << (i + 1) for i in range(L - 1) if chosen >> i & 1)
+    az0 = chosen >> (L - 1) & 1
+    return threads, per_sm, mask, az0, -4 * best[1]
+
+
+def _check_lane_bands(shapes) -> None:
+    """The lane body keeps ≤ 4 fine indices per restriction row and ≤ 2
+    coarse per prolongation row of each axis (csrc/lane2d.cuh: kSpanR,
+    kSpanP); the hierarchy's halving keeps them there."""
+    for (f0, f1), (c0, c1) in zip(shapes, shapes[1:]):
+        for nf, nc in ((f0, c0), (f1, c1)):
+            spans = _band_table(nf, nc).reshape(-1, 2)[:, 1]
+            if spans[:nc].max() > _SPAN_R or spans[nc:].max() > _SPAN_P:
+                raise ValueError(f"fused_pcg_solve_batch: the transfer {nf} -> {nc} has "
+                                 f"bands wider than {_SPAN_R} / {_SPAN_P}")
+
+
 def _check_batch_operands(x, r, tol2, iter_budget, coeffs, sids, Rs, inv_c) -> int:
     """The batched segment's operands: every per-lane operand [B, ...]
     contiguous, each lane's as `_check_operands` wants one field's; Rs
@@ -195,6 +296,36 @@ def _check_batch_operands(x, r, tol2, iter_budget, coeffs, sids, Rs, inv_c) -> i
     check_cycle_operands("fused_pcg_solve_batch", x.device, [c[0] for c in coeffs],
                          [s[0] for s in sids], Rs, inv_c[0], bad)
     return B
+
+
+def _batch_tables(x, r, tol2, iter_budget, coeffs, sids, Rs, inv_c, level_weights, nu,
+                  wdepth, cheb_coefs):
+    """Outputs, scratch and the host tables of csrc/pcg_segment.cu's
+    ``fi_pcg_segment_batch`` (layout documented there), with
+    `lane_geometry`'s geometry and its `lane_plan`. Returns (outputs, ptrs,
+    ints, w2s, scratch); the caller keeps ``scratch`` alive until the launch
+    is queued."""
+    B, dev = x.shape[0], x.device
+    shapes = level_shapes([c[0] for c in coeffs])
+    _check_lane_bands(shapes)
+    threads, per_sm, mask, az0, nbytes = lane_plan(shapes, [c.ndim == 3 for c in coeffs], nu,
+                                                   wdepth, lane_geometry(B, _sms(dev)))
+    x_out = torch.empty_like(x)
+    iters = torch.empty(B, dtype=torch.int32, device=dev)
+    rr = torch.empty(B, dtype=torch.float32, device=dev)
+    rw, p = torch.empty_like(x), torch.empty_like(x)
+    lane0_cfs = None if cheb_coefs is None else [cf[0] for cf in cheb_coefs]
+    lp, li, w2s, scratch = cycle_tables([c[0] for c in coeffs], [s[0] for s in sids], Rs,
+                                        level_weights, nu, nu, wdepth, dev, lane0_cfs,
+                                        lanes=B)
+    cf_strides = [0] * MAX_LEVELS
+    if cheb_coefs is not None:
+        for l in range(len(coeffs) - 1):
+            cf_strides[l] = cheb_coefs[l][0].numel()
+    ptrs = [t.data_ptr() for t in (x, r, tol2, iter_budget, x_out, iters, rr, rw, p,
+                                   inv_c)] + lp
+    ints = [B, scratch.numel() // B] + cf_strides + [threads, mask, az0, per_sm, nbytes] + li
+    return (x_out, iters, rr), ptrs, ints, w2s, (rw, p, scratch)
 
 
 def fused_pcg_solve_batch(x, r, tol2, iter_budget, coeffs, sids, Rs, inv_c,
@@ -225,29 +356,16 @@ def fused_pcg_solve_batch(x, r, tol2, iter_budget, coeffs, sids, Rs, inv_c,
                                            inv_c, level_weights, nu, cheb_coefs, wdepth)
     if x.device.type != "cuda":
         raise ValueError(f"fused_pcg_solve_batch: no kernel for device {x.device}")
-    B = _check_batch_operands(x, r, tol2, iter_budget, coeffs, sids, Rs, inv_c)
+    _check_batch_operands(x, r, tol2, iter_budget, coeffs, sids, Rs, inv_c)
     lib = _build.library()
-    dev = x.device
-    x_out = torch.empty_like(x)
-    iters = torch.empty(B, dtype=torch.int32, device=dev)
-    rr = torch.empty(B, dtype=torch.float32, device=dev)
-    rw, p = torch.empty_like(x), torch.empty_like(x)
-    lane0_cfs = None if cheb_coefs is None else [cf[0] for cf in cheb_coefs]
-    lp, li, w2s, scratch = cycle_tables([c[0] for c in coeffs], [s[0] for s in sids], Rs,
-                                        level_weights, nu, nu, wdepth, dev, lane0_cfs,
-                                        lanes=B)
-    cf_strides = [0] * MAX_LEVELS
-    if cheb_coefs is not None:
-        for l in range(len(coeffs) - 1):
-            cf_strides[l] = cheb_coefs[l][0].numel()
-    ptrs = [t.data_ptr() for t in (x, r, tol2, iter_budget, x_out, iters, rr, rw, p,
-                                   inv_c)] + lp
-    ints = [B, scratch.numel() // B] + cf_strides + li
-    rc = call_tables(lib.fi_pcg_segment_batch, ptrs, ints, w2s, dev)
+    outs, ptrs, ints, w2s, _scratch = _batch_tables(x, r, tol2, iter_budget, coeffs, sids,
+                                                    Rs, inv_c, level_weights, nu, wdepth,
+                                                    cheb_coefs)
+    rc = call_tables(lib.fi_pcg_segment_batch, ptrs, ints, w2s, x.device)
     _build.check(rc, "fused_pcg_solve_batch")
     fused_pcg_solve_batch.launches += 1
     fused_pcg_solve_batch.cheb_launches += cheb_coefs is not None
-    return x_out, iters, rr
+    return outs
 
 
 fused_pcg_solve_batch.launches = fused_pcg_solve_batch.cheb_launches = 0

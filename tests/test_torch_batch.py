@@ -495,14 +495,14 @@ ROUTE_CASES = [
     ((128, 128), dict(mg_post_smooth=2), 1024, "lanes"),
     ((128, 128), dict(mg_coarse_solver="jacobi"), 1024, "lanes"),
     ((128, 128), dict(backend="xla"), 1024, "lanes"),
-    # Batch size (`_batch_wins`: B ≥ 2 and one lane per 2048 nodes):
+    # Batch size (`_batch_wins`: B ≥ 2 and one lane per 16384 nodes):
     ((32, 32), {}, 1, "lanes"),
     ((32, 32), {}, 2, "fused"),
     ((64, 64), {}, 2, "fused"),
-    ((128, 128), {}, 4, "lanes"),
-    ((128, 128), {}, 8, "fused"),
-    ((256, 256), {}, 16, "lanes"),
-    ((256, 256), {}, 32, "fused"),
+    ((128, 128), {}, 1, "lanes"),
+    ((128, 128), {}, 2, "fused"),
+    ((256, 256), {}, 3, "lanes"),
+    ((256, 256), {}, 4, "fused"),
 ]
 
 
@@ -575,3 +575,101 @@ def test_problems_from_numpy_feeds_both_packages(rng):
         one = tb.lane(tpp, i)
         np.testing.assert_allclose(tpp.residual64(x)[i].numpy(),
                                    one.residual64(x[i]).numpy(), rtol=1e-12, atol=1e-9)
+
+
+# ---- the batched segment's lane geometry (csrc/lane2d.cuh) ---------------
+
+def _hierarchy(shape, **cfg):
+    config = ft.SolverConfig(**cfg)
+    shapes = [shape] + list(tmg.level_shapes(shape, config.mg_min_size,
+                                             config.mg_coarse_solver))
+    return shapes, [False] + [config.mg_coarse_data != "galerkin"] * (len(shapes) - 1)
+
+
+@pytest.mark.parametrize("geometry", tpcg.LANE_GEOMETRIES, ids=str)
+@pytest.mark.parametrize("shape,cfg", [((128, 128), {}), ((256, 256), {}), ((97, 130), {}),
+                                       ((32, 32), {}), ((128, 128), dict(mg_cycle="w")),
+                                       ((128, 128), dict(mg_coarse_data="galerkin")),
+                                       ((64, 64), {}), ((45, 61), dict(mg_min_size=4)),
+                                       ((256, 256), dict(mg_cycle="w", mg_coarse_data="galerkin"))],
+                         ids=str)
+def test_lane_plan_fills_its_share(shape, cfg, geometry):
+    """A lane's shared memory stays within its share, never holds level
+    0's own arrays, and leaves out no candidate that would still fit."""
+    shapes, diags = _hierarchy(shape, **cfg)
+    wdepth = tmg.resolve_wdepth(ft.SolverConfig(**cfg), shape)
+    t, per_sm, mask, az0, nbytes = tpcg.lane_plan(shapes, diags, 3, wdepth, geometry)
+    assert (t, per_sm) == geometry and 0 < nbytes <= tpcg.LANE_SMEM_BYTES[per_sm]
+    assert not mask & 1 and az0 in (0, 1)
+    bands, items = tpcg._lane_candidates(shapes, diags, 3, wdepth)
+    chosen = [bool(mask >> l & 1) for l in range(1, len(shapes))] + [bool(az0)]
+    assert nbytes == 4 * (bands + sum(w for (w, _), c in zip(items, chosen) if c))
+    for (words, _), c in zip(items, chosen):
+        assert c or nbytes + 4 * words > tpcg.LANE_SMEM_BYTES[per_sm]
+
+
+@pytest.mark.parametrize("B,sms,want", [(1, 132, (1024, 1)), (132, 132, (1024, 1)),
+                                        (133, 132, (256, 2)), (256, 132, (256, 2)),
+                                        (264, 132, (256, 2)), (265, 132, (256, 2)),
+                                        (396, 132, (256, 2)), (528, 132, (256, 2)),
+                                        (700, 132, (256, 2)), (1024, 132, (256, 2)),
+                                        (41, 40, (256, 2))])
+def test_lane_geometry_follows_the_lanes(B, sms, want, monkeypatch):
+    """One wide lane an SM while the lanes fit one wave of them; past it
+    two narrow lanes an SM (the fewest waves, the fewest lanes an SM on a
+    tie): the 1e-6 form's B = 256 and config 3's 1024 among them;
+    LANE_GEOMETRY overrides the rule."""
+    assert tpcg.lane_geometry(B, sms) == want
+    monkeypatch.setattr(tpcg, "LANE_GEOMETRY", (256, 2))
+    assert tpcg.lane_geometry(1, sms) == (256, 2)
+
+
+def test_lane_plan_of_config3():
+    """Config 3's 128² lanes: one lane an SM holds the 64², 32² and 16²
+    levels (level 0's residual would pass the share); two lanes an SM the
+    16² level and level 0's residual. A 32² lane holds both its arrays."""
+    shapes, diags = _hierarchy((128, 128))
+    assert tpcg.lane_plan(shapes, diags, geometry=(1024, 1))[:4] == (1024, 1, 0b1110, 0)
+    assert tpcg.lane_plan(shapes, diags, geometry=(256, 2))[:4] == (256, 2, 0b1000, 1)
+    assert tpcg.lane_plan(*_hierarchy((32, 32)), geometry=(1024, 1))[:4] == (1024, 1, 0b10, 1)
+    with pytest.raises(ValueError, match="lane geometry"):
+        tpcg.lane_plan(shapes, diags, geometry=(512, 4))
+
+
+@pytest.mark.parametrize("shape", [(32, 32), (64, 64), (97, 130), (128, 128), (256, 256),
+                                   (18, 10), (45, 61)], ids=str)
+def test_lane_bands_fit_the_lane_body(shape):
+    """The hierarchy's transfers keep ≤ 4 fine indices per restriction row
+    and ≤ 2 coarse per prolongation row (csrc/lane2d.cuh's bands)."""
+    tpcg._check_lane_bands(_hierarchy(shape, mg_min_size=4)[0])
+
+
+def test_lane_bands_refuse_wider_transfers():
+    with pytest.raises(ValueError, match="bands wider"):
+        tpcg._check_lane_bands([(10, 10), (3, 3)])
+
+
+def test_batch_tables_carry_the_lane_plan():
+    """fi_pcg_segment_batch's int table: B, the scratch floats of a lane,
+    the schedule strides, the lane geometry and plan with the plan's bytes
+    (the kernel refuses a launch whose layout differs), then the cycle's
+    ints."""
+    rng = np.random.default_rng(3)
+    pts, nrm = _cloud(rng, 3, 40, (32, 32))
+    probs = tb.assemble_batch(ft.Grid((32, 32)), ft.Weights(model_2=0.3), torch.as_tensor(pts),
+                              torch.zeros(3, 40), gradients=torch.as_tensor(nrm))
+    coeffs, sids, Rs, inv32, lw, cfs = tmg.build_fused_solver_operands(
+        probs, ft.SolverConfig(tol=1e-4))
+    b = probs.b
+    outs, ptrs, ints, w2s, keep = tpcg._batch_tables(
+        torch.zeros_like(b), b, torch.ones(3), torch.full((3,), 5, dtype=torch.int32), coeffs,
+        sids, Rs, inv32, lw, 3, 0, cfs)
+    shapes, diags = _hierarchy((32, 32))
+    L = len(shapes)
+    assert ints[:2] == [3, keep[2].numel() // 3]
+    assert ints[2:2 + tpcg.MAX_LEVELS] == [0] * tpcg.MAX_LEVELS
+    threads, per_sm, mask, az0, nbytes = tpcg.lane_plan(shapes, diags, geometry=(1024, 1))
+    assert ints[10:15] == [threads, mask, az0, per_sm, nbytes]
+    assert ints[15:19] == [L, 3, 3, 0]
+    assert len(ptrs) == 10 + 6 * L + 6 * (L - 1) + L and len(w2s) == 4 * L
+    assert [tuple(t.shape) for t in outs] == [(3, 32, 32), (3,), (3,)]

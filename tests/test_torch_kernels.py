@@ -21,7 +21,8 @@ import field_interpolation_tpu_torch as ft
 from field_interpolation_tpu_torch import multigrid as tmg
 from field_interpolation_tpu_torch.ops.cycle import (fused_vcycle_2d, fused_wcycle_2d,
                                                      mg_cycle_plain)
-from field_interpolation_tpu_torch.ops.pcg import fused_pcg_solve, fused_pcg_solve_plain
+from field_interpolation_tpu_torch.ops.pcg import (LANE_GEOMETRIES, fused_pcg_solve,
+                                                   fused_pcg_solve_plain)
 from field_interpolation_tpu_torch.ops.smooth import (fused_smooth, fused_smooth_2d,
                                                       fused_smooth_plain, fused_sweep,
                                                       multisweep_max_halo)
@@ -919,11 +920,82 @@ def test_segment_batch_shapes(cuda, shape, B):
     _segment_batch_check(_batch(shape, cuda, B, n=200), ft.SolverConfig(tol=1e-4))
 
 
-def test_segment_batch_lanes_equal_single_kernel(cuda):
-    """Each lane of a batch runs the single-field kernel's iteration count
-    (the same cycle and CG code under block barriers), and is the same on
-    every run (fixed-order reductions)."""
+@pytest.mark.parametrize("shape,B,cfg", [((30, 42), 3, {}), ((18, 10), 4, dict(mg_min_size=4)),
+                                         ((61, 45), 2, dict(mg_smoother="chebyshev4"))], ids=str)
+def test_segment_batch_ragged_runs_and_small_coarse_levels(cuda, shape, B, cfg):
+    """Rows whose length is not a multiple of the lane body's 4-node run
+    (42, 10, 45 and their coarse levels), and coarse levels with fewer
+    nodes than a warp (18×10 → 9×5 → 5×3)."""
+    _segment_batch_check(_batch(shape, cuda, B, n=120), ft.SolverConfig(tol=1e-4, **cfg))
+
+
+@pytest.mark.parametrize("geometry", LANE_GEOMETRIES, ids=str)
+def test_segment_batch_256_w_chebyshev_galerkin(cuda, geometry, monkeypatch):
+    """Both lane widths on 256² lanes (five levels; the 128² level's arrays
+    in global memory) with a W-cycle, Chebyshev smoothing and Galerkin
+    coarse levels."""
+    from field_interpolation_tpu_torch.ops import pcg
+    monkeypatch.setattr(pcg, "LANE_GEOMETRY", geometry)
+    _segment_batch_check(_batch((256, 256), cuda, 2, n=400), ft.SolverConfig(
+        tol=1e-4, mg_cycle="w", mg_smoother="chebyshev4", mg_coarse_data="galerkin"))
+
+
+def test_segment_batch_same_bits_every_run(cuda):
+    """64 lanes twice: the same x, iterations and ‖r‖² to the bit (every
+    sum in a fixed order, no atomics)."""
     from field_interpolation_tpu_torch.ops.pcg import fused_pcg_solve_batch
+    probs = _batch((128, 128), cuda, 64)
+    coeffs, sids, Rs, inv32, lw, _ = tmg.build_fused_solver_operands(
+        probs, ft.SolverConfig(tol=1e-4))
+    b = probs.b
+    tol2 = (1e-4 ** 2 * torch.sum(b * b, dim=(1, 2))).contiguous()
+    budget = torch.full((64,), 2000, dtype=torch.int32, device=cuda)
+    args = (torch.zeros_like(b), b, tol2, budget, coeffs, sids, Rs, inv32, lw, 3)
+    x1, i1, r1 = fused_pcg_solve_batch(*args)
+    x2, i2, r2 = fused_pcg_solve_batch(*args)
+    assert torch.equal(x1, x2) and torch.equal(i1, i2) and torch.equal(r1, r2)
+    assert int(i1.min()) > 0
+
+
+def test_segment_batch_lane_bits_do_not_depend_on_the_batch(cuda, monkeypatch):
+    """A lane gives the same bits in a batch of 200 (two lanes of 256
+    threads an SM on an H100), alone (one lane of 1024 threads) and at
+    every lane geometry: its dot products sum in one order at every width."""
+    from field_interpolation_tpu_torch.ops import pcg
+    from field_interpolation_tpu_torch.ops.pcg import fused_pcg_solve_batch
+    B = 200
+    probs = _batch((128, 128), cuda, B)
+    coeffs, sids, Rs, inv32, lw, _ = tmg.build_fused_solver_operands(
+        probs, ft.SolverConfig(tol=1e-4))
+    b = probs.b
+    tol2 = (1e-4 ** 2 * torch.sum(b * b, dim=(1, 2))).contiguous()
+    budget = torch.full((B,), 2000, dtype=torch.int32, device=cuda)
+
+    def solve(lanes):
+        return fused_pcg_solve_batch(torch.zeros_like(b[lanes]), b[lanes].contiguous(),
+                                     tol2[lanes].contiguous(), budget[lanes].contiguous(),
+                                     [c[lanes].contiguous() for c in coeffs],
+                                     [s[lanes].contiguous() for s in sids], Rs,
+                                     inv32[lanes].contiguous(), lw, 3)
+    whole = solve(slice(0, B))
+    assert int(whole[1].min()) > 0
+    for i in (0, 57, B - 1):
+        alone = solve(slice(i, i + 1))
+        assert all(torch.equal(a[0], w[i]) for a, w in zip(alone, whole)), i
+    for geometry in LANE_GEOMETRIES:
+        monkeypatch.setattr(pcg, "LANE_GEOMETRY", geometry)
+        again = solve(slice(0, B))
+        assert all(torch.equal(a, w) for a, w in zip(again, whole)), geometry
+
+
+@pytest.mark.parametrize("geometry", LANE_GEOMETRIES, ids=str)
+def test_segment_batch_lanes_equal_single_kernel(cuda, geometry, monkeypatch):
+    """Each lane of a batch, at either lane width, runs the single-field
+    kernel's iteration count within ±2 (the same cycle and CG, one block a
+    lane), and is the same on every run (fixed-order reductions)."""
+    from field_interpolation_tpu_torch.ops import pcg
+    from field_interpolation_tpu_torch.ops.pcg import fused_pcg_solve_batch
+    monkeypatch.setattr(pcg, "LANE_GEOMETRY", geometry)
     probs = _batch((128, 128), cuda, 4)
     coeffs, sids, Rs, inv32, lw, cfs = tmg.build_fused_solver_operands(
         probs, ft.SolverConfig(tol=1e-4))
