@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Where a batch of fused-path fields should go, and what bounds the batched segment, on one card.
+"""Where a batch of fields should go, and what bounds the batched segment, on one card.
 
-    python3 batch_probe.py [--crossover] [--scaling] [--lane T,M] [--out FILE]
+    python3 batch_probe.py [--crossover [fused|cycle]] [--scaling] [--lane T,M] [--out FILE]
     python3 batch_probe.py --ab DIR     # DIR and this tree in turn, eight runs; then a table
     python3 batch_probe.py --tree DIR   # one tree's batched segment times; one JSON line
     python3 batch_probe.py --split      # where a lane-iteration's time goes
@@ -21,7 +21,14 @@ cooperative segment kernel spread over the card, once per lane). Each is
 the median of three host-clock times (synchronized) after a warm-up, the
 assembly excluded; both must converge every lane. Prints, per grid, the
 smallest B at which ``batched`` is faster: the data behind
-`batch.solve_route`'s rule.
+`batch.solve_route`'s rule. Then the same for the ``"cycle"`` route
+(``--crossover cycle`` alone): B fields of 32³, 64³ and 128³ (config 4's
+sphere clouds, `chip_smoke.make_sphere_cloud`, 4000·(n/128)² points a
+lane) and 496² (field A's circle clouds, 2000 points), B = 1, 2, 4, 8, 16,
+tol 1e-4, the default config, through ``cycle``
+(`solver.solve_lanes(..., fused=False)`: `pcg_batch` with the batched
+apply and cycle, one launch of each smoothing phase or whole cycle for all
+lanes) and ``lanes``: the data behind `batch._cycle_wins`.
 
 ``--scaling``: the batched segment alone at 128² (config 3's operands)
 and 256² with tol 0 and a budget of 8 iterations for every lane, so
@@ -68,6 +75,8 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 GRIDS = [(32, 32), (64, 64), (128, 128), (256, 256)]
 LANES = [1, 2, 4, 8, 16, 32, 64]
+CYCLE_GRIDS = [(32, 32, 32), (64, 64, 64), (128, 128, 128), (496, 496)]
+CYCLE_LANES = [1, 2, 4, 8, 16]
 REPS = 3
 SCALING = {(128, 128): [1, 8, 66, 132, 264, 396, 528, 660, 792, 1024],
            (256, 256): [1, 3, 33, 132, 264, 396, 528]}
@@ -99,17 +108,36 @@ def problems(cs, ft, tb, shape, B, device):
                              pts.new_zeros(pts.shape[:2]), gradients=nrm)
 
 
-def crossover(cs, ft, device, emit):
+def cycle_problems(cs, ft, tb, shape, B, device):
+    """B lanes of config 4's sphere clouds (3-D) or field A's circles (2-D)."""
+    if len(shape) == 3:
+        n = int(4000 * (shape[0] / 128) ** 2)
+        clouds = [cs.sphere_inputs(s, device, shape, n) for s in range(B)]
+    else:
+        clouds = [cs.field_a_inputs(s, device, shape) for s in range(B)]
+    pts, nrm = (cs.torch.stack([c[k] for c in clouds]) for k in (0, 1))
+    return tb.assemble_batch(ft.Grid(shape), ft.Weights(model_2=0.3), pts,
+                             pts.new_zeros(pts.shape[:2]), gradients=nrm)
+
+
+def crossover(cs, ft, device, emit, part="fused"):
+    """``part`` "fused": the batched segment against lane by lane on its
+    GRIDS; "cycle": the batched cycle against lane by lane on CYCLE_GRIDS."""
     from field_interpolation_tpu_torch import batch as tb
     from field_interpolation_tpu_torch import solver
     cfg = ft.SolverConfig(tol=1e-4, preconditioner="multigrid")
-    routes = {"batched": lambda p: solver.solve_lanes(p, cfg, fused=True),
+    routes = {"batched": lambda p: solver.solve_lanes(p, cfg, fused=part == "fused"),
               "lanes": lambda p: tb._by_lane(solver.solve, p, cfg, None)}
-    for shape in GRIDS:
+    make = problems if part == "fused" else cycle_problems
+    for shape in GRIDS if part == "fused" else CYCLE_GRIDS:
         first = None
-        for B in LANES:
-            p = problems(cs, ft, tb, shape, B, device)
-            rec = dict(part="crossover", grid=list(shape), lanes=B)
+        for B in LANES if part == "fused" else CYCLE_LANES:
+            p = make(cs, ft, tb, shape, B, device)
+            if part == "cycle":
+                cs.require(tb.solve_route(p, cfg) in ("cycle", "lanes"),
+                           f"{shape}: a fused-path grid in the cycle crossover")
+            rec = dict(part="crossover" if part == "fused" else "crossover_cycle",
+                       grid=list(shape), lanes=B)
             for name, run in routes.items():
                 _, info = run(p)
                 cs.require(bool(info.converged.all()), f"{name} {shape} B={B}: not converged")
@@ -120,7 +148,9 @@ def crossover(cs, ft, device, emit):
             if first is None and rec["batched_ms"] < rec["lanes_ms"]:
                 first = B
             emit(rec)
-        emit(dict(part="crossover_summary", grid=list(shape),
+            del p
+            cs.torch.cuda.empty_cache()
+        emit(dict(part=f"crossover_{part}_summary", grid=list(shape),
                   first_lanes_where_batched_wins=first))
 
 
@@ -285,7 +315,7 @@ def ab(other):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--crossover", action="store_true")
+    ap.add_argument("--crossover", nargs="?", const="both", choices=["both", "fused", "cycle"])
     ap.add_argument("--scaling", action="store_true")
     ap.add_argument("--lane", help="the batched segment's threads a lane and lanes an SM, T,M")
     ap.add_argument("--ab", type=Path, help="the other tree (A), timed beside this one (B)")
@@ -321,8 +351,9 @@ def main():
     def emit(rec):
         out.append(rec)
         print(json.dumps(rec), flush=True)
-    if both or args.crossover:
-        crossover(cs, ft, device, emit)
+    for part in ("fused", "cycle"):
+        if both or args.crossover in ("both", part):
+            crossover(cs, ft, device, emit, part)
     if both or args.scaling:
         scaling(cs, ft, device, emit)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -1232,12 +1232,16 @@ def counters_zero():
     counters = (fused_normal_apply, fused_normal_apply_batch, fused_smooth, fused_smooth_2d,
                 fused_pcg_solve, fused_pcg_solve_batch, fused_vcycle_2d, fused_wcycle_2d)
     moded = counters[2:]  # every kernel but the applies has a Chebyshev mode
+    laned = (fused_smooth, fused_smooth_2d, fused_vcycle_2d, fused_wcycle_2d)  # lane forms
     for c in counters:
         c.launches = 0
     for c in moded:
         c.cheb_launches = 0
+    for c in laned:
+        c.lane_launches = 0
     return lambda: {**{c.__name__: c.launches for c in counters},
-                    **{c.__name__ + "_cheb": c.cheb_launches for c in moded}}
+                    **{c.__name__ + "_cheb": c.cheb_launches for c in moded},
+                    **{c.__name__ + "_lanes": c.lane_launches for c in laned}}
 
 
 def phase_field_a(ft, device):
@@ -2852,6 +2856,320 @@ def phase_batch_lanes(ft, device):
     return dict(ms_per_field=ms / B3_LANE_BY_LANE)
 
 
+# The batched-cycle slice (phases 42-45): the lane forms of the smoothing-
+# phase, multi-sweep and whole-cycle kernels, then the batches that take the
+# "cycle" route (batch.solve_route), each with the counts set to 0 just
+# before it and read just after.
+B4 = 16                     # BASELINE config 4 in lanes (bench.py:212-254): 128³, 4000 points
+B4_CHECK = (0, 5, 10, 15)   # lanes held against their single-field solves
+B3_JACOBI = 4096            # config 3's inputs where the reference's rule picks the Jacobi coarsest
+B3_JACOBI_CHECK = (0, 1365, 2730, 4095)
+B_A, B_C = 8, 4             # field A (496²) and field C's grid (992²) in lanes
+B_A_CHECK, B_C_CHECK = (0, 3, 5, 7), (0, 3)
+SHAPE_D8 = (1024, 1024)     # 8 lanes whose level 1 is the 512² diagonal level
+LANE_REPS = 5               # timed calls of a lane kernel, single and back to back
+CYCLE_REPS = 5              # timed batches of a "cycle"-route path, after a warm-up
+
+
+def compare_lanes(label, batched, single, plain, B, bar, work, residual=False, check=None):
+    """A lane kernel on B lanes: its output within ``bar``·max|plain| of the
+    plain version on all B lanes, and the output of each lane of ``check``
+    (every lane when None) the bits of the single-field call on that lane
+    (``single(i)``); timed single and back to back beside those lanes'
+    single-field calls back to back and the plain version. Returns the
+    record."""
+    check = range(B) if check is None else check
+    got, want = batched(), plain()
+    outs, wants = (got, want) if residual else ((got,), (want,))
+    parts = (", z", ", r - A z") if residual else ("",)
+    errs = [check_close(label + part, g, w, bar) for part, g, w in zip(parts, outs, wants)]
+    for i in check:
+        one = single(i)
+        for part, g, o in zip(parts, outs, one if residual else (one,)):
+            require(torch.equal(g[i], o), f"{label}{part}: lane {i} is not the single-field "
+                    f"call's bits (max diff {float((g[i] - o).abs().max())})")
+    del got, want, outs, wants
+    ms, b2b = cuda_ms(batched, LANE_REPS), batch_ms(batched, LANE_REPS)
+    single_ms = batch_ms(lambda: [single(i) for i in check], LANE_REPS)
+    plain_ms = cuda_ms(plain, 1)
+    rec = dict(max_abs_err=max(errs), ms=ms, batch_ms=b2b, plain_ms=plain_ms,
+               single_calls_ms=single_ms, single_calls=len(check), lanes=B,
+               lanes_bitwise_equal=list(check) if len(check) < B else True, **bound(*work))
+    which = "every lane" if len(check) == B else f"lanes {list(check)}"
+    print(f"  all {B} lanes within {bar}·max|plain|; {which} the single-field call's bits; "
+          f"lane kernel {ms:.4f} ms (back to back {b2b:.4f}), {len(check)} single-field "
+          f"calls back to back {single_ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    return rec
+
+
+def stacked(inputs, seeds):
+    """(positions [B, n, D], normals [B, n, D]) of the clouds ``inputs(seed)``."""
+    clouds = [inputs(s) for s in seeds]
+    return torch.stack([c[0] for c in clouds]), torch.stack([c[1] for c in clouds])
+
+
+def lane_problems(ft, device, shape, inputs, seeds):
+    """Lanes of ``inputs(seed, device)`` clouds, assembled in one pass."""
+    from field_interpolation_tpu_torch import batch as tb
+    pts, nrm = stacked(lambda s: inputs(s, device), seeds)
+    return tb.assemble_batch(ft.Grid(shape), ft.Weights(model_2=0.3), pts,
+                             torch.zeros(pts.shape[:2], device=device), gradients=nrm)
+
+
+def phase_lane_kernels(ft, device):
+    """Phase 42: the lane forms against their plain versions on the same
+    lanes and against one single-field call a lane (bit for bit), on the
+    operands the "cycle" route gives them: the smoothing-phase kernel on
+    config 4's lumped 128³ fine level × 16 and its 64³ diagonal level × 16,
+    and on a 512² diagonal level × 8 (config 5's proxy cloud at 1024²); the
+    multi-sweep kernel on field C's 992² fine level × 4; at config 3's
+    inputs × 4096 with the Jacobi coarsest (phase 44's batch), the
+    multi-sweep kernel on the 128² fine level and the smoothing-phase
+    kernel on the 64² level and on the 16² coarsest's mg_coarse_iters
+    sweeps from zero, there the lanes B3_JACOBI_CHECK bit for bit; the
+    whole-cycle kernel, W on field A × 8 (496²) and V on the headline's
+    256² lumped hierarchy × 8. Smoothing phases ν = 3 (2e-5·max|plain|),
+    cycles on a standard-normal r (3e-5·max|plain|)."""
+    from field_interpolation_tpu_torch import multigrid as tmg
+    from field_interpolation_tpu_torch.ops.cycle import (fused_vcycle_2d, fused_wcycle_2d,
+                                                         mg_cycle_plain)
+    from field_interpolation_tpu_torch.ops.smooth import (fused_smooth, fused_smooth_2d,
+                                                          fused_smooth_plain)
+    # Drawn on the device: 4096 lanes of 128² are 67 M normals a tensor.
+    gen = torch.Generator(device=device).manual_seed(42)
+    cfg = ft.SolverConfig(tol=1e-4)
+    recs = {}
+
+    def rand(shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    def phase(key, label, coeff, sid, w, nd, fz, residual, nu=3, check=None):
+        B, multi = sid.shape[0], coeff.ndim == sid.ndim + 1 and nd == 2
+        r, z = rand(tuple(sid.shape)), rand(tuple(sid.shape))
+
+        def call(rr, zz, c, si):
+            if multi:
+                return fused_smooth_2d(rr, zz, c, si, w, nu, fz, residual=residual)
+            return fused_smooth(rr, zz, c, si, w, nd, nu, fz, residual=residual)
+        print(f"lane {'multi-sweep' if multi else 'smoothing-phase'} kernel, {label}: B={B}, "
+              f"{shape_str(tuple(sid.shape[1:]))}, ν = {nu} from {'zero' if fz else 'z'}"
+              f"{' with the residual' if residual else ''}")
+        work = tuple(B * v for v in sweep_work(r[0], coeff[0], w, nd, nu, fz,
+                                               residual=residual))
+        recs[key] = compare_lanes(
+            f"lane phase {key}", lambda: call(r, z, coeff, sid),
+            lambda i: call(r[i], z[i], coeff[i], sid[i]),
+            lambda: fused_smooth_plain(r, z, coeff, sid, w, nd, nu, fz, residual=residual),
+            B, 2e-5, work, residual, check)
+        recs[key]["multi_sweep"] = multi
+
+    def smooth_ops(probs, config=cfg):
+        prep = tmg.prepare_mg(probs, config, fused=False, kernels=True)
+        return prep.smooth_ops, [probs.weights] + [l.weights for l in prep.levels]
+
+    p4 = lane_problems(ft, device, SHAPE3, sphere_inputs, range(B4))
+    ops, lw = smooth_ops(p4)
+    del p4
+    phase("sweep_128_lumped_x16", "config 4's lumped fine level", *ops[0], lw[0], 3, True, True)
+    phase("sweep_64_diag_x16", "config 4's 64³ diagonal level", *ops[1], lw[1], 3, False, False)
+    del ops
+    p5 = lane_problems(ft, device, SHAPE_D8, lambda s, d: circle5_inputs(
+        s, d, SHAPE_D8, N_POINTS5 // 16), range(8))
+    ops, lw = smooth_ops(p5)
+    del p5
+    phase("sweep_512_diag_x8", "512² diagonal level (config 5's cloud at 1024²)", *ops[1],
+          lw[1], 2, True, False)
+    del ops
+    pc = lane_problems(ft, device, SHAPE_C, lambda s, d: field_a_inputs(
+        s, d, SHAPE_C, N_POINTS_C), range(B_C))
+    ops, lw = smooth_ops(pc)
+    del pc
+    phase("multi_992_x4", "field C's 992² fine level", *ops[0], lw[0], 2, True, True)
+    del ops
+    from field_interpolation_tpu_torch import batch as tb
+    pts, nrm = config3_inputs(device, B=B3_JACOBI)
+    grid = ft.Grid(SHAPE3B)
+    jcfg = tb._batch_config(grid, cfg, B3_JACOBI)
+    require(jcfg.mg_coarse_solver == "jacobi", "config 3 x 4096: not the Jacobi coarsest")
+    p3 = tb.assemble_batch(grid, ft.Weights(model_2=0.3), pts,
+                           torch.zeros(pts.shape[:2], device=device), gradients=nrm)
+    del pts, nrm
+    ops, lw = smooth_ops(p3, jcfg)
+    del p3
+    phase("multi_128_x4096", "config 3's 128² fine level", *ops[0], lw[0], 2, True, True,
+          check=B3_JACOBI_CHECK)
+    phase("sweep_64_x4096", "config 3's 64² level", *ops[1], lw[1], 2, True, True,
+          check=B3_JACOBI_CHECK)
+    phase("coarsest_jacobi_x4096", "config 3's Jacobi coarsest", *ops[-1], lw[-1], 2, True,
+          False, nu=jcfg.mg_coarse_iters, check=B3_JACOBI_CHECK)
+    require(recs["multi_128_x4096"]["multi_sweep"]
+            and not recs["sweep_64_x4096"]["multi_sweep"]
+            and not recs["coarsest_jacobi_x4096"]["multi_sweep"],
+            "config 3 x 4096: a level in another kernel than its path's")
+    del ops
+    torch.cuda.empty_cache()
+    for key, shape, inputs, change in [
+            ("cycle_w_496_x8", SHAPE_A, field_a_inputs, {}),
+            ("cycle_v_256_lumped_x8", SHAPE, headline_inputs,
+             dict(mg_fine_operator="lumped"))]:
+        probs = lane_problems(ft, device, shape, inputs, range(8))
+        (cops, wdepth, cfs) = tmg.whole_cycle_operands(probs, ft.SolverConfig(tol=1e-4,
+                                                                              **change))
+        del probs
+        coeffs, sids, Rs, inv32, lw = cops
+        r = rand((8,) + shape)
+        kernel = fused_wcycle_2d if wdepth else fused_vcycle_2d
+
+        def call(rr, cs, ss, inv, kernel=kernel, wdepth=wdepth):
+            if wdepth:
+                return kernel(rr, cs, ss, Rs, inv, lw, 3, wdepth=wdepth)
+            return kernel(rr, cs, ss, Rs, inv, lw, 3, 3)
+        nbytes, flops, phases = cycle_work(([c[0] for c in coeffs], [t[0] for t in sids], Rs,
+                                            inv32[0], lw), 3, 3, wdepth)
+        print(f"lane whole-cycle kernel {key}: B=8, {shape_str(shape)}, "
+              f"{'W' if wdepth else 'V'}, {len(coeffs)} levels, {phases} grid-barrier phases "
+              "for the batch (one field's)")
+        recs[key] = compare_lanes(
+            f"lane cycle {key}", lambda: call(r, coeffs, sids, inv32),
+            lambda i: call(r[i], [c[i] for c in coeffs], [t[i] for t in sids], inv32[i]),
+            lambda: mg_cycle_plain(r, coeffs, sids, Rs, inv32, lw, 3, 3, wdepth), 8, 3e-5,
+            (8 * nbytes, 8 * flops))
+        recs[key]["phases"] = phases
+        del cops, coeffs, sids, inv32, r
+    torch.cuda.empty_cache()
+    return recs
+
+
+def route_stub(ft, shape, B, device):
+    """A problem of B lanes that only the route reads (grid, dtype, lanes)."""
+    z = torch.zeros(shape, device=device)
+    c = torch.zeros((3 ** len(shape),) + shape, device=device)
+    return ft.Problem(coeff=c.expand((B,) + c.shape), b=z.expand((B,) + shape),
+                      diag=(z + 1.0).expand((B,) + shape), grid=ft.Grid(shape),
+                      weights=ft.Weights(model_2=0.3))
+
+
+def cycle_batch_path(ft, device, label, shape, pts, nrm, cfg, check, by_lane, must_see):
+    """A batch through sdf_from_points_batch on the "cycle" route: every lane
+    converged and finite; the lanes ``check`` within ±2 iterations and
+    2e-3·max|x| of their single-field solves with the batch's config; ms
+    per batch (CUDA events, median and spread of CYCLE_REPS after a
+    warm-up) and the launches per batch (counts set to 0 just before the
+    first timed batch, read just after); one field's launches (the lane of
+    the most iterations, which the batch runs to: a lane stops on its own,
+    the cycle runs on for the slowest); a profile of a batch (device busy,
+    kernels, launch calls); the lanes ``by_lane`` one after another
+    through the single-field path (warm: those of ``check`` have run).
+    Returns (launches, the single field's launches, the record)."""
+    from field_interpolation_tpu_torch import batch as tb
+    grid, w = ft.Grid(shape), ft.Weights(model_2=0.3)
+    B = pts.shape[0]
+    bcfg = tb._batch_config(grid, cfg, B)
+    require(tb.solve_route(route_stub(ft, shape, B, device), bcfg) == "cycle",
+            f"{label}: the batch does not take the cycle route")
+
+    def run():
+        return tb.sdf_from_points_batch(grid, w, pts, nrm, config=cfg)
+    run()
+    torch.cuda.synchronize()
+    read = counters_zero()
+    (x, info), first = timed(run)
+    launches = read()
+    ms = [first] + [timed(run)[1] for _ in range(CYCLE_REPS - 1)]
+    its = info.iterations
+    require(bool(info.converged.all()), f"{label}: {int((~info.converged).sum())} lanes did "
+            "not converge")
+    require(tuple(x.shape) == (B,) + shape and bool(torch.isfinite(x).all()),
+            f"{label}: fields not finite or of the wrong shape")
+    batch_check_lanes(ft, label, grid, w, pts, nrm, bcfg, x, info, check)
+    del x
+    slowest = int(torch.argmax(its))
+    read = counters_zero()
+    ft.sdf_from_points(grid, w, pts[slowest], nrm[slowest], config=bcfg)
+    one = read()
+    prof = profile_fields(f"{label} batch of {B}", [run], must_see)
+    _, lane_ms = timed(lambda: [ft.sdf_from_points(grid, w, pts[i], nrm[i], config=bcfg)
+                                for i in by_lane])
+    med, spread = statistics.median(ms), (max(ms) - min(ms)) / statistics.median(ms)
+    per_lane = lane_ms / len(by_lane)
+    print(f"{label}: {B} fields of {shape_str(shape)}, tol {cfg.tol}, coarsest "
+          f"{bcfg.mg_coarse_solver}: all converged; iterations max {int(its.max())}, mean "
+          f"{float(its.float().mean()):.2f}; {med:.3f} ms per batch (CUDA events, median of "
+          f"{len(ms)}: {', '.join(f'{t:.3f}' for t in ms)}; spread {spread:.3f} of the "
+          f"median), {med / B:.3f} ms/field; lane by "
+          f"lane {per_lane:.3f} ms/field over {len(by_lane)} lanes ({per_lane * B:.1f} ms for "
+          f"the batch at that rate); device busy {prof['busy_ms']:.3f} ms per batch, "
+          f"{prof['kernels']:.0f} kernels, {prof['launch_calls']:.0f} launch calls; launches "
+          f"per batch {launches}; one field's (lane {slowest}) {one}")
+    require(launches["fused_pcg_solve"] == 0 and launches["fused_pcg_solve_batch"] == 0,
+            f"{label}: a segment kernel ran on the cycle route")
+    return launches, one, dict(ms=med, ms_runs=ms, ms_spread=spread, ms_per_field=med / B,
+                               lane_by_lane_ms_per_field=per_lane,
+                               lane_by_lane_lanes=len(by_lane), lanes=B,
+                               iterations_max=int(its.max()),
+                               iterations_mean=float(its.float().mean()), profile=prof,
+                               coarse_solver=bcfg.mg_coarse_solver)
+
+
+def phase_config4_batch(ft, device):
+    """Phase 43: BASELINE config 4 × 16 (128³, 4000 sphere points a lane,
+    seeds 0-15, tol 1e-4) through the batched cycle: each smoothing phase
+    one lane-form launch for the batch, so its launches stay within 1.5×
+    one field's (the lane the batch runs to, its slowest)."""
+    pts, nrm = stacked(lambda s: sphere_inputs(s, device), range(B4))
+    launches, one, rec = cycle_batch_path(
+        ft, device, "config 4 x 16", SHAPE3, pts, nrm, ft.SolverConfig(tol=1e-4), B4_CHECK,
+        B4_CHECK, ("sweep kernel", "apply kernel"))
+    require(launches["fused_smooth_lanes"] == launches["fused_smooth"] > 0,
+            "config 4 x 16: smoothing phases outside the lane form")
+    require(launches["fused_smooth"] <= 1.5 * one["fused_smooth"],
+            f"config 4 x 16: {launches['fused_smooth']} smoothing launches per batch, one "
+            f"field {one['fused_smooth']}")
+    return launches, rec
+
+
+def phase_config3_jacobi(ft, device):
+    """Phase 44: config 3's inputs at B = 4096, where the reference's memory
+    rule (batch._dense_coarsest_ok) picks the Jacobi coarsest: the batched
+    cycle (the 128² fine level through the multi-sweep lane form, the
+    coarse levels and the coarsest's sweeps through the smoothing-phase
+    lane form), beside 32 lanes through the single-field path."""
+    pts, nrm = config3_inputs(device, B=B3_JACOBI)
+    launches, one, rec = cycle_batch_path(
+        ft, device, "config 3 x 4096", SHAPE3B, pts, nrm, ft.SolverConfig(tol=1e-4),
+        B3_JACOBI_CHECK, range(B3_LANE_BY_LANE),
+        ("multi-sweep kernel", "sweep kernel", "apply kernel"))
+    require(rec["coarse_solver"] == "jacobi", "config 3 x 4096: not the Jacobi coarsest")
+    require(launches["fused_smooth_2d_lanes"] == launches["fused_smooth_2d"] > 0
+            and launches["fused_smooth_lanes"] == launches["fused_smooth"] > 0,
+            "config 3 x 4096: smoothing phases outside the lane forms")
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
+def phase_fields_lanes(ft, device):
+    """Phase 45: field A × 8 (496², 2000 points a lane, seeds 0-7): the
+    whole W-cycle kernel's lane form, one launch per cycle for the batch;
+    field C's grid × 4 (992², 4000 points, seeds 0-3; the batch API takes
+    no fmg_start): the multi-sweep and smoothing-phase lane forms."""
+    pts, nrm = stacked(lambda s: field_a_inputs(s, device), range(B_A))
+    launches_a, _, rec_a = cycle_batch_path(
+        ft, device, "field A x 8", SHAPE_A, pts, nrm, ft.SolverConfig(tol=1e-4), B_A_CHECK,
+        B_A_CHECK, ("cycle kernel", "apply kernel"))
+    require(launches_a["fused_wcycle_2d_lanes"] == launches_a["fused_wcycle_2d"] > 0,
+            "field A x 8: cycles outside the whole-cycle kernel's lane form")
+    pts, nrm = stacked(lambda s: field_a_inputs(s, device, SHAPE_C, N_POINTS_C), range(B_C))
+    launches_c, _, rec_c = cycle_batch_path(
+        ft, device, "field C x 4", SHAPE_C, pts, nrm, ft.SolverConfig(tol=1e-4), B_C_CHECK,
+        B_C_CHECK, ("multi-sweep kernel", "sweep kernel", "apply kernel"))
+    require(launches_c["fused_smooth_2d_lanes"] == launches_c["fused_smooth_2d"] > 0
+            and launches_c["fused_smooth_lanes"] == launches_c["fused_smooth"] > 0,
+            "field C x 4: smoothing phases outside the lane forms")
+    torch.cuda.empty_cache()
+    return (launches_a, rec_a), (launches_c, rec_c)
+
+
 def run_phase(fn, *args, **kwargs):
     """fn(*args, **kwargs), then its wall time on a line of its own."""
     t0 = time.perf_counter()
@@ -2927,6 +3245,12 @@ def main():
     launches_b3, config3 = run_phase(phase_config3, ft, device)
     launches_b3p, config3p = run_phase(phase_config3_precise, ft, device)
     lanes3 = run_phase(phase_batch_lanes, ft, device)
+    # The batched-cycle slice: the three lane forms, then the cycle route's
+    # batches, each with the counts set to 0 just before it and read after.
+    lane_recs = run_phase(phase_lane_kernels, ft, device)
+    launches_b4, config4b = run_phase(phase_config4_batch, ft, device)
+    launches_b3j, config3j = run_phase(phase_config3_jacobi, ft, device)
+    (launches_ba, field_ab), (launches_bc, field_cb) = run_phase(phase_fields_lanes, ft, device)
 
     src = "field_interpolation_tpu_torch/csrc/"
     ref = "field_interpolation_tpu/ops/pallas_stencil.py:"
@@ -3061,6 +3385,37 @@ def main():
                                                         "apply_32_3d"))},
              b16=batch_recs["apply_16"], b4_32cubed=batch_recs["apply_32_3d"],
              precise_launches=launches_b3p["fused_normal_apply_batch"]),
+        # The batched-cycle slice: launches on its paths (config 4 x 16 and
+        # field C x 4 for the smoothing-phase form, field C x 4 and config 3
+        # x 4096 for the multi-sweep form, field A x 8 for the cycle).
+        dict(name="jacobi_sweep_lanes", route="cuda", source=src + "jacobi_sweep.cu",
+             replaces=ref + "513,1813,1959", launches=launches_b4["fused_smooth_lanes"],
+             **{**lane_recs["sweep_128_lumped_x16"], "max_abs_err": max(
+                 lane_recs[k]["max_abs_err"] for k in ("sweep_128_lumped_x16",
+                                                        "sweep_64_diag_x16",
+                                                        "sweep_512_diag_x8",
+                                                        "sweep_64_x4096",
+                                                        "coarsest_jacobi_x4096"))},
+             diag_64_x16=lane_recs["sweep_64_diag_x16"],
+             diag_512_x8=lane_recs["sweep_512_diag_x8"],
+             config3_64_x4096=lane_recs["sweep_64_x4096"],
+             config3_coarsest_x4096=lane_recs["coarsest_jacobi_x4096"],
+             field_c_launches=launches_bc["fused_smooth_lanes"],
+             config3_4096_launches=launches_b3j["fused_smooth_lanes"], config4_x16=config4b),
+        dict(name="jacobi_multisweep_2d_lanes", route="cuda",
+             source=src + "jacobi_multisweep2d.cu", replaces=ref + "653,876",
+             launches=launches_bc["fused_smooth_2d_lanes"],
+             **{**lane_recs["multi_992_x4"], "max_abs_err": max(
+                 lane_recs[k]["max_abs_err"] for k in ("multi_992_x4", "multi_128_x4096"))},
+             config3_128_x4096=lane_recs["multi_128_x4096"],
+             config3_4096_launches=launches_b3j["fused_smooth_2d_lanes"], field_c_x4=field_cb,
+             config3_x4096=config3j),
+        dict(name="mg_cycle2d_lanes", route="cuda", source=src + "mg_cycle2d.cu",
+             replaces=ref + "1052,1114,1192", launches=launches_ba["fused_wcycle_2d_lanes"],
+             **{**lane_recs["cycle_w_496_x8"], "max_abs_err": max(
+                 lane_recs[k]["max_abs_err"] for k in ("cycle_w_496_x8",
+                                                        "cycle_v_256_lumped_x8"))},
+             v_256_lumped_x8=lane_recs["cycle_v_256_lumped_x8"], field_a_x8=field_ab),
     ]
     for k in kernels:
         k["library_ms"] = None  # no one PyTorch call computes any of these functions

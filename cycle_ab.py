@@ -81,6 +81,7 @@ import argparse
 import importlib.util
 import inspect
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -329,13 +330,44 @@ def measure(tree, kernels_only=False):
     return rec
 
 
+# An anonymous namespace's mangled name (its length, then _GLOBAL__N__, a
+# hash, the source's name and a hash of its contents): it differs between
+# trees whose source differs, whatever the code.
+_ANON = re.compile(r"\d*_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}")
+
+# Template arguments of the smoothing kernels before their lane forms took a
+# last one (the lane index, false for one field).
+_SMOOTH_ARGS = {"smooth_phase_kernel": 3, "multisweep2d_kernel": 2}
+
+
+def _single_field_kernel(name):
+    """The key under which ``name`` (a mangled kernel name, namespace tags
+    taken out) is compared across trees, or None: the single-field segment
+    and whole-cycle kernels, and each single-field instantiation of the
+    smoothing kernels (their lane forms' lane argument dropped when false;
+    the lane forms themselves are not compared)."""
+    if "18pcg_segment_kernel" in name:
+        return "pcg_segment_kernel"
+    if "mg_cycle2d_kernel" in name:
+        return None if "LaneSync" in name else "mg_cycle2d_kernel"
+    m = re.search(r"(smooth_phase_kernel|multisweep2d_kernel)I((?:L[ib]\d+E)+)E", name)
+    if not m:
+        return None
+    args = re.findall(r"L[ib]\d+E", m.group(2))
+    n = _SMOOTH_ARGS[m.group(1)]
+    if len(args) > n:
+        if args[n] != "Lb0E":
+            return None
+        args = args[:n]
+    return m.group(1) + "".join(args)
+
+
 def same_sass(trees):
     """{kernel: whether its SASS is the same in every tree's library} of
-    the single-field segment and whole-cycle kernels; None without
-    cuobjdump."""
+    the single-field segment, whole-cycle and smoothing kernels; None
+    without cuobjdump."""
     import glob
     import hashlib
-    import re
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
@@ -347,16 +379,25 @@ def same_sass(trees):
         sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
                               check=True).stdout
         for func in re.split(r"\n\s*Function : ", sass)[1:]:
-            name = re.sub(r"_GLOBAL__N__[0-9a-f_]+", "", func.split("\n", 1)[0].strip())
-            key = next((k for tag, k in (("mg_cycle2d_kernel", "mg_cycle2d_kernel"),
-                                         ("18pcg_segment_kernel", "pcg_segment_kernel"))
-                        if tag in name), None)
+            name = _ANON.sub("", func.split("\n", 1)[0].strip())
+            key = _single_field_kernel(name)
             if key:
-                code = "\n".join(l.split("*/", 1)[-1].strip() for l in func.split("\n")[1:]
-                                 if "/*" in l)
-                code = re.sub(r"_GLOBAL__N__[0-9a-f_]+", "", code)
-                seen.setdefault(key, set()).add(hashlib.sha256(code.encode()).hexdigest())
+                seen.setdefault(key, set()).add(
+                    hashlib.sha256(sass_code(func).encode()).hexdigest())
     return {k: len(v) == 1 for k, v in seen.items()}
+
+
+def sass_code(func):
+    """A function's instructions from ``cuobjdump -sass`` (after its
+    "Function : " line), with what differs between trees whose code is the
+    same taken out: the column padding and encodings, namespace tags, and
+    the file-wide numbers of branch labels, renumbered in order of first
+    use."""
+    code = "\n".join(" ".join(l.split("*/", 1)[-1].split(";", 1)[0].split())
+                     for l in func.split("\n")[1:] if "/*" in l)
+    labels = {}
+    return re.sub(r"\.L_x_\d+", lambda m: labels.setdefault(m.group(0), f"L{len(labels)}"),
+                  _ANON.sub("", code))
 
 
 def ab(other, kernels_only=False):

@@ -22,12 +22,19 @@ is built (`solve_route`):
   lanes, one block per lane, plus one `fused_normal_apply_batch`;
 * ``"pcg"`` — ``preconditioner="jacobi"`` or ``"none"``: `solver.pcg_batch`
   with per-lane scalars and masks through `fused_normal_apply_batch`;
-* ``"lanes"`` — every other multigrid config (3-D grids, 2-D grids past the
-  gate, ν_pre ≠ ν_post, the Jacobi coarsest solve, ``backend="xla"``), and
-  a fused-path batch too small to beat one single-field solve per lane
-  (fewer than 2 lanes, or than one lane per 16384 nodes of a field:
-  `_batch_wins`): lane by lane through the single-field solve and its
-  kernels.
+* ``"cycle"`` — every other multigrid config (3-D grids, 2-D grids past the
+  gate or the fused-operand budget, ν_pre ≠ ν_post, the Jacobi coarsest
+  solve, ``backend="xla"``): `solver.pcg_batch` with the batched apply and
+  the multigrid cycle of all lanes at once, the reference's cycle under
+  ``vmap`` (`multigrid.make_vcycle_preconditioner` on lanes): each
+  smoothing phase ONE `fused_smooth` / `fused_smooth_2d` call, or each
+  whole cycle ONE `fused_wcycle_2d` / `fused_vcycle_2d` call, for every
+  lane, transfers and the dense coarsest solve batched plain ops;
+* ``"lanes"`` — where one single-field solve per lane was measured faster
+  (`_cycle_wins`, `_batch_wins`): a fused-path batch of fewer than 2 lanes,
+  or than one lane per 16384 nodes of a field, and a single lane of any
+  other multigrid config: lane by lane through the single-field solve and
+  its kernels.
 
 Assembly is batched in every route: one scatter for all lanes.
 """
@@ -84,20 +91,33 @@ def _batch_wins(grid: Grid, B: int) -> bool:
     return B >= 2 and B * _NODES_PER_LANE >= math.prod(grid.shape)
 
 
+# The batched cycle against one single-field solve per lane (NVIDIA H100
+# 80GB HBM3 at 700 W; batch_probe.py --crossover cycle, B = 1-16 at 32³,
+# 64³, 128³ and 496²): faster from B = 2 on every grid (0.63-0.68× the time
+# there), slower at B = 1 (1.16-1.80×: pcg_batch's per-lane bookkeeping).
+# So the rule needs B alone.
+def _cycle_wins(B: int) -> bool:
+    """Whether B lanes go faster through the batched cycle than one
+    single-field solve each."""
+    return B >= 2
+
+
 def solve_route(problems: Problem, config: SolverConfig) -> str:
-    """The route ("fused", "pcg" or "lanes") a batch of ``problems`` takes under
-    ``config`` (after `_batch_config`), from the grid, dtype, config and
-    number of lanes alone: the batched fused segment where a single field
-    takes the fused segment (`solver._fused_solver_ops`:
+    """The route ("fused", "cycle", "pcg" or "lanes") a batch of ``problems``
+    takes under ``config`` (after `_batch_config`), from the grid, dtype,
+    config and number of lanes alone: the batched fused segment where a
+    single field takes the fused segment (`solver._fused_solver_ops`:
     `multigrid._fused_gate` and `multigrid.fused_levels_ok`) and the batch
-    is large enough to beat a single-field solve per lane (`_batch_wins`)."""
+    is large enough to beat a single-field solve per lane (`_batch_wins`);
+    the batched cycle for every other multigrid config where it beats one
+    (`_cycle_wins`)."""
     if config.preconditioner != "multigrid":
         return "pcg"
+    B = _lanes(problems)
     if (config.backend != "xla" and _fused_gate(problems, config)
-            and fused_levels_ok(problems.grid.shape, config)
-            and _batch_wins(problems.grid, _lanes(problems))):
-        return "fused"
-    return "lanes"
+            and fused_levels_ok(problems.grid.shape, config)):
+        return "fused" if _batch_wins(problems.grid, B) else "lanes"
+    return "cycle" if _cycle_wins(B) else "lanes"
 
 
 def _lanes(problems) -> int:

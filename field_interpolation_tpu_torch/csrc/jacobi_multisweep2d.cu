@@ -72,6 +72,23 @@
 // Rows per block are set per launch so that the grid is about one wave of
 // resident blocks (two per SM), down to kMinRows rows (with 64, grids of
 // about 1000² left most SMs one block).
+//
+// Lanes (the same kernels under vmap, the batched cycle's smoothing phases):
+// B independent phases in the launches of one, the lane from blockIdx.z,
+// which the strips (x) and row segments (y) leave free; the ring in shared
+// memory stays a block's own. Lane b's arrays (r, z, z_prev, the outputs,
+// sid, the nine data planes and the schedule) start b lanes past lane 0's,
+// with 64-bit lane offsets and 32-bit node indices within a lane. The
+// float4 path needs every lane's rows 16-byte aligned: n1 % 4 == 0 makes a
+// lane (n0·n1 floats) and its nine planes whole 16-byte pieces, so the
+// host's test on the base pointers and n1 holds for every lane, and a
+// ragged batch (1000 × 1030) takes the scalar path for the whole launch.
+// The rows per block shrink with B to keep about one wave. The lane offsets
+// are a template parameter (kLaneIndex), so one field (B = 1) runs the kernel
+// without them: the shifted pointers took its registers from 96 to 124 and
+// its 4096² phase ~15% slower (NVIDIA H100 80GB HBM3, 700 W). A lane's
+// arithmetic is the single field's, node for node, whatever block computes
+// it: its output is the same bits.
 #include <algorithm>
 #include <cstdint>
 
@@ -114,6 +131,8 @@ struct Strip {
     int seg;             // output rows per block
     int ring;            // kR: rows of the operand ring, a power of two
     int vec;             // 1: every grid row is 16-byte aligned (n1 % 4 == 0)
+    int lanes;           // B: lane blockIdx.z's arrays start that many lanes past lane 0's
+    int lane_cf;         // floats a lane of the schedule
 };
 
 __device__ __forceinline__ unsigned smem_addr(const float* p) {
@@ -160,7 +179,7 @@ __device__ __forceinline__ const float* operand_plane(const Strip& st, int p) {
                  : p == kPlaneR ? st.r : p == kPlaneSid ? st.sid : st.z;
 }
 
-template <int kRho, bool kCheb>
+template <int kRho, bool kCheb, bool kLaneIndex>
 __global__ void __launch_bounds__(kLanes * (kMaxHalo / kRho) + 32)
 multisweep2d_kernel(Strip st) {
     constexpr int L = kRho + 1;  // rows between one stage's row and the next stage's
@@ -168,6 +187,19 @@ multisweep2d_kernel(Strip st) {
     // Shared memory: the operand planes 0-10 as [11][kR][kW], the loaded z
     // as [kR][kZRow], then stage q's z ring as [RZ][kZRow], q = 1 .. S − 1.
     extern __shared__ __align__(16) float smem[];
+    if constexpr (kLaneIndex) {  // the block's lane: its arrays start blockIdx.z lanes past lane 0's
+        const size_t b = blockIdx.z;
+        const size_t at = b * static_cast<size_t>(st.op.n0) * st.op.n1;
+        st.r += at;
+        st.sid += at;
+        st.op.coeff += 9 * at;
+        if (st.z != nullptr) st.z += at;
+        if (st.zprev != nullptr) st.zprev += at;
+        if (st.out != nullptr) st.out += at;
+        if (st.res != nullptr) st.res += at;
+        if (st.zprev_out != nullptr) st.zprev_out += at;
+        if (st.cf != nullptr) st.cf += b * st.lane_cf;
+    }
     const int R = st.ring, S = st.stages, n0 = st.op.n0, n1 = st.op.n1;
     const int lane = threadIdx.x % kLanes;
     const int s = threadIdx.x / kLanes + 1;  // the thread's stage: one warp each
@@ -396,7 +428,7 @@ multisweep2d_kernel(Strip st) {
     }
 }
 
-template <int kRho, bool kCheb>
+template <int kRho, bool kCheb, bool kLaneIndex>
 cudaError_t launch_strips(Strip st, cudaStream_t stream) {
     const int S = st.stages, L = kRho + 1;
     // The ring holds a row from its copy, kPrefetch steps ahead, to its last
@@ -410,7 +442,7 @@ cudaError_t launch_strips(Strip st, cudaStream_t stream) {
                             + static_cast<size_t>(std::max(S - 1, 0)) * kZRing<kRho>) * kZRow)
                         * sizeof(float);
     const int threads = kLanes * std::max(S, 1) + 32;  // the stages and the copying warp
-    auto kernel = multisweep2d_kernel<kRho, kCheb>;
+    auto kernel = multisweep2d_kernel<kRho, kCheb, kLaneIndex>;
     // Above 48 KB of shared memory a block needs the opt-in (per device, so
     // set at every launch; it costs no device work).
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -424,20 +456,26 @@ cudaError_t launch_strips(Strip st, cudaStream_t stream) {
     const int n0 = st.op.n0, n1 = st.op.n1;
     st.hp = (S * kRho + 3) & ~3;
     const int strips = (n1 + kW - 2 * st.hp - 1) / (kW - 2 * st.hp);
-    // About one wave of resident blocks; a refused launch (per_sm = 0) fails below.
-    const int segs = std::max(1, std::min((n0 + kMinRows - 1) / kMinRows, per_sm * sms / strips));
+    // About one wave of resident blocks over all lanes; a refused launch
+    // (per_sm = 0) fails below.
+    const int segs = std::max(1, std::min((n0 + kMinRows - 1) / kMinRows,
+                                          per_sm * sms / (strips * st.lanes)));
     st.seg = (n0 + segs - 1) / segs;
-    const dim3 grid(strips, (n0 + st.seg - 1) / st.seg);
-    multisweep2d_kernel<kRho, kCheb><<<grid, threads, smem, stream>>>(st);
+    const dim3 grid(strips, (n0 + st.seg - 1) / st.seg, st.lanes);
+    kernel<<<grid, threads, smem, stream>>>(st);
     return cudaGetLastError();
 }
 
+template <bool kLaneIndex>
 cudaError_t launch_strips(const Strip& st, int rho, cudaStream_t stream) {
     const bool cheb = st.cf != nullptr;
     switch (rho) {
-        case 1: return cheb ? launch_strips<1, true>(st, stream) : launch_strips<1, false>(st, stream);
-        case 2: return cheb ? launch_strips<2, true>(st, stream) : launch_strips<2, false>(st, stream);
-        default: return cheb ? launch_strips<3, true>(st, stream) : launch_strips<3, false>(st, stream);
+        case 1: return cheb ? launch_strips<1, true, kLaneIndex>(st, stream)
+                            : launch_strips<1, false, kLaneIndex>(st, stream);
+        case 2: return cheb ? launch_strips<2, true, kLaneIndex>(st, stream)
+                            : launch_strips<2, false, kLaneIndex>(st, stream);
+        default: return cheb ? launch_strips<3, true, kLaneIndex>(st, stream)
+                             : launch_strips<3, false, kLaneIndex>(st, stream);
     }
 }
 
@@ -451,8 +489,10 @@ bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 
 extern "C" int fi_multisweep2d_max_halo() { return kMaxHalo; }
 
 // One smoothing phase of `count` sweeps on an n0 × n1 grid with the [9, n0,
-// n1] data stencil, and then, where res is not null, res = r − A z_out.
-// cf null: damped Jacobi; else the [ν, 2] Chebyshev schedule on the device.
+// n1] data stencil, and then, where res is not null, res = r − A z_out; on B
+// lanes (≤ 65,535, gridDim.z), every array [B, ...] contiguous (one field is
+// B = 1). cf null: damped Jacobi; else the [ν, 2] Chebyshev schedule on the
+// device, cf_lane floats a lane.
 // from_zero: the first of the `count` sweeps is the from-zero step (z is not
 // read; count ≥ 1); else the sweeps start from z with z_prev = z. The
 // phase's z lands in zout (not written when count == 0 from z). A launch
@@ -463,13 +503,13 @@ extern "C" int fi_multisweep2d_max_halo() { return kMaxHalo; }
 // launches enqueued on `stream`. Returns a cudaError_t.
 extern "C" int fi_multisweep2d_phase(const float* r, const float* z, const float* coeff,
                                      const float* sid, float* zout, float* tmp, float* prev_a,
-                                     float* prev_b, float* res, int n0, int n1, float w2_0,
-                                     float w2_1, float w2_2, float w2_3, int rho,
-                                     const float* cf, int count, int from_zero, int* launches,
-                                     void* stream) {
+                                     float* prev_b, float* res, int B, int n0, int n1,
+                                     float w2_0, float w2_1, float w2_2, float w2_3, int rho,
+                                     const float* cf, int cf_lane, int count, int from_zero,
+                                     int* launches, void* stream) {
     *launches = 0;
     const int reading = count - (from_zero ? 1 : 0);  // sweeps that read neighbours
-    if (rho < 1 || rho > 3 || reading < 0 || n0 < 1 || n1 < 1)
+    if (rho < 1 || rho > 3 || reading < 0 || n0 < 1 || n1 < 1 || B < 1 || B > 65535)
         return static_cast<int>(cudaErrorInvalidValue);
     if (!from_zero && count == 0 && res == nullptr) return static_cast<int>(cudaSuccess);
     const int per = kMaxHalo / rho;
@@ -499,8 +539,10 @@ extern "C" int fi_multisweep2d_phase(const float* r, const float* z, const float
                 Strip st{r, src, sid, cf, prev, dst, last ? res : nullptr, pout, op,
                          stages, sweeps, row + (src == nullptr ? 1 : 0), 0, 0, 0,
                          vec && aligned16(src) && aligned16(prev) && aligned16(dst)
-                                 && aligned16(res) && aligned16(pout) ? 1 : 0};
-                const cudaError_t err = launch_strips(st, rho, s);
+                                 && aligned16(res) && aligned16(pout) ? 1 : 0,
+                         B, cf_lane};
+                const cudaError_t err = B > 1 ? launch_strips<true>(st, rho, s)
+                                              : launch_strips<false>(st, rho, s);
                 if (err != cudaSuccess) return -static_cast<int>(err);
                 ++*launches;
             }

@@ -57,6 +57,18 @@
 // about 3.4 loads per node at ρ = 2 in 3-D, 1.3 in 2-D. On the multigrid's
 // coarse levels a step is a few µs of launch latency whatever it moves, so
 // the number of steps per phase, not the bytes, bounds those.
+//
+// Lanes (the same kernels under vmap, the batched cycle's smoothing phases):
+// B independent phases in the launches of one, each step one launch for all
+// lanes. Lane b's arrays (r, z, z_prev, the outputs, sid, the data term and
+// the schedule) start b lanes past lane 0's, with 64-bit lane offsets and
+// 32-bit node indices within a lane, as normal_apply.cu's lanes. The lane is
+// folded into blockIdx.x (lane · tiles + tile along the minor axis), whose
+// limit is 2³¹ − 1: in 3-D blockIdx.z already counts the 4-plane tiles, so
+// 4096 lanes of 128³ (32 of them) would pass gridDim.z's 65,535. The lane
+// offsets are a template parameter (kLanes), so one field (B = 1) runs the
+// kernel without them. A lane's arithmetic is the single field's, so its
+// output is the same bits.
 #include "normal_apply.cuh"
 
 namespace {
@@ -70,13 +82,18 @@ constexpr int kMaxHalo = 3;  // the widest stencil: order-3 smoothness
 enum Mode { kJacobi, kChebyshev, kResidual };
 enum Prev { kPrevMemory, kPrevZero, kPrevFromZero };  // where z_prev comes from
 
-// The operands every step of a phase shares.
+// The operands every step of a phase shares (lane 0's).
 struct Phase {
     const float* r;
     const float* sid;
     const float* cf;  // the Chebyshev schedule; null: damped Jacobi
     ApplyOp op;
     int halo;
+    size_t lane_nodes;  // floats a lane of r, sid, z and the outputs
+    size_t lane_coeff;  // floats a lane of the data term
+    int lane_cf;        // floats a lane of the schedule
+    int tiles;          // blocks a lane along the minor axis: blockIdx.x = lane·tiles + tile
+    int lanes;
 };
 
 // One step. z: the z that the step reads, or null for z₁ = c·sid·r computed
@@ -86,7 +103,7 @@ struct Phase {
 // null. zout may be zprev, so neither carries __restrict__. kHalo is the
 // operator's radius, a template parameter so that the tile's extents are
 // constants and the load's index arithmetic is multiplies and shifts.
-template <int D, int kMode, int kHalo>
+template <int D, int kMode, int kHalo, bool kLanes>
 __global__ void __launch_bounds__(kTX * kTY)
 smooth_phase_kernel(Phase ph, const float* z, const float* zprev, int prev, int k,
                     float* zout, float* __restrict__ res) {
@@ -96,22 +113,33 @@ smooth_phase_kernel(Phase ph, const float* z, const float* zprev, int prev, int 
     constexpr int e2 = kTX + 2 * kHalo;
     constexpr int h0 = D == 3 ? kHalo : 0;
     __shared__ float tile[e0 * e1 * e2];
-    const ApplyOp& op = ph.op;
+    // The block's lane, and its arrays.
+    const int lane = kLanes ? blockIdx.x / ph.tiles : 0;
+    const size_t at = lane * ph.lane_nodes;
+    ApplyOp op = ph.op;
+    op.coeff += lane * ph.lane_coeff;
+    const float* r = ph.r + at;
+    const float* sid = ph.sid + at;
+    const float* cf = ph.cf == nullptr ? nullptr : ph.cf + static_cast<size_t>(lane) * ph.lane_cf;
+    if (z != nullptr) z += at;
+    if (zprev != nullptr) zprev += at;
+    if (zout != nullptr) zout += at;
+    if (res != nullptr) res += at;
     const int tx = threadIdx.x, ty = threadIdx.y;
-    const float c0 = ph.cf == nullptr ? 1.f : ph.cf[1];  // z₁ = c0·sid·r
+    const float c0 = cf == nullptr ? 1.f : cf[1];  // z₁ = c0·sid·r
     const int n0 = D == 3 ? op.n0 : 1;
     const int n1 = D == 3 ? op.n1 : op.n0;
     const int n2 = D == 3 ? op.n2 : op.n1;
     const int o0 = D == 3 ? blockIdx.z * kPlanes : 0;
     const int o1 = blockIdx.y * (D == 3 ? kTY : kTY * kRows);
-    const int o2 = blockIdx.x * kTX;
+    const int o2 = (blockIdx.x - lane * ph.tiles) * kTX;
     for (int t = ty * kTX + tx; t < e0 * e1 * e2; t += kTX * kTY) {
         const int a2 = t % e2, a1 = (t / e2) % e1, a0 = t / (e1 * e2);
         const int g0 = o0 - h0 + a0, g1 = o1 - kHalo + a1, g2 = o2 - kHalo + a2;
         float v = 0.f;  // outside the grid: never read
         if (g0 >= 0 && g0 < n0 && g1 >= 0 && g1 < n1 && g2 >= 0 && g2 < n2) {
             const int g = (g0 * n1 + g1) * n2 + g2;
-            v = z != nullptr ? z[g] : c0 * (ph.sid[g] * ph.r[g]);
+            v = z != nullptr ? z[g] : c0 * (sid[g] * r[g]);
         }
         tile[t] = v;
     }
@@ -132,49 +160,56 @@ smooth_phase_kernel(Phase ph, const float* z, const float* zprev, int prev, int 
         }
         const float az = D == 3 ? apply_at(op, tile, t, e1 * e2, e2, g, i0, i1, i2)
                                 : apply_at(op, tile, t, e2, g, i1, i2);
-        const float ri = ph.r[g];
+        const float ri = r[g];
         if (kMode == kResidual) {
             res[g] = ri - az;
         } else if (kMode == kJacobi) {
-            zout[g] = zi + ph.sid[g] * (ri - az);
+            zout[g] = zi + sid[g] * (ri - az);
         } else {
             const float zp = prev == kPrevMemory ? zprev[g]
                              : prev == kPrevZero ? 0.f
-                                                 : c0 * (ph.sid[g] * ri);
-            zout[g] = zi + (ph.cf[2 * k] * (zi - zp)
-                            + ph.cf[2 * k + 1] * (ph.sid[g] * (ri - az)));
+                                                 : c0 * (sid[g] * ri);
+            zout[g] = zi + (cf[2 * k] * (zi - zp) + cf[2 * k + 1] * (sid[g] * (ri - az)));
         }
     }
 }
 
-template <int D, int kHalo>
+template <int D, int kHalo, bool kLanes>
 void launch_kernel(int mode, const Phase& ph, cudaStream_t s, const float* z,
                    const float* zprev, int prev, int k, float* zout, float* res) {
     const dim3 block(kTX, kTY);
-    const dim3 grid = D == 3 ? dim3((ph.op.n2 + kTX - 1) / kTX, (ph.op.n1 + kTY - 1) / kTY,
-                                    (ph.op.n0 + kPlanes - 1) / kPlanes)
-                             : dim3((ph.op.n1 + kTX - 1) / kTX,
-                                    (ph.op.n0 + kTY * kRows - 1) / (kTY * kRows));
+    const unsigned x = static_cast<unsigned>(ph.tiles) * static_cast<unsigned>(ph.lanes);
+    const dim3 grid = D == 3 ? dim3(x, (ph.op.n1 + kTY - 1) / kTY, (ph.op.n0 + kPlanes - 1) / kPlanes)
+                             : dim3(x, (ph.op.n0 + kTY * kRows - 1) / (kTY * kRows));
     if (mode == kJacobi)
-        smooth_phase_kernel<D, kJacobi, kHalo><<<grid, block, 0, s>>>(ph, z, zprev, prev, k,
-                                                                       zout, res);
+        smooth_phase_kernel<D, kJacobi, kHalo, kLanes><<<grid, block, 0, s>>>(
+            ph, z, zprev, prev, k, zout, res);
     else if (mode == kChebyshev)
-        smooth_phase_kernel<D, kChebyshev, kHalo><<<grid, block, 0, s>>>(ph, z, zprev, prev,
-                                                                          k, zout, res);
+        smooth_phase_kernel<D, kChebyshev, kHalo, kLanes><<<grid, block, 0, s>>>(
+            ph, z, zprev, prev, k, zout, res);
     else
-        smooth_phase_kernel<D, kResidual, kHalo><<<grid, block, 0, s>>>(ph, z, zprev, prev, k,
-                                                                         zout, res);
+        smooth_phase_kernel<D, kResidual, kHalo, kLanes><<<grid, block, 0, s>>>(
+            ph, z, zprev, prev, k, zout, res);
+}
+
+template <int D, bool kLanes>
+void launch_halo(int mode, const Phase& ph, cudaStream_t s, const float* z,
+                 const float* zprev, int prev, int k, float* zout, float* res) {
+    switch (ph.halo) {
+        case 0: launch_kernel<D, 0, kLanes>(mode, ph, s, z, zprev, prev, k, zout, res); break;
+        case 1: launch_kernel<D, 1, kLanes>(mode, ph, s, z, zprev, prev, k, zout, res); break;
+        case 2: launch_kernel<D, 2, kLanes>(mode, ph, s, z, zprev, prev, k, zout, res); break;
+        default: launch_kernel<D, 3, kLanes>(mode, ph, s, z, zprev, prev, k, zout, res); break;
+    }
 }
 
 template <int D>
 cudaError_t launch_step(int mode, const Phase& ph, cudaStream_t s, const float* z,
                         const float* zprev, int prev, int k, float* zout, float* res) {
-    switch (ph.halo) {
-        case 0: launch_kernel<D, 0>(mode, ph, s, z, zprev, prev, k, zout, res); break;
-        case 1: launch_kernel<D, 1>(mode, ph, s, z, zprev, prev, k, zout, res); break;
-        case 2: launch_kernel<D, 2>(mode, ph, s, z, zprev, prev, k, zout, res); break;
-        default: launch_kernel<D, 3>(mode, ph, s, z, zprev, prev, k, zout, res); break;
-    }
+    if (ph.lanes > 1)
+        launch_halo<D, true>(mode, ph, s, z, zprev, prev, k, zout, res);
+    else
+        launch_halo<D, false>(mode, ph, s, z, zprev, prev, k, zout, res);
     return cudaGetLastError();
 }
 
@@ -190,8 +225,10 @@ int operator_radius(const ApplyOp& op) {
 }  // namespace
 
 // One smoothing phase of `count` sweeps on an (n0, n1[, n2]) grid (ndim 2:
-// n2 ignored), and then, where res is not null, res = r − A z_out.
-// cf null: damped Jacobi; else the [ν, 2] Chebyshev schedule on the device.
+// n2 ignored), and then, where res is not null, res = r − A z_out; on B
+// lanes, every array [B, ...] contiguous (one field is B = 1).
+// cf null: damped Jacobi; else the [ν, 2] Chebyshev schedule on the device,
+// cf_lane floats a lane.
 // from_zero: the first of the `count` sweeps is the from-zero step
 // z₁ = c·sid·r (z is not read; count ≥ 1); else the sweeps start from z,
 // z_prev = z. The phase's z lands in zout (not written when count == 0,
@@ -200,16 +237,23 @@ int operator_radius(const ApplyOp& op) {
 // launches enqueued on `stream`. Returns a cudaError_t.
 extern "C" int fi_smooth_phase(const float* r, const float* z, const float* coeff,
                                const float* sid, float* zout, float* tmp, float* res,
-                               int ndim, int n0, int n1, int n2, float w2_0, float w2_1,
-                               float w2_2, float w2_3, int diag, const float* cf, int count,
-                               int from_zero, int* launches, void* stream) {
+                               int B, int ndim, int n0, int n1, int n2, float w2_0,
+                               float w2_1, float w2_2, float w2_3, int diag, const float* cf,
+                               int cf_lane, int count, int from_zero, int* launches,
+                               void* stream) {
     *launches = 0;
     const int steps = count - (from_zero ? 1 : 0);  // sweeps that read neighbours
-    if ((ndim != 2 && ndim != 3) || steps < 0 || (steps >= 2 && tmp == nullptr)
+    if ((ndim != 2 && ndim != 3) || B < 1 || steps < 0 || (steps >= 2 && tmp == nullptr)
         || (count > 0 && zout == nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
+    const size_t nodes = static_cast<size_t>(n0) * n1 * (ndim == 3 ? n2 : 1);
+    const int minor = ndim == 3 ? n2 : n1;
     Phase ph{r, sid, cf, ApplyOp{coeff, n0, n1, diag, {w2_0, w2_1, w2_2, w2_3},
-                                 ndim == 3 ? n2 : 1}, 0};
+                                 ndim == 3 ? n2 : 1}, 0,
+             nodes, nodes * (diag ? 1 : (ndim == 3 ? 27 : 9)), cf_lane,
+             (minor + kTX - 1) / kTX, B};
+    if (static_cast<long long>(ph.tiles) * B > 0x7fffffffLL)
+        return static_cast<int>(cudaErrorInvalidValue);
     ph.halo = operator_radius(ph.op);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     auto step = [&](int mode, const float* src, const float* zprev, int prev, int k,

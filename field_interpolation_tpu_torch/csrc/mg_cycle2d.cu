@@ -31,6 +31,10 @@
 // same bits on every run. A coarse tail in one block or one thread-block
 // cluster, without grid barriers, measured no faster on the H100 (PERF.md
 // §6): a tail phase costs about what a grid phase does.
+//
+// B lanes (the kernels under vmap): one launch for the batch, every phase
+// covering every lane's nodes (mg_cycle2d.cuh:LaneSync), so the batch pays
+// one field's grid barriers; one field keeps the kernel above unchanged.
 #include "mg_cycle2d.cuh"
 
 namespace {
@@ -38,36 +42,63 @@ namespace {
 using namespace mg2d;
 
 struct Args {
-    Cycle cyc;          // lv[0].r is the input residual (read only)
+    Cycle cyc;          // lv[0].r is the input residual (read only); lane 0's
     float* z_out;
+    int B;              // lanes (1: one field)
+    Lanes st;
 };
 
+template <class S>
+__device__ S make_sync(const Args& a);
+template <>
+__device__ GridSync make_sync<GridSync>(const Args&) { return GridSync{cg::this_grid()}; }
+template <>
+__device__ LaneSync make_sync<LaneSync>(const Args& a) {
+    return LaneSync{{cg::this_grid()}, a.B, a.st};
+}
+
+template <class S>
 __global__ void __launch_bounds__(kThreads)
 mg_cycle2d_kernel(const __grid_constant__ Args a) {
-    GridSync s{cg::this_grid()};
+    S s = make_sync<S>(a);
     __shared__ float sh[kThreads];
     const float* z0 = cycle(s, a.cyc, sh, nullptr);
     // z0 was written before the cycle's last grid barrier.
-    for (int i = s.tid(); i < nodes(a.cyc.lv[0]); i += s.stride()) a.z_out[i] = z0[i];
+    const int N = nodes(a.cyc.lv[0]);
+    for_nodes(s, N, [&](int i, int b) {
+        a.z_out[static_cast<size_t>(b) * N + i] = s.buf(z0, b)[i];
+    });
 }
 
 }  // namespace
 
 // Host tables, filled by field_interpolation_tpu_torch/ops/cycle.py:
-//   ptrs: r, z_out, inv; then the cycle's level, transfer and schedule
-//         pointers (mg_cycle2d.cuh:fill_cycle; level 0's r entry is 0: it
-//         is r).
-//   ints: L, nu_pre, nu_post, wdepth, then n0, n1, diag per level.
-//   w2s:  4 per level (w_k² for orders 0..3).
+//   ptrs: r, z_out, inv (lane 0's; lanes contiguous: [B, n0, n1] and
+//         [B, Nc, Nc]); then the cycle's level, transfer and schedule
+//         pointers of lane 0 (mg_cycle2d.cuh:fill_cycle; level 0's r entry
+//         is 0: it is r; Rs and bands shared by the lanes).
+//   ints: B, the floats of level scratch per lane, kMaxLevels schedule
+//         strides (floats per lane; 0 under damped Jacobi), then L,
+//         nu_pre, nu_post, wdepth, then n0, n1, diag per level.
+//   w2s:  4 per level (w_k² for orders 0..3), shared.
 extern "C" int fi_mg_cycle2d(const long long* ptrs, const int* ints, const float* w2s,
                              void* stream) {
     Args a{};
-    if (!fill_cycle(a.cyc, ptrs + 3, ints, w2s, as_ptr<const float>(ptrs[2])))
+    a.B = ints[0];
+    a.st.scratch = ints[1];
+    for (int l = 0; l < kMaxLevels; ++l) a.st.cf[l] = ints[2 + l];
+    if (a.B < 1 || a.st.scratch < 0
+        || !fill_cycle(a.cyc, ptrs + 3, ints + 2 + kMaxLevels, w2s, as_ptr<const float>(ptrs[2])))
         return static_cast<int>(cudaErrorInvalidValue);
     a.cyc.lv[0].r = as_ptr<float>(ptrs[0]);
     a.z_out = as_ptr<float>(ptrs[1]);
     void* args[] = {&a};
-    const int want = (nodes(a.cyc.lv[0]) + kThreads - 1) / kThreads;
-    return static_cast<int>(launch_cooperative(reinterpret_cast<const void*>(mg_cycle2d_kernel),
-                                               args, want, want, stream));
+    // One thread a node of every lane, as far as co-residency allows: the
+    // phases' grid-stride loops cover the rest.
+    const long long all = static_cast<long long>(a.B) * nodes(a.cyc.lv[0]);
+    if (all > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    const int want = static_cast<int>((all + kThreads - 1) / kThreads);
+    const void* kernel = a.B == 1 ? reinterpret_cast<const void*>(mg_cycle2d_kernel<GridSync>)
+                                  : reinterpret_cast<const void*>(mg_cycle2d_kernel<LaneSync>);
+    return static_cast<int>(launch_cooperative(kernel, args, want, want, stream));
 }

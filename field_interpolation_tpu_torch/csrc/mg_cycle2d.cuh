@@ -30,6 +30,16 @@
 // same schedule and reaches the same barriers. The schedule is walked
 // iteratively (a descent, then an ascent that may turn back down), with
 // one small per-level table, not by device recursion.
+//
+// Lanes (LaneSync: the whole-cycle kernel under vmap): B independent cycles
+// in one cooperative grid. Each phase's grid-stride loop runs over the nodes
+// of every lane, so a batch takes the grid barriers of one field (310 a
+// W-cycle at 496² with ν = 3); the grid stays capped by co-residency, and
+// more lanes mean more nodes a thread, not more blocks. Lane b's operands
+// and buffers start b lanes past lane 0's (Lanes: the batched segment's
+// rule); the cycle walks lane 0's pointers and each phase shifts them to
+// the node's lane. A lane's arithmetic is the single field's, node for
+// node: its z is the same bits as the one-field cycle's.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -71,19 +81,74 @@ struct Cycle {
     const float* inv;   // [Nc, Nc] dense inverse of the coarsest operator
 };
 
+__host__ __device__ __forceinline__ int nodes(const Level& lv) { return lv.op.n0 * lv.op.n1; }
+
+// What a lane adds to a batch's base pointers (lane 0's), in floats: lanes
+// are contiguous in every per-lane operand. A level's data term, sid and
+// the coarsest inverse follow from its shape; lv[0].r, the input, is one
+// fine grid a lane.
+struct Lanes {
+    int scratch;             // the cycle's level buffers (levels ≥ 1: r, za, zb, az; level 0: za, zb, az)
+    int cf[kMaxLevels];      // a level's [ν, 2] schedule (0: damped Jacobi)
+};
+
 // Who runs a phase: tid()/stride() spread a level's nodes over the threads
 // that share it, sync() ends the phase, and a dot product's share of the
-// block goes to partials[part()] of parts() (total() sums them).
+// block goes to partials[part()] of parts() (total() sums them). One field:
+// the lane hooks (level, buf, for_nodes' lane) leave lane 0 as it is.
 struct GridSync {       // every block of a cooperative grid
+    static constexpr bool kLanes = false;
     cg::grid_group g;
     __device__ int tid() const { return blockIdx.x * blockDim.x + threadIdx.x; }
     __device__ int stride() const { return gridDim.x * blockDim.x; }
     __device__ void sync() { g.sync(); }
     __device__ int part() const { return blockIdx.x; }
     __device__ int parts() const { return gridDim.x; }
+    __device__ const Level& level(const Cycle& c, int l, int) const { return c.lv[l]; }
+    template <class T>
+    __device__ T* buf(T* p, int) const { return p; }
 };
 
-__host__ __device__ __forceinline__ int nodes(const Level& lv) { return lv.op.n0 * lv.op.n1; }
+// B lanes of a batch in one cooperative grid (no dot products: the
+// whole-cycle kernel's lane form).
+struct LaneSync : GridSync {
+    static constexpr bool kLanes = true;
+    int B;
+    Lanes st;
+    // Lane b's level l: its operands and buffers (the batched segment's
+    // offsets, pcg_segment.cu).
+    __device__ Level level(const Cycle& c, int l, int b) const {
+        Level lv = c.lv[l];
+        const size_t n = static_cast<size_t>(nodes(lv)), lb = b;
+        lv.op.coeff += lb * n * (lv.op.diag ? 1 : 9);
+        lv.sid += lb * n;
+        if (lv.cf) lv.cf += lb * st.cf[l];
+        lv.r += lb * (l == 0 ? n : static_cast<size_t>(st.scratch));
+        lv.za += lb * st.scratch;
+        lv.zb += lb * st.scratch;
+        lv.az += lb * st.scratch;
+        return lv;
+    }
+    // Lane b's copy of a level buffer given by lane 0's pointer (null stays null).
+    template <class T>
+    __device__ T* buf(T* p, int b) const {
+        return p == nullptr ? p : p + static_cast<size_t>(b) * st.scratch;
+    }
+};
+
+// f(i, b) for node i of every lane b, over N nodes a lane, spread over the
+// phase's threads (one field: lane 0, as a plain grid-stride loop).
+template <class S, class F>
+static __device__ __forceinline__ void for_nodes(const S& s, int N, F f) {
+    if constexpr (S::kLanes) {
+        for (int t = s.tid(); t < s.B * N; t += s.stride()) {
+            const int b = t / N;
+            f(t - b * N, b);
+        }
+    } else {
+        for (int i = s.tid(); i < N; i += s.stride()) f(i, 0);
+    }
+}
 // The ping-pong buffer that does not hold z.
 __device__ __forceinline__ float* other(const Level& lv, const float* z) {
     return z == lv.za ? lv.zb : lv.za;
@@ -120,63 +185,79 @@ static __device__ float total(const S& s, const float* partials, float* sh) {
     return block_sum(v, sh);
 }
 
-// Sweep k on level lv: z_out = z_in + sid·(r − A z_in) (Jacobi) or
+// The phases take level l's buffers (za, zb, az) as lane 0's and work on
+// each node's lane (S::level, S::buf).
+//
+// Sweep k on level l: z_out = z_in + sid·(r − A z_in) (Jacobi) or
 // z_in + c1_k·(z_in − z_prev) + c2_k·sid·(r − A z_in) (Chebyshev). z_in ==
 // nullptr means z_in = 0, so the first sweep from zero is z_out = sid·r
 // (c2_0·sid·r; pallas_stencil.py:1019-1024, 491-497); z_prev == nullptr
 // means z_prev = 0, and z_prev may be z_out. Returns this thread's share of
 // Σ r·z_out when want_dot.
 template <class S>
-static __device__ float sweep(const S& s, const Level& lv, const float* zin,
+static __device__ float sweep(const S& s, const Cycle& c, int l, const float* zin,
                               const float* zprev, float* zout, int k, bool want_dot) {
-    const int N = nodes(lv), n1 = lv.op.n1;
-    const bool cheb = lv.cf != nullptr;
-    const float c1 = cheb ? lv.cf[2 * k] : 0.f;
-    const float c2 = cheb ? lv.cf[2 * k + 1] : 1.f;
+    const Level& lv0 = c.lv[l];
+    const int n1 = lv0.op.n1;
+    const bool cheb = lv0.cf != nullptr;
+    float c1 = cheb ? lv0.cf[2 * k] : 0.f;
+    float c2 = cheb ? lv0.cf[2 * k + 1] : 1.f;
     float acc = 0.f;
-    for (int i = s.tid(); i < N; i += s.stride()) {
+    for_nodes(s, nodes(lv0), [&](int i, int b) {
+        const Level& lv = s.level(c, l, b);
+        if constexpr (S::kLanes) {  // each lane its own schedule
+            if (cheb) c1 = lv.cf[2 * k], c2 = lv.cf[2 * k + 1];
+        }
+        const float* zi_p = s.buf(zin, b);
         const float r = lv.r[i];
         float z;
-        if (zin == nullptr) {
+        if (zi_p == nullptr) {
             z = c2 * (lv.sid[i] * r);
         } else {
-            const float zi = zin[i];
-            const float res = lv.sid[i] * (r - apply_at(lv.op, zin, i / n1, i % n1));
-            z = cheb ? zi + (c1 * (zi - (zprev ? zprev[i] : 0.f)) + c2 * res) : zi + res;
+            const float* zp = s.buf(zprev, b);
+            const float zi = zi_p[i];
+            const float res = lv.sid[i] * (r - apply_at(lv.op, zi_p, i / n1, i % n1));
+            z = cheb ? zi + (c1 * (zi - (zp ? zp[i] : 0.f)) + c2 * res) : zi + res;
         }
-        zout[i] = z;
+        s.buf(zout, b)[i] = z;
         if (want_dot) acc += r * z;
-    }
+    });
     return acc;
 }
 
 template <class S>
-static __device__ void fill_zero(const S& s, const Level& lv, float* z) {
-    for (int i = s.tid(); i < nodes(lv); i += s.stride()) z[i] = 0.f;
+static __device__ void fill_zero(const S& s, const Cycle& c, int l, float* z) {
+    for_nodes(s, nodes(c.lv[l]), [&](int i, int b) { s.buf(z, b)[i] = 0.f; });
 }
 
 template <class S>
-static __device__ void apply_phase(const S& s, const Level& lv, const float* z, float* az) {
-    const int N = nodes(lv), n1 = lv.op.n1;
-    for (int i = s.tid(); i < N; i += s.stride()) az[i] = apply_at(lv.op, z, i / n1, i % n1);
+static __device__ void apply_phase(const S& s, const Cycle& c, int l, const float* z,
+                                   float* az) {
+    const int n1 = c.lv[l].op.n1;
+    for_nodes(s, nodes(c.lv[l]), [&](int i, int b) {
+        s.buf(az, b)[i] = apply_at(s.level(c, l, b).op, s.buf(z, b), i / n1, i % n1);
+    });
 }
 
 // r −= A z on one level (the W step's residual update; r is not read by
 // the apply, so no other thread needs the old value).
 template <class S>
-static __device__ void residual_update(const S& s, const Level& lv, const float* z) {
-    const int N = nodes(lv), n1 = lv.op.n1;
-    for (int i = s.tid(); i < N; i += s.stride()) lv.r[i] -= apply_at(lv.op, z, i / n1, i % n1);
+static __device__ void residual_update(const S& s, const Cycle& c, int l, const float* z) {
+    const int n1 = c.lv[l].op.n1;
+    for_nodes(s, nodes(c.lv[l]), [&](int i, int b) {
+        const Level& lv = s.level(c, l, b);
+        lv.r[i] -= apply_at(lv.op, s.buf(z, b), i / n1, i % n1);
+    });
 }
 
 // r_c = R0 · (r_f − A z_f) · R1ᵀ over the bands of R0 and R1.
 template <class S>
 static __device__ void restrict_phase(const S& s, const Cycle& c, int l) {
-    const Level& f = c.lv[l];
-    const Level& cl = c.lv[l + 1];
     const Transfer& t = c.tr[l];
-    const int nf0 = f.op.n0, nf1 = f.op.n1, nc1 = cl.op.n1;
-    for (int jj = s.tid(); jj < nodes(cl); jj += s.stride()) {
+    const int nf0 = c.lv[l].op.n0, nf1 = c.lv[l].op.n1, nc1 = c.lv[l + 1].op.n1;
+    for_nodes(s, nodes(c.lv[l + 1]), [&](int jj, int ln) {
+        const Level& f = s.level(c, l, ln);
+        const Level& cl = s.level(c, l + 1, ln);
         const int j0 = jj / nc1, j1 = jj % nc1;
         const int s0 = t.rb0[2 * j0], c0 = t.rb0[2 * j0 + 1];
         const int s1 = t.rb1[2 * j1], c1 = t.rb1[2 * j1 + 1];
@@ -191,18 +272,19 @@ static __device__ void restrict_phase(const S& s, const Cycle& c, int l) {
             acc += t.R0[j0 * nf0 + i0] * row;
         }
         cl.r[jj] = acc;
-    }
+    });
 }
 
 // z_f += R0ᵀ · z_c · R1 over the bands; returns Σ r·z_f when want_dot.
 template <class S>
-static __device__ float prolong_phase(const S& s, const Cycle& c, int l, const float* zc,
-                                      float* zf, bool want_dot) {
-    const Level& f = c.lv[l];
+static __device__ float prolong_phase(const S& s, const Cycle& c, int l, const float* zc_0,
+                                      float* zf_0, bool want_dot) {
     const Transfer& t = c.tr[l];
-    const int nf0 = f.op.n0, nf1 = f.op.n1, nc1 = c.lv[l + 1].op.n1;
+    const int nf0 = c.lv[l].op.n0, nf1 = c.lv[l].op.n1, nc1 = c.lv[l + 1].op.n1;
     float dot = 0.f;
-    for (int ii = s.tid(); ii < nodes(f); ii += s.stride()) {
+    for_nodes(s, nodes(c.lv[l]), [&](int ii, int ln) {
+        const float* zc = s.buf(zc_0, ln);
+        float* zf = s.buf(zf_0, ln);
         const int i0 = ii / nf1, i1 = ii % nf1;
         const int s0 = t.pb0[2 * i0], c0 = t.pb0[2 * i0 + 1];
         const int s1 = t.pb1[2 * i1], c1 = t.pb1[2 * i1 + 1];
@@ -218,31 +300,42 @@ static __device__ float prolong_phase(const S& s, const Cycle& c, int l, const f
         }
         const float z = zf[ii] + acc;
         zf[ii] = z;
-        if (want_dot) dot += f.r[ii] * z;
-    }
+        if (want_dot) dot += s.level(c, l, ln).r[ii] * z;
+    });
     return dot;
 }
 
-// z_c = inv · r_c into the coarsest level's za, one warp per row, lanes
-// striding the columns.
+// z_c = inv · r_c into the coarsest level's za, one warp per row (of every
+// lane), the warp's threads striding the columns.
 template <class S>
 static __device__ void coarse_phase(const S& s, const Cycle& c) {
-    const Level& cl = c.lv[c.L - 1];
-    const int Nc = nodes(cl);
+    const int Nc = nodes(c.lv[c.L - 1]);
     const int lane = threadIdx.x & 31;
-    for (int row = s.tid() >> 5; row < Nc; row += s.stride() >> 5) {
+    const int warp = s.tid() >> 5, warps = s.stride() >> 5;
+    auto row_phase = [&](int row, int b) {
+        const Level& cl = s.level(c, c.L - 1, b);
+        const float* inv = c.inv + static_cast<size_t>(b) * Nc * Nc;
         float acc = 0.f;
-        for (int k = lane; k < Nc; k += 32) acc += c.inv[row * Nc + k] * cl.r[k];
+        for (int k = lane; k < Nc; k += 32) acc += inv[row * Nc + k] * cl.r[k];
         for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
         if (lane == 0) cl.za[row] = acc;
+    };
+    if constexpr (S::kLanes) {
+        for (int t = warp; t < s.B * Nc; t += warps) {
+            const int b = t / Nc;
+            row_phase(t - b * Nc, b);
+        }
+    } else {
+        for (int row = warp; row < Nc; row += warps) row_phase(row, 0);
     }
 }
 
 // ν pre-sweeps on level l from zero; returns the buffer holding the result.
 template <class S>
-static __device__ float* pre_smooth(S& s, const Level& lv, int nu) {
+static __device__ float* pre_smooth(S& s, const Cycle& c, int l, int nu) {
+    const Level& lv = c.lv[l];
     if (nu == 0) {
-        fill_zero(s, lv, lv.za);
+        fill_zero(s, c, l, lv.za);
         s.sync();
         return lv.za;
     }
@@ -250,7 +343,7 @@ static __device__ float* pre_smooth(S& s, const Level& lv, int nu) {
     const float* prev = nullptr;  // Chebyshev's z_prev, 0 from zero
     for (int k = 0; k < nu; ++k) {
         float* nxt = cur ? other(lv, cur) : lv.za;
-        sweep(s, lv, cur, prev, nxt, k, false);
+        sweep(s, c, l, cur, prev, nxt, k, false);
         s.sync();
         prev = cur;
         cur = nxt;
@@ -269,9 +362,8 @@ static __device__ const float* cycle(S& s, const Cycle& c, float* sh, float* rz_
     int l = 0;
     for (;;) {
         for (; l < L - 1; ++l) {                          // down: pre-smooth, restrict
-            const Level& lv = c.lv[l];
-            z[l] = pre_smooth(s, lv, c.nu_pre);
-            apply_phase(s, lv, z[l], lv.az);
+            z[l] = pre_smooth(s, c, l, c.nu_pre);
+            apply_phase(s, c, l, z[l], c.lv[l].az);
             s.sync();
             restrict_phase(s, c, l);
             s.sync();
@@ -285,7 +377,7 @@ static __device__ const float* cycle(S& s, const Cycle& c, float* sh, float* rz_
             ++visits[l];
             const bool last = l == 0 && c.nu_post == 0 && !again && rz_partials;
             const float d = prolong_phase(s, c, l, z[l + 1], z[l], last);
-            if (again) residual_update(s, c.lv[l + 1], z[l + 1]);
+            if (again) residual_update(s, c, l + 1, z[l + 1]);
             if (last) write_partial(s, rz_partials, d, sh);
             s.sync();
             if (again) break;                             // W: visit level l+1 again
@@ -295,7 +387,7 @@ static __device__ const float* cycle(S& s, const Cycle& c, float* sh, float* rz_
             for (int k = 0; k < c.nu_post; ++k) {
                 const bool want = l == 0 && k == c.nu_post - 1 && rz_partials;
                 float* nxt = other(lv, cur);
-                const float ds = sweep(s, lv, cur, prev, nxt, k, want);
+                const float ds = sweep(s, c, l, cur, prev, nxt, k, want);
                 if (want) write_partial(s, rz_partials, ds, sh);
                 s.sync();
                 prev = cur;

@@ -168,13 +168,6 @@ pcg_segment_kernel(const __grid_constant__ Params p) {
     segment(p, s, sh);
 }
 
-// What a lane adds to the batch's base pointers, in floats: lanes are
-// contiguous in every per-lane operand.
-struct Lanes {
-    int scratch;             // the cycle's level buffers (levels ≥ 1: r, za, zb, az; level 0: za, zb, az)
-    int cf[kMaxLevels];      // a level's [ν, 2] schedule (0: damped Jacobi)
-};
-
 // The host's plan for a lane's shared memory (lane2d.cuh:plan_layout).
 struct Plan {
     unsigned levels;         // bit l: coarse level l's arrays in shared memory

@@ -43,6 +43,12 @@ through the port's kernels, at any size, on CPU and CUDA tensors alike:
 smoothing steps, the dense coarsest inverse, the fused and whole-cycle
 operands, the smoothers' float32 operands, the Chebyshev schedules), so
 that a solve handed the prep (``prep=``) does no setup work on the device.
+
+A problem with lanes (every leaf [B, ...]: ``batch.py``'s ``"cycle"``
+route) gets the cycle of all B lanes at once, the reference's cycle under
+``vmap``: per-lane steps, bounds, schedules and coarsest inverses, each
+smoothing phase or whole cycle one kernel call for every lane, the dense
+coarsest solve one batched product.
 """
 
 from __future__ import annotations
@@ -61,7 +67,7 @@ from .grid import Grid
 from .operators import Problem
 from .ops import _policy
 from .ops._policy import fits_vmem
-from .ops.smooth import fused_smooth, fused_smooth_2d
+from .ops.smooth import _schedule_entry, fused_smooth, fused_smooth_2d
 from .weights import SolverConfig, Weights
 
 
@@ -537,6 +543,20 @@ def _inv_diag(diag: torch.Tensor) -> torch.Tensor:
     return torch.where(diag > 0, 1.0 / diag, torch.ones_like(diag))
 
 
+def _on_lanes(t: torch.Tensor, ndim: int) -> torch.Tensor:
+    """A per-level scalar (τ_l), one per lane when [B], shaped to scale
+    [B, *grid] arrays."""
+    return t.reshape(t.shape + (1,) * ndim) if t.ndim else t
+
+
+def _dense_solve(inv: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """inv · r on a level of n nodes: inv [n, n] on r [*grid], or per lane
+    inv [B, n, n] on r [B, *grid] as one batched product."""
+    if inv.ndim == 3:
+        return (inv @ r.reshape(r.shape[0], -1, 1)).reshape(r.shape)
+    return (inv @ r.reshape(-1)).reshape(r.shape)
+
+
 def _is_cheb(config: SolverConfig) -> bool:
     return config.mg_smoother.startswith("chebyshev")
 
@@ -576,8 +596,8 @@ def _fused_vcycle_operands(problem, levels, taus, fine_inv_diag, inv_diags,
         cfs = [chebyshev_coefs(r, config.mg_pre_smooth, config) for r in rhos]
     else:
         # A lane's τ_l scales that lane's grid.
-        sids = [((t.reshape(t.shape + (1,) * ndim) if t.ndim else t) * d)
-                .to(f32).contiguous() for t, d in zip(taus, inv_all)]
+        sids = [(_on_lanes(t, ndim) * d).to(f32).contiguous()
+                for t, d in zip(taus, inv_all)]
     dev = problem.coeff.device
     Rs = [_restriction_tensor(shapes_all[i][d], shapes_all[i + 1][d], dev)
           for i in range(len(shapes_all) - 1) for d in range(ndim)]
@@ -737,7 +757,9 @@ def _kernel_smoother(coeff, sid, weights: Weights, ndim: int, schedule=None):
     of the sweep count giving its [ν, 2] Chebyshev schedule (sid = D⁻¹)."""
     c32 = coeff.to(torch.float32).contiguous()
     s32 = sid.to(torch.float32).contiguous()
-    multi = ndim == 2 and c32.ndim == 3 and stencils.max_stencil_radius(weights) < 3
+    # The full stencil has one more axis than sid (lanes or not).
+    multi = (ndim == 2 and c32.ndim == s32.ndim + 1
+             and stencils.max_stencil_radius(weights) < 3)
 
     def smooth(r, z, sweeps, from_zero, residual):
         cf = None if schedule is None else schedule(sweeps)
@@ -820,7 +842,9 @@ def _smoother_operands(problem: Problem, config: SolverConfig, levels, setup,
     coeffs = [fine_ddiag if lump else problem.coeff] + _level_coeffs(problem, levels)[1:]
     cheb = _is_cheb(config)
     f32 = torch.float32
-    return [(c.to(f32).contiguous(), (d if cheb else t * d).to(f32).contiguous())
+    nd = problem.grid.ndim
+    return [(c.to(f32).contiguous(),
+             (d if cheb else _on_lanes(t, nd) * d).to(f32).contiguous())
             for c, t, d in zip(coeffs, taus, inv_diags)]
 
 
@@ -910,7 +934,9 @@ def make_vcycle_preconditioner(problem: Problem, config: SolverConfig,
     (`whole_cycle_operands`), else smooth every level through a smoothing
     kernel (`_kernel_smoother`). The setup comes from ``prep`` (`prepare_mg`
     on the same problem and config, with the same ``kernels``) or is built
-    here by `prepare_mg`: a prepared and a cold cycle are one code path."""
+    here by `prepare_mg`: a prepared and a cold cycle are one code path.
+    On a problem with lanes, z = M⁻¹ r for r [B, *grid], each lane its own
+    cycle."""
     if prep is None:
         prep = prepare_mg(problem, config, fused=False, kernels=kernels)
     elif prep.kernels != kernels:
@@ -923,7 +949,7 @@ def make_vcycle_preconditioner(problem: Problem, config: SolverConfig,
     if _degenerate(problem, levels, config):
         # The whole problem IS the coarsest level; solve it exactly.
         inv0 = prep.coarse_dense
-        return lambda r: (inv0 @ r.reshape(-1)).reshape(r.shape)
+        return lambda r: _dense_solve(inv0, r)
 
     if kernels and prep.whole is not None:
         ops, cfs = prep.whole
@@ -963,12 +989,12 @@ def make_vcycle_preconditioner(problem: Problem, config: SolverConfig,
             z = torch.zeros_like(r) if z is None else z
             zp = z
             for k in range(iters):
-                z, zp = (z + cf[k, 0] * (z - zp)
-                         + cf[k, 1] * inv_diags[li] * (r - applies[li](z))), z
+                c1, c2 = (_schedule_entry(cf, k, j, ndim) for j in (0, 1))
+                z, zp = z + c1 * (z - zp) + c2 * inv_diags[li] * (r - applies[li](z)), z
             return z
         for _ in range(iters):
             az = 0.0 if z is None else applies[li](z)
-            z = (0.0 if z is None else z) + taus[li] * inv_diags[li] * (r - az)
+            z = (0.0 if z is None else z) + _on_lanes(taus[li], ndim) * inv_diags[li] * (r - az)
         return z
 
     def level_smooth(li, r, z, iters, from_zero, residual=False):
@@ -991,7 +1017,7 @@ def make_vcycle_preconditioner(problem: Problem, config: SolverConfig,
         # The cycle's z on level li, or with ``residual`` (z, r − A_li z).
         if li == len(levels):  # coarsest
             if coarse_dense is not None:
-                return (coarse_dense @ r.reshape(-1)).reshape(r.shape)
+                return _dense_solve(coarse_dense, r)
             return level_smooth(li, r, r, config.mg_coarse_iters, True)
         z, res = level_smooth(li, r, r, nu, True, residual=True)
         rc = make_restrict(shapes[li], shapes[li + 1])(res)

@@ -42,15 +42,15 @@ _SIGNATURES = {
     "fi_normal_apply_ext_striped": (_P,) * 5 + (_I,) * 7 + (_F,) * 4 + (_P,),
     # x, coeff, out, B, ndim, n0, n1, n2, w2_0..w2_3, diag, stream
     # r, z (null: from zero), coeff, sid, zout, tmp, res (null: not wanted),
-    # ndim, n0, n1, n2, w2_0..w2_3, diag, cf (null: Jacobi), count,
-    # from_zero, launches (out), stream
-    "fi_smooth_phase": (_P,) * 7 + (_I,) * 4 + (_F,) * 4 + (_I, _P, _I, _I,
+    # B, ndim, n0, n1, n2, w2_0..w2_3, diag, cf (null: Jacobi), cf floats a
+    # lane, count, from_zero, launches (out), stream
+    "fi_smooth_phase": (_P,) * 7 + (_I,) * 5 + (_F,) * 4 + (_I, _P, _I, _I, _I,
                                                           ctypes.POINTER(_I), _P),
-    # r, z (null: from zero), coeff [9, n0, n1], sid, zout, tmp, prev_a,
-    # prev_b, res (null: not wanted), n0, n1, w2_0..w2_3, rho, cf (null:
-    # Jacobi), count, from_zero, launches (out), stream
-    "fi_multisweep2d_phase": (_P,) * 9 + (_I, _I) + (_F,) * 4 + (_I, _P, _I, _I,
-                                                            ctypes.POINTER(_I), _P),
+    # r, z (null: from zero), coeff [B, 9, n0, n1], sid, zout, tmp, prev_a,
+    # prev_b, res (null: not wanted), B, n0, n1, w2_0..w2_3, rho, cf (null:
+    # Jacobi), cf floats a lane, count, from_zero, launches (out), stream
+    "fi_multisweep2d_phase": (_P,) * 9 + (_I,) * 3 + (_F,) * 4 + (_I, _P, _I, _I, _I,
+                                                              ctypes.POINTER(_I), _P),
     # the halo, in nodes, the multi-sweep kernel is built for
     "fi_multisweep2d_max_halo": (),
     # pointer table, int table, w2 table (all host), stream

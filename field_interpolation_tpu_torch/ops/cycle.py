@@ -22,11 +22,17 @@ kernel runs as its preconditioner (`ops.pcg`). On the H100 the barriers
 bound it, not bytes: the coarse levels hold a few hundred to a few thousand
 nodes.
 
+Lanes (the kernels under ``vmap``: the batched cycle of ``batch.py``'s
+``"cycle"`` route): r [B, n0, n1] with every operand but Rs and the Weights
+leading with B is ONE launch for all lanes, whose phases each cover every
+lane's nodes, so the batch pays one field's grid barriers; a lane's z is the
+same bits as its single-field call.
+
 Each wrapper launches the kernel for CUDA tensors and runs `mg_cycle_plain`
 for CPU tensors, and counts its launches in ``fused_vcycle_2d.launches`` /
 ``fused_wcycle_2d.launches``, those in Chebyshev mode also in
-``.cheb_launches``. The schedules stay on the device: the kernel reads them
-there.
+``.cheb_launches`` and those with lanes also in ``.lane_launches``. The
+schedules stay on the device: the kernel reads them there.
 """
 
 from __future__ import annotations
@@ -125,15 +131,27 @@ def _ok(t, device, shape, dtype=torch.float32) -> bool:
             and tuple(t.shape) == tuple(shape))
 
 
-def check_schedules(what: str, cheb_coefs, n_levels: int, nu: int, device) -> None:
+def check_schedules(what: str, cheb_coefs, n_levels: int, nu: int, device,
+                    lanes: int | None = None) -> None:
     """Raise ValueError unless ``cheb_coefs`` (not None) holds a Chebyshev
-    schedule for ``nu`` sweeps (`smooth.check_schedule`) for each level
-    that smooths, the first ``n_levels`` − 1."""
+    schedule for ``nu`` sweeps (`smooth.check_schedule`, one a lane with
+    ``lanes``) for each level that smooths, the first ``n_levels`` − 1."""
     if isinstance(cheb_coefs, torch.Tensor) or len(cheb_coefs) < n_levels - 1:
         raise ValueError(f"{what}: needs a list of per-level Chebyshev schedules, "
                          f">= {n_levels - 1} for {n_levels} levels")
     for l in range(n_levels - 1):
-        check_schedule(f"{what} level {l}", cheb_coefs[l], nu, device)
+        check_schedule(f"{what} level {l}", cheb_coefs[l], nu, device, lanes)
+
+
+def schedule_strides(cheb_coefs, n_levels: int) -> list[int]:
+    """The kMaxLevels floats a lane of each level's [B, ν, 2] schedule, as
+    the lane forms' int tables carry them (0 under damped Jacobi and on the
+    coarsest level)."""
+    strides = [0] * MAX_LEVELS
+    if cheb_coefs is not None:
+        for l in range(n_levels - 1):
+            strides[l] = cheb_coefs[l][0].numel()
+    return strides
 
 
 def check_cycle_operands(what: str, device, coeffs, sids, Rs, inv_c,
@@ -222,26 +240,43 @@ def _cycle(name, counter, r, coeffs, sids, Rs, inv_c, level_weights, nu_pre,
     if min(int(nu_pre), int(nu_post), int(wdepth)) < 0:
         raise ValueError(f"{name}: nu_pre, nu_post and wdepth must be >= 0, got "
                          f"{nu_pre}, {nu_post}, {wdepth}")
+    lanes = r.shape[0] if r.ndim == 3 else None
     if cheb_coefs is not None:
-        check_schedules(name, cheb_coefs, len(coeffs), max(nu_pre, nu_post), r.device)
+        check_schedules(name, cheb_coefs, len(coeffs), max(nu_pre, nu_post), r.device,
+                        lanes)
     if r.device.type == "cpu":
         return mg_cycle_plain(r, coeffs, sids, Rs, inv_c, level_weights, nu_pre,
                               nu_post, wdepth, cheb_coefs)
     if r.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {r.device}")
+    bad, B = [], lanes or 1
+    if lanes is not None:
+        # Lane 0's operands stand for every lane's: lanes contiguous, [B, ...].
+        bad = [f"lane axis of {tuple(t.shape)}" for t in [r, inv_c, *coeffs, *sids]
+               if t.ndim < 1 or t.shape[0] != B or not t.is_contiguous()]
+        if bad or B * r[0].numel() > 2**31 - 1:
+            raise ValueError(f"{name}: lanes need contiguous [B, ...] operands with "
+                             f"B·n0·n1 < 2^31; got {'; '.join(bad) or tuple(r.shape)}")
+        r0, inv0 = r[0], inv_c[0]
+        coeffs, sids = [c[0] for c in coeffs], [t[0] for t in sids]
+        cf0 = None if cheb_coefs is None else [c[0] for c in cheb_coefs]
+    else:
+        r0, inv0, cf0 = r, inv_c, cheb_coefs
     shape0 = level_shapes(coeffs)[0]
-    check_cycle_operands(name, r.device, coeffs, sids, Rs, inv_c,
-                         [] if _ok(r, r.device, shape0) else
+    check_cycle_operands(name, r.device, coeffs, sids, Rs, inv0,
+                         [] if _ok(r0, r.device, shape0) else
                          [f"r {tuple(r.shape)} {r.dtype}"])
     lib = _build.library()
     z = torch.empty_like(r)
-    lp, li, w2s, _scratch = cycle_tables(coeffs, sids, Rs, level_weights, nu_pre,
-                                         nu_post, wdepth, r.device, cheb_coefs)
+    lp, li, w2s, scratch = cycle_tables(coeffs, sids, Rs, level_weights, nu_pre, nu_post,
+                                        wdepth, r.device, cf0, lanes=B)
+    ints = [B, scratch.numel() // B] + schedule_strides(cheb_coefs, len(coeffs)) + li
     rc = call_tables(lib.fi_mg_cycle2d, [r.data_ptr(), z.data_ptr(), inv_c.data_ptr()]
-                     + lp, li, w2s, r.device)
+                     + lp, ints, w2s, r.device)
     _build.check(rc, name)
     counter.launches += 1
     counter.cheb_launches += cheb_coefs is not None
+    counter.lane_launches += lanes is not None
     return z
 
 
@@ -249,7 +284,8 @@ def fused_vcycle_2d(r, coeffs, sids, Rs, inv_c, level_weights: list[Weights],
                     nu_pre: int, nu_post: int, cheb_coefs=None) -> torch.Tensor:
     """One symmetric V-cycle z = M⁻¹ r (pallas_stencil.py:1172) in one launch.
 
-    r: [n0, n1] float32 residual. coeffs[l]: the [9, n0, n1] data stencil
+    r: [n0, n1] float32 residual (lanes: [B, n0, n1], the module's
+    docstring). coeffs[l]: the [9, n0, n1] data stencil
     (fine level; Galerkin coarse levels) or the [*shape_l] diagonal; sids[l]
     = τ_l·D_l⁻¹ (Jacobi) or D_l⁻¹ (Chebyshev, with ``cheb_coefs[l]`` the
     level's [≥ ν, 2] float32 schedule on r's device, for every level but
@@ -270,5 +306,5 @@ def fused_wcycle_2d(r, coeffs, sids, Rs, inv_c, level_weights: list[Weights],
                   level_weights, nu, nu, wdepth, cheb_coefs)
 
 
-fused_vcycle_2d.launches = fused_vcycle_2d.cheb_launches = 0
-fused_wcycle_2d.launches = fused_wcycle_2d.cheb_launches = 0
+fused_vcycle_2d.launches = fused_vcycle_2d.cheb_launches = fused_vcycle_2d.lane_launches = 0
+fused_wcycle_2d.launches = fused_wcycle_2d.cheb_launches = fused_wcycle_2d.lane_launches = 0

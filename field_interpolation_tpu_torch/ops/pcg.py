@@ -34,8 +34,8 @@ import torch
 
 from ..weights import Weights
 from . import _build
-from .cycle import (MAX_LEVELS, _band_table, _ok, call_tables, check_cycle_operands,
-                    check_schedules, cycle_tables, level_shapes, mg_cycle_plain)
+from .cycle import (_band_table, _ok, call_tables, check_cycle_operands, check_schedules,
+                    cycle_tables, level_shapes, mg_cycle_plain, schedule_strides)
 from .stencil import check_lanes, fused_normal_apply_plain
 
 # Upper bound on the kernel's grid; the C entry point never launches more
@@ -318,10 +318,7 @@ def _batch_tables(x, r, tol2, iter_budget, coeffs, sids, Rs, inv_c, level_weight
     lp, li, w2s, scratch = cycle_tables([c[0] for c in coeffs], [s[0] for s in sids], Rs,
                                         level_weights, nu, nu, wdepth, dev, lane0_cfs,
                                         lanes=B)
-    cf_strides = [0] * MAX_LEVELS
-    if cheb_coefs is not None:
-        for l in range(len(coeffs) - 1):
-            cf_strides[l] = cheb_coefs[l][0].numel()
+    cf_strides = schedule_strides(cheb_coefs, len(coeffs))
     ptrs = [t.data_ptr() for t in (x, r, tol2, iter_budget, x_out, iters, rr, rw, p,
                                    inv_c)] + lp
     ints = [B, scratch.numel() // B] + cf_strides + [threads, mask, az0, per_sm, nbytes] + li

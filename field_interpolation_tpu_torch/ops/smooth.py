@@ -35,6 +35,14 @@ copies nothing to the host. Two CUDA kernels stand in for the smoothers of
   smoothing phase; the multigrid cycle takes the residual it restricts from
   the pre-smoothing call.
 
+Lanes (the kernels under ``vmap``: the batched cycle of ``batch.py``'s
+``"cycle"`` route): `fused_smooth` and `fused_smooth_2d` take r, z, sid
+and the outputs as [B, *grid], the data term as [B, 3^D, *grid] or
+[B, *grid] and a schedule as [B, ν, 2], and run a phase for all B lanes
+in the launches of one field's phase, a lane's output the same bits as
+its own single-field call.
+Launches made with lanes are also counted in ``.lane_launches``.
+
 The TPU kernels update z in place inside one program; across CUDA blocks an
 in-place sweep would race, so in `fused_smooth` the sweeps ping-pong two
 buffers and the launch boundary is the barrier between sweeps; in
@@ -57,20 +65,27 @@ import torch
 from ..stencils import max_stencil_radius
 from ..weights import Weights
 from . import _build
-from .stencil import (check_operands, fused_normal_apply_plain, kernel_dims,
-                      order_w2)
+from .stencil import (check_lanes, check_operands, fused_normal_apply_plain,
+                      kernel_dims, order_w2)
+
+# gridDim.z's limit: csrc/jacobi_multisweep2d.cu takes the lane from blockIdx.z.
+MAX_LANES_2D = 65535
 
 
-def check_schedule(what: str, cf, rows: int, device) -> None:
+def check_schedule(what: str, cf, rows: int, device, lanes: int | None = None) -> None:
     """Raise ValueError unless ``cf`` is a Chebyshev schedule for ``rows``
-    sweeps: a contiguous float32 [≥ rows, 2] tensor on ``device``."""
-    if not (isinstance(cf, torch.Tensor) and cf.ndim == 2 and cf.shape[1] == 2
-            and cf.shape[0] >= rows and cf.dtype == torch.float32
+    sweeps: a contiguous float32 [≥ rows, 2] tensor on ``device``, or with
+    ``lanes`` one a lane, [lanes, ≥ rows, 2]."""
+    lead = () if lanes is None else (lanes,)
+    if not (isinstance(cf, torch.Tensor) and cf.ndim == 2 + len(lead)
+            and tuple(cf.shape[:len(lead)]) == lead and cf.shape[-1] == 2
+            and cf.shape[-2] >= rows and cf.dtype == torch.float32
             and cf.device == torch.device(device) and cf.is_contiguous()):
         got = (f"{tuple(cf.shape)} {cf.dtype} on {cf.device}"
                if isinstance(cf, torch.Tensor) else type(cf).__name__)
+        want = ", ".join(map(str, lead + (f">= {rows}", 2)))
         raise ValueError(f"{what}: a Chebyshev schedule must be a contiguous float32 "
-                         f"[>= {rows}, 2] tensor on {device}; got {got}")
+                         f"[{want}] tensor on {device}; got {got}")
 
 
 def fused_smooth_plain(r: torch.Tensor, z: torch.Tensor, coeff: torch.Tensor,
@@ -134,12 +149,14 @@ def _smoothing_call(name, launch, r, z, coeff, scaled_inv_diag, weights, ndim,
     """The part both kernel wrappers share: the checks of the counts and
     the schedule, the plain version for CPU tensors; for CUDA tensors the
     sweeps to run (a Jacobi from-zero step counts as one, so it runs even
-    at 0), the operand checks, and ``launch(count, diag, lib, w2, stream)``
-    on r's device. With ``residual`` the result is (z, r − A z)."""
+    at 0), the operand checks, and ``launch(count, diag, lib, w2, stream,
+    B)`` on r's device, B the lanes of r [B, *grid] (None: one field r
+    [*grid]). With ``residual`` the result is (z, r − A z)."""
     if sweeps < 0:
         raise ValueError(f"{name}: sweeps must be >= 0, got {sweeps}")
+    lanes = r.shape[0] if r.ndim == ndim + 1 else None
     if cheb_coefs is not None:
-        check_schedule(name, cheb_coefs, sweeps, r.device)
+        check_schedule(name, cheb_coefs, sweeps, r.device, lanes)
     if r.device.type == "cpu":
         return fused_smooth_plain(r, z, coeff, scaled_inv_diag, weights, ndim,
                                   sweeps, from_zero, cheb_coefs, residual)
@@ -151,14 +168,30 @@ def _smoothing_call(name, launch, r, z, coeff, scaled_inv_diag, weights, ndim,
     count = max(sweeps, 1) if from_zero and cheb_coefs is None else sweeps
     if count == 0 and not residual:
         return z
-    diag = check_operands(name, r, coeff, ndim, z, scaled_inv_diag)
+    if lanes is None:
+        diag = check_operands(name, r, coeff, ndim, z, scaled_inv_diag)
+    else:
+        _, diag = check_lanes(name, r, coeff, ndim, z, scaled_inv_diag)
     with torch.cuda.device(r.device):
         return launch(count, diag, _build.library(), order_w2(weights),
-                      _build.stream_handle(r.device))
+                      _build.stream_handle(r.device), lanes)
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def _cf_lane(cheb_coefs, lanes) -> int:
+    """Floats a lane of lanes' [B, ν, 2] schedules (0: one field, or Jacobi)."""
+    return 0 if cheb_coefs is None or lanes is None else cheb_coefs[0].numel()
+
+
+def _count(wrapper, launches: int, cheb: bool, lanes) -> None:
+    wrapper.launches += launches
+    if cheb:
+        wrapper.cheb_launches += launches
+    if lanes is not None:
+        wrapper.lane_launches += launches
 
 
 def fused_smooth(r: torch.Tensor, z: torch.Tensor, coeff: torch.Tensor,
@@ -172,23 +205,23 @@ def fused_smooth(r: torch.Tensor, z: torch.Tensor, coeff: torch.Tensor,
     the next launch), and with ``residual`` one more that writes r − A z;
     the result is then (z, r − A z). ``scaled_inv_diag`` = τ·D⁻¹ (Jacobi)
     or D⁻¹ (Chebyshev); ``coeff`` is the [3^D, *grid] data stencil or a
-    [*grid] diagonal (read off the rank). Semantics of
+    [*grid] diagonal (read off the rank); with lanes r [B, *grid] and the
+    rest likewise (the module's docstring). Semantics of
     `fused_smooth_plain`."""
-    def launch(count, diag, lib, w2, stream):
+    def launch(count, diag, lib, w2, stream, lanes):
         # Sweeps that read neighbours: the from-zero step rides on the next.
         steps = count - (1 if from_zero else 0)
         zout = torch.empty_like(r) if count else None
         tmp = torch.empty_like(r) if steps >= 2 else None
         res = torch.empty_like(r) if residual else None
         launches = ctypes.c_int(0)
+        grid = tuple(r.shape[1:] if lanes is not None else r.shape)
         rc = lib.fi_smooth_phase(r.data_ptr(), None if from_zero else z.data_ptr(),
                                  coeff.data_ptr(), scaled_inv_diag.data_ptr(), _ptr(zout),
-                                 _ptr(tmp), _ptr(res), *kernel_dims(tuple(r.shape)), *w2,
-                                 int(diag), _ptr(cheb_coefs), count, int(from_zero),
-                                 ctypes.byref(launches), stream)
-        fused_smooth.launches += launches.value
-        if cheb_coefs is not None:
-            fused_smooth.cheb_launches += launches.value
+                                 _ptr(tmp), _ptr(res), lanes or 1, *kernel_dims(grid), *w2,
+                                 int(diag), _ptr(cheb_coefs), _cf_lane(cheb_coefs, lanes),
+                                 count, int(from_zero), ctypes.byref(launches), stream)
+        _count(fused_smooth, launches.value, cheb_coefs is not None, lanes)
         _build.check(rc, "fused_smooth")
         out = z if zout is None else zout
         return (out, res) if residual else out
@@ -203,7 +236,8 @@ def fused_sweep(r: torch.Tensor, z: torch.Tensor, cdiag: torch.Tensor,
     counterpart of ``fused_sweep_striped2_3d`` (3-D) and
     ``fused_sweep_striped_diag`` (2-D), run as `fused_smooth` with one sweep
     from z (its plain version is `fused_smooth_plain` likewise), with
-    ``residual`` as there. The grid's rank is z's."""
+    ``residual`` as there. The grid's rank is z's: one field. Lanes go
+    through ``fused_smooth(..., ndim, 1)``."""
     if cdiag.ndim != z.ndim:
         raise ValueError(f"fused_sweep: cdiag must be a [*grid] diagonal, got "
                          f"{tuple(cdiag.shape)} for grid {tuple(z.shape)}")
@@ -233,12 +267,16 @@ def fused_smooth_2d(r: torch.Tensor, z: torch.Tensor, coeff: torch.Tensor,
     its halo (`multisweep_max_halo`, in nodes, over the operator radius ρ),
     so a longer phase (more than 8 nodes from z at ρ = 2, the residual
     counting as a stage) is several launches, each handing the next its z
-    and, under Chebyshev, z_prev. Semantics of `fused_smooth_plain`,
-    ``from_zero`` included."""
-    def launch(count, diag, lib, w2, stream):
+    and, under Chebyshev, z_prev. Lanes: r [B, n0, n1] with coeff [B, 9, n0,
+    n1] and the rest likewise, B ≤ `MAX_LANES_2D`. Semantics of
+    `fused_smooth_plain`, ``from_zero`` included."""
+    def launch(count, diag, lib, w2, stream, lanes):
         if diag:
             raise ValueError("fused_smooth_2d: needs the [9, n0, n1] data stencil; "
                              "a diagonal data term goes through fused_smooth")
+        if (lanes or 1) > MAX_LANES_2D:
+            raise ValueError(f"fused_smooth_2d: at most {MAX_LANES_2D} lanes in one launch "
+                             f"(the kernel's lane is blockIdx.z), got {lanes}")
         # The library splits the phase into launches and uses tmp (and,
         # under Chebyshev, the two z_prev buffers) only where it does.
         zout = torch.empty_like(r) if count else None
@@ -249,11 +287,10 @@ def fused_smooth_2d(r: torch.Tensor, z: torch.Tensor, coeff: torch.Tensor,
         rc = lib.fi_multisweep2d_phase(
             r.data_ptr(), None if from_zero else z.data_ptr(), coeff.data_ptr(),
             scaled_inv_diag.data_ptr(), _ptr(zout), _ptr(tmp), *map(_ptr, prev), _ptr(res),
-            *r.shape, *w2, max(max_stencil_radius(weights), 1), _ptr(cheb_coefs), count,
-            int(from_zero), ctypes.byref(launches), stream)
-        fused_smooth_2d.launches += launches.value
-        if cheb_coefs is not None:
-            fused_smooth_2d.cheb_launches += launches.value
+            lanes or 1, *r.shape[-2:], *w2, max(max_stencil_radius(weights), 1),
+            _ptr(cheb_coefs), _cf_lane(cheb_coefs, lanes), count, int(from_zero),
+            ctypes.byref(launches), stream)
+        _count(fused_smooth_2d, launches.value, cheb_coefs is not None, lanes)
         _build.check(rc, "fused_smooth_2d")
         out = z if zout is None else zout
         return (out, res) if residual else out
@@ -261,5 +298,5 @@ def fused_smooth_2d(r: torch.Tensor, z: torch.Tensor, coeff: torch.Tensor,
                            weights, 2, sweeps, from_zero, cheb_coefs, residual)
 
 
-fused_smooth.launches = fused_smooth.cheb_launches = 0
-fused_smooth_2d.launches = fused_smooth_2d.cheb_launches = 0
+fused_smooth.launches = fused_smooth.cheb_launches = fused_smooth.lane_launches = 0
+fused_smooth_2d.launches = fused_smooth_2d.cheb_launches = fused_smooth_2d.lane_launches = 0

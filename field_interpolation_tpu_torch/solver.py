@@ -558,17 +558,19 @@ def _lanes_ops(problem: Problem, config: SolverConfig, fused: bool):
 def solve_lanes(problem: Problem, config: SolverConfig, x0: Optional[torch.Tensor] = None,
                 fused: bool = False) -> tuple[torch.Tensor, SolveInfo]:
     """`solve` on a problem whose leaves lead with B lanes: the fused
-    segment batched (``fused``; `_pcg_fused_batch`) or `pcg_batch` with the
-    Jacobi or no preconditioner. Other multigrid routes go lane by lane
-    (``batch.solve_batch``)."""
+    segment batched (``fused``; `_pcg_fused_batch`), or `pcg_batch` with the
+    batched apply and the preconditioner of all lanes at once (Jacobi, none,
+    or the multigrid cycle on lanes: each smoothing phase or whole cycle one
+    kernel call for every lane, `multigrid.make_vcycle_preconditioner`)."""
     _check_config(config)
     ops = _lanes_ops(problem, config, fused)
     if ops is not None:
         return _pcg_fused_batch(ops, problem.b, x0, tol=config.tol, maxiter=config.maxiter,
                                 max_restarts=config.max_restarts, nu=config.mg_pre_smooth,
                                 wdepth=resolve_wdepth(config, problem.grid.shape))
-    return pcg_batch(_make_apply_lanes(problem, config), problem.b, x0=x0,
-                     precond_fn=_make_precond(problem, config),
+    apply_fn = _make_apply_lanes(problem, config)
+    return pcg_batch(apply_fn, problem.b, x0=x0,
+                     precond_fn=_make_precond(problem, config, apply_fn),
                      ndim=problem.grid.ndim, tol=config.tol, maxiter=config.maxiter,
                      recompute_every=config.recompute_every,
                      max_restarts=config.max_restarts)
@@ -589,7 +591,7 @@ def solve_refined_lanes(problem64, config: SolverConfig,
     ops = _lanes_ops(p32, config, fused)
     if ops is None:
         apply32 = _make_apply_lanes(p32, config)
-        precond = _make_precond(p32, config)
+        precond = _make_precond(p32, config, apply32)
     wdepth = resolve_wdepth(config, p32.grid.shape)
 
     def dot(u, v):

@@ -40,6 +40,7 @@ from field_interpolation_tpu_torch import multigrid as tmg
 from field_interpolation_tpu_torch import solver as tsolver
 from field_interpolation_tpu_torch.convert import (fused_operands_from_numpy,
                                                    problems_from_numpy)
+from field_interpolation_tpu_torch.ops import cycle as tcycle
 from field_interpolation_tpu_torch.ops import pcg as tpcg
 from field_interpolation_tpu_torch.ops import stencil as tst
 
@@ -483,18 +484,21 @@ ROUTE_CASES = [
     ((128, 128), dict(preconditioner="jacobi"), 4, "pcg"),
     ((128, 128), dict(preconditioner="none"), 4, "pcg"),
     ((24, 24, 24), dict(preconditioner="jacobi"), 4, "pcg"),
-    ((24, 24, 24), {}, 4, "lanes"),                     # 3-D
-    ((1024, 1024), {}, 2, "lanes"),                     # past fits_vmem
-    ((128, 128), dict(mg_post_smooth=2), 4, "lanes"),   # ν_pre ≠ ν_post
-    ((128, 128), dict(mg_coarse_solver="jacobi"), 4, "lanes"),
-    ((128, 128), {}, 4096, "lanes"),                    # _dense_coarsest_ok swaps
-    ((128, 128), dict(backend="xla"), 4, "lanes"),
-    ((6, 6), {}, 4, "lanes"),                           # degenerate hierarchy
+    ((24, 24, 24), {}, 4, "cycle"),                     # 3-D
+    ((1024, 1024), {}, 2, "cycle"),                     # past fits_vmem
+    ((128, 128), dict(mg_post_smooth=2), 4, "cycle"),   # ν_pre ≠ ν_post
+    ((128, 128), dict(mg_coarse_solver="jacobi"), 4, "cycle"),
+    ((128, 128), {}, 4096, "cycle"),                    # _dense_coarsest_ok swaps
+    ((128, 128), dict(backend="xla"), 4, "cycle"),
+    ((6, 6), {}, 4, "cycle"),                           # degenerate hierarchy
     # The same rules on batches large enough for the batched segment:
-    ((1024, 1024), {}, 1024, "lanes"),
-    ((128, 128), dict(mg_post_smooth=2), 1024, "lanes"),
-    ((128, 128), dict(mg_coarse_solver="jacobi"), 1024, "lanes"),
-    ((128, 128), dict(backend="xla"), 1024, "lanes"),
+    ((1024, 1024), {}, 1024, "cycle"),
+    ((128, 128), dict(mg_post_smooth=2), 1024, "cycle"),
+    ((128, 128), dict(mg_coarse_solver="jacobi"), 1024, "cycle"),
+    ((128, 128), dict(backend="xla"), 1024, "cycle"),
+    # One lane off the fused path (`_cycle_wins`: B ≥ 2):
+    ((24, 24, 24), {}, 1, "lanes"),
+    ((1024, 1024), {}, 1, "lanes"),
     # Batch size (`_batch_wins`: B ≥ 2 and one lane per 16384 nodes):
     ((32, 32), {}, 1, "lanes"),
     ((32, 32), {}, 2, "fused"),
@@ -524,8 +528,9 @@ def test_route_per_config(shape, cfg, B, route):
 
 def test_routes_launch_what_they_say(monkeypatch):
     """A spy on each route's work: the fused route runs one batched segment
-    call per outer round for all lanes and no single-field solve; the
-    lane-by-lane route runs B single-field solves and no batched segment."""
+    call per outer round for all lanes and no single-field solve; the cycle
+    route (here the Jacobi coarsest) neither; the lane-by-lane route (one
+    lane of that config) runs a single-field solve and no batched segment."""
     rng = np.random.default_rng(7)
     pts, nrm = _cloud(rng, 3, 50, (32, 32))
     g, w = ft.Grid((32, 32)), ft.Weights(model_2=0.3)
@@ -545,9 +550,11 @@ def test_routes_launch_what_they_say(monkeypatch):
     _, info = tb.sdf_from_points_batch(g, w, _t(pts), _t(nrm), config=ft.SolverConfig(tol=1e-4))
     assert calls == {"batch": 1, "single": 0} and bool(info.converged.all())
     calls.update(batch=0)
-    tb.sdf_from_points_batch(g, w, _t(pts), _t(nrm),
-                             config=ft.SolverConfig(tol=1e-4, mg_coarse_solver="jacobi"))
-    assert calls == {"batch": 0, "single": 3}
+    jacobi = ft.SolverConfig(tol=1e-4, mg_coarse_solver="jacobi")
+    _, info = tb.sdf_from_points_batch(g, w, _t(pts), _t(nrm), config=jacobi)
+    assert calls == {"batch": 0, "single": 0} and bool(info.converged.all())
+    tb.sdf_from_points_batch(g, w, _t(pts[:1]), _t(nrm[:1]), config=jacobi)
+    assert calls == {"batch": 0, "single": 1}
 
 
 def test_problems_from_numpy_feeds_both_packages(rng):
@@ -667,7 +674,7 @@ def test_batch_tables_carry_the_lane_plan():
     shapes, diags = _hierarchy((32, 32))
     L = len(shapes)
     assert ints[:2] == [3, keep[2].numel() // 3]
-    assert ints[2:2 + tpcg.MAX_LEVELS] == [0] * tpcg.MAX_LEVELS
+    assert ints[2:2 + tcycle.MAX_LEVELS] == [0] * tcycle.MAX_LEVELS
     threads, per_sm, mask, az0, nbytes = tpcg.lane_plan(shapes, diags, geometry=(1024, 1))
     assert ints[10:15] == [threads, mask, az0, per_sm, nbytes]
     assert ints[15:19] == [L, 3, 3, 0]

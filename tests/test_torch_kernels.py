@@ -1127,3 +1127,133 @@ def test_batch_launches_do_not_grow_with_lanes(cuda):
     assert r1024 >= 1 and c1024 > 0, counts
     per_round = c64 / max(r64, 1)
     assert c1024 <= c64 + per_round * max(r1024 - r64, 0) + 16, counts
+
+
+# ---- the lane forms of the smoothing-phase, multi-sweep and cycle kernels ---
+
+def _lane_operands(shape, cuda, B, diag, weights_kw=dict(model_1=0.2, model_2=1.0)):
+    """B lanes of `_sweep_operands`: lane i's problem from seed i, its own
+    r and z; sid = 0.3/D."""
+    lanes = [_problem(shape, cuda, n=200, seed=i, weights=weights_kw) for i in range(B)]
+    rng = np.random.default_rng(5)
+    r, z = (torch.as_tensor(rng.standard_normal((B,) + shape).astype(np.float32), device=cuda)
+            for _ in range(2))
+    coeff = torch.stack([p.coeff[(3 ** len(shape)) // 2] if diag else p.coeff for p in lanes])
+    sid = torch.stack([0.3 / p.diag for p in lanes]).contiguous()
+    return r, z, coeff.contiguous(), sid, ft.Weights(**weights_kw)
+
+
+def _lane_schedules(B, sweeps, cuda, kind="chebyshev4"):
+    """[B, ν, 2] schedules, one Gershgorin bound a lane."""
+    rho = torch.linspace(2.1, 2.6, B, device=cuda)
+    return tmg.chebyshev_coefs(rho, sweeps, ft.SolverConfig(mg_smoother=kind)).contiguous()
+
+
+def _lanes_equal_single(got, single, residual):
+    """Lane i of the batched call is the single-field call on lane i, bit
+    for bit (z and, with ``residual``, r − A z)."""
+    torch.cuda.synchronize()
+    outs = got if residual else (got,)
+    for i, one in enumerate(single):
+        for g, s in zip(outs, one if residual else (one,)):
+            assert torch.equal(g[i], s), (i, float((g[i] - s).abs().max()))
+
+
+@pytest.mark.parametrize("shape,B,diag", [
+    ((64, 48), 5, False), ((64, 48), 5, True), ((24, 20, 18), 3, False),
+    ((24, 20, 18), 3, True), ((37, 5, 70), 2, False), ((37, 5, 70), 2, True),
+    ((128, 128, 128), 2, True)], ids=str)
+@pytest.mark.parametrize("from_zero", [False, True])
+@pytest.mark.parametrize("kind", ["jacobi", "chebyshev4"])
+@pytest.mark.parametrize("residual", [False, True])
+def test_sweep_kernel_lanes_equal_single_and_plain(cuda, shape, B, diag, from_zero, kind,
+                                                   residual):
+    """fused_smooth on B lanes: one call's launches for all lanes (as one
+    field's), each lane's output the single-field kernel's bits, all lanes
+    within the single-field bars of the plain version; tiles cut at odd
+    extents, 128³ at the size of config 4's lumped (diagonal) fine level."""
+    r, z, coeff, sid, w = _lane_operands(shape, cuda, B, diag)
+    nd, sweeps = len(shape), 3
+    cf = None
+    if kind != "jacobi":
+        cf, sid = _lane_schedules(B, sweeps, cuda, kind), (sid / 0.3).contiguous()
+    before, lanes_before = fused_smooth.launches, fused_smooth.lane_launches
+    got = fused_smooth(r, z, coeff, sid, w, nd, sweeps, from_zero, cheb_coefs=cf,
+                       residual=residual)
+    launches = fused_smooth.launches - before
+    assert launches == _phase_launches(sweeps, from_zero, residual, cf is not None)
+    assert fused_smooth.lane_launches - lanes_before == launches
+    single = [fused_smooth(r[i], z[i], coeff[i], sid[i], w, nd, sweeps, from_zero,
+                           cheb_coefs=None if cf is None else cf[i], residual=residual)
+              for i in range(B)]
+    _lanes_equal_single(got, single, residual)
+    _check_phase(got, fused_smooth_plain(r, z, coeff, sid, w, nd, sweeps, from_zero,
+                                         cheb_coefs=cf, residual=residual), residual)
+
+
+@pytest.mark.parametrize("shape,B,radius", [((100, 128), 3, 2), ((37, 201), 4, 2),
+                                            ((992, 992), 2, 2), ((1000, 1030), 2, 3),
+                                            ((5, 7), 3, 1)], ids=str)
+@pytest.mark.parametrize("from_zero", [False, True])
+@pytest.mark.parametrize("kind", ["jacobi", "chebyshev4"])
+@pytest.mark.parametrize("residual", [False, True])
+def test_multisweep_kernel_lanes_equal_single_and_plain(cuda, shape, B, radius, from_zero,
+                                                        kind, residual):
+    """fused_smooth_2d on B lanes: one field's launches for all lanes (a
+    radius-3 phase from z with the residual takes two), each lane the
+    single-field kernel's bits, all within the bars of the plain version;
+    rows 16-byte aligned (100 × 128, 992²) and ragged (1000 × 1030, 37 ×
+    201: the scalar path for the whole launch)."""
+    r, z, coeff, sid, w = _lane_operands(shape, cuda, B, False, MULTISWEEP_WEIGHTS[radius])
+    sweeps = 3
+    cf = None
+    if kind != "jacobi":
+        cf, sid = _lane_schedules(B, sweeps, cuda, kind), (sid / 0.3).contiguous()
+    before, lanes_before = fused_smooth_2d.launches, fused_smooth_2d.lane_launches
+    got = fused_smooth_2d(r, z, coeff, sid, w, sweeps, from_zero, cheb_coefs=cf,
+                          residual=residual)
+    launches = fused_smooth_2d.launches - before
+    assert launches == _multisweep_launches(sweeps, from_zero, residual, radius,
+                                            cf is not None)
+    assert fused_smooth_2d.lane_launches - lanes_before == launches
+    single = [fused_smooth_2d(r[i], z[i], coeff[i], sid[i], w, sweeps, from_zero,
+                              cheb_coefs=None if cf is None else cf[i], residual=residual)
+              for i in range(B)]
+    _lanes_equal_single(got, single, residual)
+    _check_phase(got, fused_smooth_plain(r, z, coeff, sid, w, 2, sweeps, from_zero,
+                                         cheb_coefs=cf, residual=residual), residual)
+
+
+@pytest.mark.parametrize("shape,B", [((45, 61), 3), ((97, 130), 2), ((440, 440), 2)],
+                         ids=str)
+@pytest.mark.parametrize("change", [{}, dict(mg_smoother="chebyshev4"),
+                                    dict(mg_coarse_data="galerkin")], ids=str)
+@pytest.mark.parametrize("wdepth,nu_pre,nu_post", [(0, 2, 3), (0, 3, 3), (99, 3, 3)])
+def test_cycle_kernel_lanes_equal_single_and_plain(cuda, shape, B, change, wdepth, nu_pre,
+                                                   nu_post):
+    """The whole-cycle kernel on B lanes: ONE launch for the batch, each
+    lane's z the single-field kernel's bits, all lanes within 3e-5·max of
+    mg_cycle_plain on lanes; per-lane steps, schedules and coarsest
+    inverses, lumped and Galerkin coarse levels (440²: inside the
+    whole-cycle band of every mode)."""
+    probs = _batch(shape, cuda, B)
+    (coeffs, sids, Rs, inv32, lw), _, cfs = tmg.whole_cycle_operands(
+        probs, ft.SolverConfig(**change))
+    r = torch.as_tensor(np.random.default_rng(8).standard_normal((B,) + shape)
+                        .astype(np.float32), device=cuda)
+    counter = fused_wcycle_2d if wdepth else fused_vcycle_2d
+
+    def call(rr, cs, ss, inv, cf):
+        if wdepth:
+            return fused_wcycle_2d(rr, cs, ss, Rs, inv, lw, nu_pre, cheb_coefs=cf,
+                                   wdepth=wdepth)
+        return fused_vcycle_2d(rr, cs, ss, Rs, inv, lw, nu_pre, nu_post, cheb_coefs=cf)
+
+    before, lanes_before = counter.launches, counter.lane_launches
+    got = call(r, coeffs, sids, inv32, cfs)
+    assert counter.launches == before + 1 and counter.lane_launches == lanes_before + 1
+    single = [call(r[i], [c[i] for c in coeffs], [s[i] for s in sids], inv32[i],
+                   None if cfs is None else [cf[i] for cf in cfs]) for i in range(B)]
+    _lanes_equal_single(got, single, False)
+    _close(got, mg_cycle_plain(r, coeffs, sids, Rs, inv32, lw, nu_pre, nu_post, wdepth, cfs),
+           3e-5)
