@@ -199,10 +199,38 @@ toolkit (``nvcc``). Phases, each fatal on failure:
     ``sdf_from_points_precise_batch``, every lane ≤ 1e-6 against the plain
     float64 operator with the reported residual within 2%;
 41. 32 of config 3's lanes one after another through the single-field
-    ``sdf_from_points``: ms per field, as context for the batch.
+    ``sdf_from_points``: ms per field, as context for the batch;
+42-45. the lane forms of the smoothing-phase, multi-sweep and whole-cycle
+    kernels against their plain versions and bit for bit against one
+    single-field call a lane (phase 42, ``phase_lane_kernels``; also the
+    Chebyshev lane form on config 4 × 16's 64³ Galerkin level, ν = 3 from
+    zero with the residual), then the "cycle" route's batches (config 4 ×
+    16, config 3's inputs × 4096, field A × 8, field C's grid × 4);
+46. contouring config 4's 128³ field (phase 8, seed 0):
+    ``marching_tetrahedra_device_compact`` with its defaults against
+    ``marching_tetrahedra_device`` (the same count, the same rows in order
+    within 2e-6), ``weld_triangles`` and ``write_obj``, the host
+    ``marching_tetrahedra`` on a 33³ crop against the device extraction of
+    the crop (as sets within 1e-5);
+47. the same for config 5's 4096² field (phase 12) in 2-D, with
+    ``contour_polylines`` on the compact rows and a 256² crop;
+48. config 3's 1024 fields (phase 39) through the compact extractor in one
+    call, lanes 0, 341, 682 and 1023 the bits of one-lane calls;
+49. in the ranks of phases 28-30, each rank contours its own solved block
+    of S2 and S4 (``parallel.contour``): the union equals the device
+    extraction of the stitched field within 3e-5, and a cap of 2 overflows
+    on every rank;
+50. debug mode on the headline (256², tol 1e-4, ``SolverConfig(debug=True)``):
+    within ±2 iterations and 2e-3·max|x| of ``backend="xla"``, no kernel
+    launched, a NaN position raises the reference's message;
+51. (after phase 11) a ``record_solve`` JSON line for config 4's solve and
+    ``measure_marginal`` of the 4096² apply.
 
 Each phase's wall time follows it in brackets. The lines before the last
-are the kernel record (JSON: per kernel its
+are the contour record (JSON: each extractor's ms a call, the median of 5
+CUDA-event times after a warm-up, its spread and its segments or
+triangles; the host extractors and the sharded ranks once; with the debug
+and observe results and the card), the kernel record (JSON: per kernel its
 launches on its path, its error and time against its plain version, and
 its bound: the bytes it must move over 3.35 TB/s or its float32 operations
 over 67 TFLOP/s, whichever is longer) and the card; the last line is
@@ -759,7 +787,7 @@ def phase_main3d(ft, device):
     for name in ("fused_normal_apply", "fused_smooth"):
         require(launches[name] > 0, f"{name} was not launched on the 3-D path")
     require(launches["fused_pcg_solve"] == 0, "the 3-D path launched fused_pcg_solve")
-    return launches, {seed: int(info.iterations) for seed, _, info, _ in fields}
+    return launches, {seed: int(info.iterations) for seed, _, info, _ in fields}, fields[0]
 
 
 def busy_ms(intervals):
@@ -1091,7 +1119,7 @@ def phase_main5(ft, device):
     for name in ("fused_normal_apply", "fused_smooth", "fused_smooth_2d"):
         require(launches[name] > 0, f"{name} was not launched on the config 5 path")
     require(launches["fused_pcg_solve"] == 0, "the config 5 path launched fused_pcg_solve")
-    return launches
+    return launches, fields[0][1]
 
 
 def phase_profile5(ft, device):
@@ -1963,12 +1991,15 @@ def phase_sharded(ft, device, shape3=SHAPE_S4, n3=N_POINTS_S4, rank_device="cuda
     cases = [("sharded_solve", dict(cloud=c2, mesh_shape=MESH_S, config=cfg2)),
              ("sharded_refined", dict(cloud=c2, mesh_shape=MESH_S,
                                       config=ft.SolverConfig(**{**CFG5, "tol": TOL}))),
-             ("sharded_solve", dict(cloud=c3, mesh_shape=MESH_S, config=cfg3))]
+             ("sharded_solve", dict(cloud=c3, mesh_shape=MESH_S, config=cfg3)),
+             # Phase 49: each rank contours its own solved block of S2 and S4.
+             ("sharded_contour", dict(field=0, mesh_shape=MESH_S, caps=(None, 2))),
+             ("sharded_contour", dict(field=2, mesh_shape=MESH_S, caps=(None, 2)))]
     t0 = time.perf_counter()
     res = run_ranks(run_cases, RANKS, cases, device=rank_device)
     print(f"sharded phases: {RANKS} ranks, {len(cases)} runs, "
           f"{time.perf_counter() - t0:.1f} s from spawn to join")
-    s2, s3, s4 = ([r[k] for r in res] for k in range(3))
+    s2, s3, s4, s2c, s4c = ([r[k] for r in res] for k in range(5))
     out = {"S2": check_sharded(f"S2 config 5 sharded 2-D {shape_str(SHAPE5)} on "
                                f"{shape_str(MESH_S)}", s2, ref2)}
     for name in ("fused_normal_apply_ext", "fused_normal_apply_ext_striped"):
@@ -1990,6 +2021,16 @@ def phase_sharded(ft, device, shape3=SHAPE_S4, n3=N_POINTS_S4, rank_device="cuda
                               s4, ref3)
     require(all(p["launches"]["fused_normal_apply_ext"] > 0 for p in s4),
             "S4: a rank did not launch fused_normal_apply_ext")
+    from field_interpolation_tpu_torch import contour as tc
+    for label, parts, blocks, extract in [
+            (f"S2 sharded contour {shape_str(SHAPE5)}", s2c, s2,
+             lambda x, n: tc.marching_squares_device_compact(x, max_segments=n)),
+            (f"S4 sharded contour {shape_str(shape3)}", s4c, s4,
+             lambda x, n: tc.marching_tetrahedra_device_compact(x, max_triangles=n))]:
+        n = 2 * sum(p["runs"][0]["count"] for p in parts) + 16
+        check_sharded_contour(label, parts, stitch(blocks, "x").to(device),
+                              lambda x: extract(x, n))
+        torch.cuda.empty_cache()
     # S4 as one rank (mesh 1 x 1): the sharded code's own cost, without four
     # processes sharing the card.
     one = [r[0] for r in run_ranks(run_cases, 1, [("sharded_solve", dict(
@@ -2799,7 +2840,7 @@ def phase_config3(ft, device):
           f"{prof[B3_PROFILE_SMALL]['launch_calls']:.0f} launch calls)")
     return launches, dict(ms=med, us_per_field=1e3 * med / B3, fields_per_s=B3 / (med / 1e3),
                           iterations_max=int(its.max()),
-                          iterations_mean=float(its.float().mean()), profile=prof)
+                          iterations_mean=float(its.float().mean()), profile=prof), x
 
 
 def phase_config3_precise(ft, device):
@@ -2944,46 +2985,59 @@ def phase_lane_kernels(ft, device):
     def rand(shape):
         return torch.randn(shape, generator=gen, device=device)
 
-    def phase(key, label, coeff, sid, w, nd, fz, residual, nu=3, check=None):
+    def phase(key, label, coeff, sid, w, nd, fz, residual, nu=3, check=None, cf=None):
+        # cf: the lanes' [B, ν, 2] Chebyshev schedules (sid = D⁻¹), or None
+        # for damped Jacobi.
         B, multi = sid.shape[0], coeff.ndim == sid.ndim + 1 and nd == 2
         r, z = rand(tuple(sid.shape)), rand(tuple(sid.shape))
 
-        def call(rr, zz, c, si):
+        def call(rr, zz, c, si, cfs=cf):
             if multi:
-                return fused_smooth_2d(rr, zz, c, si, w, nu, fz, residual=residual)
-            return fused_smooth(rr, zz, c, si, w, nd, nu, fz, residual=residual)
+                return fused_smooth_2d(rr, zz, c, si, w, nu, fz, cheb_coefs=cfs,
+                                       residual=residual)
+            return fused_smooth(rr, zz, c, si, w, nd, nu, fz, cheb_coefs=cfs,
+                                residual=residual)
         print(f"lane {'multi-sweep' if multi else 'smoothing-phase'} kernel, {label}: B={B}, "
-              f"{shape_str(tuple(sid.shape[1:]))}, ν = {nu} from {'zero' if fz else 'z'}"
+              f"{shape_str(tuple(sid.shape[1:]))}, ν = {nu}"
+              f"{' Chebyshev' if cf is not None else ''} from {'zero' if fz else 'z'}"
               f"{' with the residual' if residual else ''}")
         work = tuple(B * v for v in sweep_work(r[0], coeff[0], w, nd, nu, fz,
-                                               residual=residual))
+                                               cheb=cf is not None, residual=residual))
         recs[key] = compare_lanes(
             f"lane phase {key}", lambda: call(r, z, coeff, sid),
-            lambda i: call(r[i], z[i], coeff[i], sid[i]),
-            lambda: fused_smooth_plain(r, z, coeff, sid, w, nd, nu, fz, residual=residual),
+            lambda i: call(r[i], z[i], coeff[i], sid[i], None if cf is None else cf[i]),
+            lambda: fused_smooth_plain(r, z, coeff, sid, w, nd, nu, fz, cheb_coefs=cf,
+                                       residual=residual),
             B, 2e-5, work, residual, check)
         recs[key]["multi_sweep"] = multi
 
     def smooth_ops(probs, config=cfg):
         prep = tmg.prepare_mg(probs, config, fused=False, kernels=True)
-        return prep.smooth_ops, [probs.weights] + [l.weights for l in prep.levels]
+        return (prep.smooth_ops, [probs.weights] + [l.weights for l in prep.levels],
+                prep.schedules)
 
     p4 = lane_problems(ft, device, SHAPE3, sphere_inputs, range(B4))
-    ops, lw = smooth_ops(p4)
-    del p4
+    ops, lw, _ = smooth_ops(p4)
     phase("sweep_128_lumped_x16", "config 4's lumped fine level", *ops[0], lw[0], 3, True, True)
     phase("sweep_64_diag_x16", "config 4's 64³ diagonal level", *ops[1], lw[1], 3, False, False)
     del ops
+    # The Chebyshev lane form on the 27-channel Galerkin level (the 537 row).
+    ops, lw, sched = smooth_ops(p4, ft.SolverConfig(tol=1e-4, **CHEB, **GALERKIN))
+    del p4
+    require(ops[1][0].ndim == 5, f"config 4 x 16 Galerkin: level 1 data {tuple(ops[1][0].shape)}")
+    phase("sweep_64_galerkin_cheb_x16", "config 4's 64³ Galerkin level (27 channels), "
+          "Chebyshev", *ops[1], lw[1], 3, True, True, cf=sched[1, 3])
+    del ops, sched
     p5 = lane_problems(ft, device, SHAPE_D8, lambda s, d: circle5_inputs(
         s, d, SHAPE_D8, N_POINTS5 // 16), range(8))
-    ops, lw = smooth_ops(p5)
+    ops, lw, _ = smooth_ops(p5)
     del p5
     phase("sweep_512_diag_x8", "512² diagonal level (config 5's cloud at 1024²)", *ops[1],
           lw[1], 2, True, False)
     del ops
     pc = lane_problems(ft, device, SHAPE_C, lambda s, d: field_a_inputs(
         s, d, SHAPE_C, N_POINTS_C), range(B_C))
-    ops, lw = smooth_ops(pc)
+    ops, lw, _ = smooth_ops(pc)
     del pc
     phase("multi_992_x4", "field C's 992² fine level", *ops[0], lw[0], 2, True, True)
     del ops
@@ -2995,7 +3049,7 @@ def phase_lane_kernels(ft, device):
     p3 = tb.assemble_batch(grid, ft.Weights(model_2=0.3), pts,
                            torch.zeros(pts.shape[:2], device=device), gradients=nrm)
     del pts, nrm
-    ops, lw = smooth_ops(p3, jcfg)
+    ops, lw, _ = smooth_ops(p3, jcfg)
     del p3
     phase("multi_128_x4096", "config 3's 128² fine level", *ops[0], lw[0], 2, True, True,
           check=B3_JACOBI_CHECK)
@@ -3170,6 +3224,261 @@ def phase_fields_lanes(ft, device):
     return (launches_a, rec_a), (launches_c, rec_c)
 
 
+# ---- the contouring and tooling slice: phases 46-51 -------------------------
+# The extractors on fields the main paths solve (config 4's 128³, config 5's
+# 4096², config 3's 1024 lanes of 128², S2's and S4's sharded blocks), the
+# debug pipeline on the headline and the observe tools. Crops: a 33³ box and
+# a 256² window that the surface crosses (config 4's sphere of radius 40
+# around 63.5; config 5's circle of radius 1433.6 around 2047.5).
+CROP3 = (slice(48, 81), slice(48, 81), slice(88, 121))
+CROP5 = (slice(1920, 2176), slice(3352, 3608))
+CONTOUR_REPS = 5
+CONTOUR_LANES = (0, 341, 682, 1023)
+CONTOURS = []  # the `contour` line's records, filled by the phases
+
+
+def extractor_ms(name, fn, shape, items):
+    """Median of CONTOUR_REPS single calls of an extractor (CUDA events,
+    after a warm-up) and their spread, (max − min) / median, as a record
+    of the `contour` line."""
+    fn()
+    times = []
+    for _ in range(CONTOUR_REPS):
+        times.append(timed(fn)[1])
+    med = statistics.median(times)
+    rec = dict(name=name, shape=list(shape), ms=med, spread=(max(times) - min(times)) / med,
+               items=int(items))
+    print(f"  {name} {shape_str(shape)}: {med:.3f} ms a call (median of {CONTOUR_REPS}, "
+          f"spread {rec['spread']:.3f}), {int(items)} items")
+    CONTOURS.append(rec)
+    return rec
+
+
+def canonical_rows(rows):
+    """[n, k, D] float64 items with each item's points in lexicographic
+    order, as [n, k·D] rows."""
+    rows = np.asarray(rows, np.float64)
+    keys = np.lexsort(rows.transpose(2, 0, 1)[::-1], axis=-1)           # [n, k]
+    return np.take_along_axis(rows, keys[..., None], axis=1).reshape(len(rows), -1)
+
+
+def same_sets(label, got, want, tol):
+    """The item sets ``got`` and ``want`` ([n, k, D]) are equal within
+    ``tol`` (max norm), matched one to one by nearest neighbour (the
+    float32 and float64 extractors place a vertex shared by two items a
+    few ulps apart, so a sorted comparison could pair the wrong items)."""
+    from scipy.spatial import cKDTree
+    require(len(got) == len(want), f"{label}: {len(got)} items against {len(want)}")
+    a, b = canonical_rows(got), canonical_rows(want)
+    dist, idx = cKDTree(b).query(a, p=np.inf)
+    worst = float(dist.max()) if len(a) else 0.0
+    require(worst <= tol and len(np.unique(idx)) == len(idx),
+            f"{label}: max distance {worst} (bar {tol}), {len(np.unique(idx))} of {len(idx)} "
+            "matched")
+    print(f"{label}: {len(got)} items, the same set within {worst:.2e} (bar {tol})")
+
+
+def phase_contour3d(ft, device, x3):
+    """Phase 46: config 4's 128³ field (phase 8, seed 0):
+    `marching_tetrahedra_device_compact` with its defaults against
+    `marching_tetrahedra_device` (24.6 M slots), the same count and the
+    same rows in order (2e-6); `weld_triangles` + `write_obj` into a temp
+    dir; the host `marching_tetrahedra` on a 33³ crop against the device
+    extraction of the same crop, as sets within 1e-5."""
+    import tempfile
+    from field_interpolation_tpu_torch import contour as tc
+    tris, count, ovf = tc.marching_tetrahedra_device_compact(x3)
+    full, valid = tc.marching_tetrahedra_device(x3)
+    want = full[valid]
+    n = int(count)
+    require(tris.is_cuda and not bool(ovf), f"config 4 contour: on {tris.device}, "
+            f"overflowed {bool(ovf)}")
+    require(n == want.shape[0] and n > 0, f"config 4 contour: compact {n}, full {want.shape[0]}")
+    err = float((tris[:n] - want).abs().max())
+    require(err <= 2e-6 and bool((tris[n:] == 0).all()),
+            f"config 4 contour: compact rows {err} from the full form's")
+    print(f"config 4 contour {shape_str(SHAPE3)}: compact {n} triangles (buffer "
+          f"{tris.shape[0]}), the full form's {full.shape[0]} slots give the same rows in "
+          f"order (max diff {err:.1e}, bitwise {torch.equal(tris[:n], want)})")
+    del full, valid, want
+    torch.cuda.empty_cache()
+    extractor_ms("marching_tetrahedra_device_compact",
+                 lambda: tc.marching_tetrahedra_device_compact(x3), SHAPE3, n)
+    extractor_ms("marching_tetrahedra_device", lambda: tc.marching_tetrahedra_device(x3),
+                 SHAPE3, n)
+    torch.cuda.empty_cache()
+    host_tris = tris[:n].cpu().numpy()
+    (verts, faces), weld_ms = host_ms(lambda: tc.weld_triangles(host_tris))
+    with tempfile.TemporaryDirectory() as tmp:
+        (nv, nf), obj_ms = host_ms(lambda: tc.write_obj(f"{tmp}/config4.obj", host_tris))
+    require((nv, nf) == (len(verts), n) and nv < 3 * n, f"config 4 OBJ: {nv} vertices, "
+            f"{nf} faces of {n} triangles")
+    print(f"config 4 mesh: {nv} welded vertices, {nf} faces; weld {weld_ms:.1f} ms, OBJ "
+          f"{obj_ms:.1f} ms (host clock)")
+    crop = x3[CROP3].contiguous()
+    host, ms_h = host_ms(lambda: tc.marching_tetrahedra(crop))
+    dev, dvalid = tc.marching_tetrahedra_device(crop)
+    require(len(host) > 100, f"config 4 crop: {len(host)} triangles")
+    same_sets(f"config 4 33³ crop, host (float64, {ms_h:.0f} ms host clock) against device",
+              dev[dvalid].cpu().numpy(), host, 1e-5)
+    CONTOURS.append(dict(name="marching_tetrahedra (host)", shape=[33, 33, 33], ms=ms_h,
+                         spread=None, items=len(host), clock="host"))
+
+
+def phase_contour5(ft, device, x5):
+    """Phase 47: config 5's 4096² field (phase 12, seed 0):
+    `marching_squares_device_compact` against `marching_squares_device`
+    (33.5 M slots), as phase 46; `contour_polylines` on the compact rows
+    (every segment in one polyline); the host `marching_squares` on a 256²
+    crop against the device extraction of the crop, as sets within 1e-5."""
+    from field_interpolation_tpu_torch import contour as tc
+    segs, count, ovf = tc.marching_squares_device_compact(x5)
+    full, valid = tc.marching_squares_device(x5)
+    want = full[valid]
+    n = int(count)
+    require(segs.is_cuda and not bool(ovf), f"config 5 contour: overflowed {bool(ovf)}")
+    require(n == want.shape[0] and n > 0, f"config 5 contour: compact {n}, full {want.shape[0]}")
+    err = float((segs[:n] - want).abs().max())
+    require(err <= 2e-6 and bool((segs[n:] == 0).all()),
+            f"config 5 contour: compact rows {err} from the full form's")
+    print(f"config 5 contour {shape_str(SHAPE5)}: compact {n} segments (buffer "
+          f"{segs.shape[0]}), the full form's {full.shape[0]} slots give the same rows in "
+          f"order (max diff {err:.1e}, bitwise {torch.equal(segs[:n], want)})")
+    del full, valid, want
+    torch.cuda.empty_cache()
+    extractor_ms("marching_squares_device_compact",
+                 lambda: tc.marching_squares_device_compact(x5), SHAPE5, n)
+    extractor_ms("marching_squares_device", lambda: tc.marching_squares_device(x5), SHAPE5, n)
+    torch.cuda.empty_cache()
+    lines, ms_l = host_ms(lambda: tc.contour_polylines(segs[:n]))
+    used = sum(len(line) - 1 for line in lines)
+    closed = sum(bool(np.allclose(line[0], line[-1])) for line in lines)
+    require(used == n, f"config 5 polylines hold {used} of {n} segments")
+    print(f"config 5 polylines: {len(lines)} ({closed} closed), longest "
+          f"{max(len(line) for line in lines)} points; {ms_l:.1f} ms (host clock)")
+    crop = x5[CROP5].contiguous()
+    host, ms_h = host_ms(lambda: tc.marching_squares(crop))
+    dev, dvalid = tc.marching_squares_device(crop)
+    require(len(host) > 100, f"config 5 crop: {len(host)} segments")
+    same_sets(f"config 5 256² crop, host (float64, {ms_h:.0f} ms host clock) against device",
+              dev[dvalid].cpu().numpy(), host, 1e-5)
+    CONTOURS.append(dict(name="marching_squares (host)", shape=[256, 256], ms=ms_h,
+                         spread=None, items=len(host), clock="host"))
+
+
+def phase_contour_lanes(ft, device, x3b):
+    """Phase 48: config 3's 1024 fields of 128² (phase 39) through
+    `marching_squares_device_compact` in one call; lanes CONTOUR_LANES
+    against one-lane calls (bit for bit)."""
+    from field_interpolation_tpu_torch import contour as tc
+    segs, count, ovf = tc.marching_squares_device_compact(x3b)
+    require(tuple(segs.shape[:1]) == (x3b.shape[0],) and not bool(ovf.any()),
+            f"config 3 contour: {tuple(segs.shape)}, {int(ovf.sum())} lanes overflowed")
+    require(bool((count > 0).all()), "config 3 contour: a lane without segments")
+    for i in CONTOUR_LANES:
+        one = tc.marching_squares_device_compact(x3b[i])
+        require(torch.equal(segs[i], one[0]) and int(count[i]) == int(one[1])
+                and bool(ovf[i]) == bool(one[2]),
+                f"config 3 contour: lane {i} is not its one-lane call's")
+    print(f"config 3 contour: {x3b.shape[0]} lanes of {shape_str(tuple(x3b.shape[1:]))} in one "
+          f"call, {int(count.sum())} segments (min {int(count.min())}, max "
+          f"{int(count.max())} a lane); lanes {list(CONTOUR_LANES)} their one-lane calls' bits")
+    extractor_ms(f"marching_squares_device_compact x{x3b.shape[0]}",
+                 lambda: tc.marching_squares_device_compact(x3b), tuple(x3b.shape),
+                 int(count.sum()))
+    extractor_ms("marching_squares_device_compact x1",
+                 lambda: tc.marching_squares_device_compact(x3b[0]), tuple(x3b.shape[1:]),
+                 int(count[0]))
+
+
+def check_sharded_contour(label, parts, x, extract):
+    """Phase 49 (in the ranks of phases 28-30): the union of the ranks' live
+    rows equals the device extraction of the stitched field (rows sorted,
+    3e-5, the reference's bar); the tiny cap overflows on every rank."""
+    runs = [p["runs"][0] for p in parts]
+    require(not any(r["overflowed"] for r in runs) and all(r["zeros_past_count"] for r in runs),
+            f"{label}: overflowed or nonzero rows past count")
+    got = torch.cat([r["items"] for r in runs]).numpy()
+    items, count, ovf = extract(x)
+    want = items[:int(count)].cpu().numpy()
+    require(not bool(ovf) and len(got) == len(want),
+            f"{label}: {len(got)} rows over the ranks, {len(want)} unsharded")
+    a, b = (r.reshape(len(r), -1) for r in (got, want))
+    a, b = a[np.lexsort(a.T[::-1])], b[np.lexsort(b.T[::-1])]
+    err = float(np.abs(a - b).max()) if len(a) else 0.0
+    require(err <= 3e-5, f"{label}: union {err} from the unsharded extraction")
+    require(all(p["runs"][1]["overflowed"] for p in parts), f"{label}: tiny cap not reported")
+    slowest = max(r["ms"] for r in runs)
+    print(f"{label} ({SHARDED}): {len(got)} items over the ranks {[r['count'] for r in runs]}, "
+          f"the stitched field's device extraction (max diff {err:.1e}); a cap of 2 "
+          f"overflows on every rank; {slowest:.1f} ms, slowest rank")
+    CONTOURS.append(dict(name=label, shape=list(x.shape), ms=slowest, spread=None,
+                         items=len(got), clock="CUDA events on each rank after a barrier"))
+
+
+def phase_debug(ft, device):
+    """Phase 50: debug mode on the headline (256², seed 0, tol 1e-4):
+    `sdf_from_points(..., SolverConfig(debug=True))` converged within ±2
+    iterations and 2e-3·max|x| of the `backend="xla"` solve, no port kernel
+    launched; a NaN position raises the reference's message."""
+    grid, w = ft.Grid(SHAPE), ft.Weights(model_2=0.3)
+    pts, nrm = headline_inputs(0, device)
+    cfg = ft.SolverConfig(tol=1e-4, debug=True)
+    xr, ir = ft.sdf_from_points(grid, w, pts, nrm, config=ft.SolverConfig(tol=1e-4,
+                                                                          backend="xla"))
+    read = counters_zero()
+    (x, info), ms = timed(lambda: ft.sdf_from_points(grid, w, pts, nrm, config=cfg))
+    launches = read()
+    it, itr = int(info.iterations), int(ir.iterations)
+    err, scale = float((x - xr).abs().max()), float(xr.abs().max())
+    print(f"debug headline: iterations {it} (xla {itr}), max|x-x_xla| {err:.3e} (bar "
+          f"{2e-3 * scale:.3e}), {ms:.3f} ms, kernel launches {sum(launches.values())}")
+    require(x.is_cuda and bool(info.converged) and bool(ir.converged),
+            "debug headline: not converged on the card")
+    require(abs(it - itr) <= 2 and err <= 2e-3 * scale,
+            f"debug headline: iterations {it} vs {itr}, error {err}")
+    require(not any(launches.values()), f"debug headline launched kernels: {launches}")
+    bad = pts.clone()
+    bad[3, 0] = float("nan")
+    try:
+        ft.sdf_from_points(grid, w, bad, nrm, config=cfg)
+    except ValueError as e:
+        require("debug: non-finite sample position" in str(e), f"debug NaN: {e}")
+        print(f"debug NaN position raises: {e}")
+    else:
+        require(False, "debug mode accepted a NaN position")
+    return dict(ms=ms, iterations=it)
+
+
+def phase_observe(ft, device, p5, field3):
+    """Phase 51: a `record_solve` JSON line for config 4's solve (phase 8,
+    seed 0, its CUDA-event ms), and `measure_marginal` of the 4096² apply
+    (each step the apply kernel on config 5's problem and one x: a chain x →
+    A x would leave float32's range within ~30 steps)."""
+    import io
+    from field_interpolation_tpu_torch.ops.stencil import fused_normal_apply
+    from field_interpolation_tpu_torch.utils import (measure_marginal, record_solve,
+                                                      vcycle_applies_per_iteration)
+    _, x3, info3, ms3 = field3
+    buf = io.StringIO()
+    rec = record_solve(ft.Grid(SHAPE3), info3, ms3, preconditioner="multigrid",
+                       applies_per_iteration=vcycle_applies_per_iteration(3, 3), stream=buf,
+                       config="config 4", card=card_line())
+    print("record_solve:", buf.getvalue().strip())
+    require(rec.converged and rec.achieved_gbps and rec.achieved_gbps > 0,
+            f"record_solve: {rec}")
+    x = torch.randn(SHAPE5, generator=torch.Generator(device=device).manual_seed(51),
+                    device=device)
+    per, details = measure_marginal(lambda c: fused_normal_apply(x, p5.coeff, p5.weights, 2),
+                                    x, counts=(32, 160))
+    print(f"measure_marginal, the 4096² apply: {1e3 * per:.4f} ms a step (chains of "
+          f"{details['counts']}: {', '.join(f'{1e3 * t:.2f}' for t in details['times_s'].values())}"
+          " ms, host clock after synchronize)")
+    require(per > 0 and bool(torch.isfinite(details["final_carry"]).all()),
+            f"measure_marginal: {per}")
+    return dict(record=json.loads(buf.getvalue()), marginal_apply_ms=1e3 * per)
+
+
 def run_phase(fn, *args, **kwargs):
     """fn(*args, **kwargs), then its wall time on a line of its own."""
     t0 = time.perf_counter()
@@ -3202,12 +3511,16 @@ def main():
     p128, p32, lvl1, apply3_rec = run_phase(phase_apply3d, ft, device)
     sweep_rec = run_phase(phase_sweep3d, ft, device, p128, p32, lvl1)
     del p128, p32, lvl1
-    launches3, iters3 = run_phase(phase_main3d, ft, device)
+    launches3, iters3, field3 = run_phase(phase_main3d, ft, device)
+    run_phase(phase_contour3d, ft, device, field3[1])
     run_phase(phase_profile3d, ft, device)
     p5, multi_recs, apply5_rec = run_phase(phase_smooth2d, ft, device)
     sweep5_rec = run_phase(phase_sweep2d, ft, device, p5)
-    del p5
-    launches5 = run_phase(phase_main5, ft, device)
+    observe = run_phase(phase_observe, ft, device, p5, field3)
+    del p5, field3
+    launches5, x5 = run_phase(phase_main5, ft, device)
+    run_phase(phase_contour5, ft, device, x5)
+    del x5
     run_phase(phase_profile5, ft, device)
     cycle_rec = run_phase(phase_cycle, ft, device)
     seg_w_rec, _ = run_phase(phase_segment, problem, ops, device, wdepth=99)
@@ -3242,7 +3555,9 @@ def main():
     # The batch slice: the batched kernels, then config 3 and its 1e-6 form,
     # each with the counts set to 0 just before it and read just after.
     batch_recs = run_phase(phase_batch_kernels, ft, device)
-    launches_b3, config3 = run_phase(phase_config3, ft, device)
+    launches_b3, config3, x3b = run_phase(phase_config3, ft, device)
+    run_phase(phase_contour_lanes, ft, device, x3b)
+    del x3b
     launches_b3p, config3p = run_phase(phase_config3_precise, ft, device)
     lanes3 = run_phase(phase_batch_lanes, ft, device)
     # The batched-cycle slice: the three lane forms, then the cycle route's
@@ -3251,6 +3566,9 @@ def main():
     launches_b4, config4b = run_phase(phase_config4_batch, ft, device)
     launches_b3j, config3j = run_phase(phase_config3_jacobi, ft, device)
     (launches_ba, field_ab), (launches_bc, field_cb) = run_phase(phase_fields_lanes, ft, device)
+    # The contouring and tooling slice (phases 46-48 ran beside the fields
+    # they contour, 49 in the sharded ranks, 51 after phase 11).
+    debug = run_phase(phase_debug, ft, device)
 
     src = "field_interpolation_tpu_torch/csrc/"
     ref = "field_interpolation_tpu/ops/pallas_stencil.py:"
@@ -3395,8 +3713,10 @@ def main():
                                                         "sweep_64_diag_x16",
                                                         "sweep_512_diag_x8",
                                                         "sweep_64_x4096",
-                                                        "coarsest_jacobi_x4096"))},
+                                                        "coarsest_jacobi_x4096",
+                                                        "sweep_64_galerkin_cheb_x16"))},
              diag_64_x16=lane_recs["sweep_64_diag_x16"],
+             galerkin_cheb_64_x16=lane_recs["sweep_64_galerkin_cheb_x16"],
              diag_512_x8=lane_recs["sweep_512_diag_x8"],
              config3_64_x4096=lane_recs["sweep_64_x4096"],
              config3_coarsest_x4096=lane_recs["coarsest_jacobi_x4096"],
@@ -3419,6 +3739,8 @@ def main():
     ]
     for k in kernels:
         k["library_ms"] = None  # no one PyTorch call computes any of these functions
+    print(json.dumps({"contour": CONTOURS, "debug": debug, "observe": observe,
+                      "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

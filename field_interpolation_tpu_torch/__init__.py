@@ -9,11 +9,14 @@ whole 2-D multigrid-PCG segment as hand-written CUDA kernels for the H100
 and sampling, reusable setup (`prepare`, the `Solver` session) and implicit
 differentiation (`solve_implicit`); batched solves of many independent
 fields in ``batch`` (one launch of the batched segment and apply kernels
-for all lanes); the sharded solve in ``parallel/``.
+for all lanes); the sharded solve in ``parallel/``; contouring (host
+NumPy and device extractors in ``contour``, sharded ones in
+``parallel.contour``); ``SolverConfig(debug=True)`` (``debugging``) and the
+tooling modules (``utils.observe``, ``checkpoint``, ``visualize``).
 Every entry point runs on the device of the tensors it is given; on CPU
 tensors every kernel runs its plain PyTorch version.
-The JAX package stays the reference; names here are its names. Not ported
-yet (ROADMAP.md): ``SolverConfig(debug=True)`` and contouring.
+The JAX package stays the reference; names here are its names, and, as
+there, contouring and tooling are submodules, not top-level names.
 """
 
 from .grid import Grid, grid_2d, grid_3d

@@ -51,7 +51,7 @@ from .grid import Grid
 from .multigrid import _fused_gate, fused_levels_ok, level_shapes
 from .operators import Problem, assemble_lanes
 from .sdf import PreciseProblem, assemble_precise_lanes
-from .solver import (SolveInfo, _check_config, _downcast_problem, solve, solve_lanes,
+from .solver import (SolveInfo, _downcast_problem, solve, solve_lanes,
                      solve_refined, solve_refined_lanes)
 from .weights import SolverConfig, Weights
 
@@ -185,7 +185,6 @@ def solve_batch(
     """Solve B problems (BASELINE config 3); ``x0`` warm-starts every lane.
     The dense coarsest level stays while the per-lane inverses fit
     (`_dense_coarsest_ok`). Returns (x [B, *grid], SolveInfo of [B])."""
-    _check_config(config)
     config = _batch_config(problems.grid, config, _lanes(problems))
     route = solve_route(problems, config)
     if route == "lanes":
@@ -204,7 +203,6 @@ def solve_refined_batch(
     with its own inner tolerance, rounds and exit. ``x0`` warm-starts every
     lane (the outer float64 loop starts from its true residual, so a good
     start skips whole refinement rounds)."""
-    _check_config(config)
     p32 = problems64.p32 if hasattr(problems64, "p32") else _downcast_problem(problems64)
     config = _batch_config(p32.grid, config, _lanes(problems64))
     route = solve_route(p32, config)

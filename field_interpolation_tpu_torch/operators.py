@@ -98,3 +98,26 @@ def assemble_lanes(grid: Grid, weights: Weights, positions: torch.Tensor,
     diag = (stencils.smoothness_diag(grid.shape, weights, dtype=dtype, device=dev)
             + cons.data_diag(coeff, grid.ndim))
     return Problem(coeff=coeff, b=b, diag=diag, grid=grid, weights=weights)
+
+
+def validate_problem(problem: Problem) -> list[str]:
+    """Sanity checks of an assembled problem (the reference's
+    operators.py:101-125, the same checks and messages). Returns a list of
+    human-readable issues (empty = healthy); each check reads one flag back
+    from the problem's device."""
+    issues = []
+    coeff, b, diag = problem.coeff, problem.b, problem.diag
+    if not bool(torch.isfinite(coeff).all()):
+        issues.append("non-finite entries in the data coefficient tensor")
+    if not bool(torch.isfinite(b).all()):
+        issues.append("non-finite entries in b")
+    if bool((diag < 0).any()):
+        issues.append("negative operator diagonal (operator not SPD)")
+    if bool((diag == 0).all()):
+        issues.append("all-zero diagonal: no constraints at all?")
+    center = (3 ** problem.grid.ndim) // 2
+    if bool((coeff[center] < -1e-6 * max(1.0, float(coeff.abs().max()))).any()):
+        issues.append("negative data-term diagonal entries (bad row weights?)")
+    if problem.weights.active_orders() == () and not bool(coeff.any()):
+        issues.append("no smoothness weights and no data: singular system")
+    return issues

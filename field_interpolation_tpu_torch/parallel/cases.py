@@ -27,6 +27,7 @@ from ..ops.stencil_ext import fused_normal_apply_ext, fused_normal_apply_ext_str
 from ..sdf import assemble_precise
 from ..weights import SolverConfig, Weights
 from . import sharded
+from .contour import marching_squares_sharded, marching_tetrahedra_sharded
 from .mesh import Mesh
 
 COUNTED = (fused_normal_apply_ext, fused_normal_apply_ext_striped, fused_normal_apply,
@@ -161,6 +162,39 @@ def sharded_refined(cloud: Cloud, mesh_shape, config: SolverConfig, precise: boo
     return out
 
 
+def sharded_contour(field, mesh_shape, level: float = 0.0, caps=(None,), *, device):
+    """`marching_squares_sharded` (2-D) or `marching_tetrahedra_sharded`
+    (3-D) on this rank's block of ``field`` (a whole-grid numpy array, cut
+    here, or a tensor that is already the rank's block), once per cap of
+    ``caps`` (None: the default cap), each timed after a barrier. Returns
+    the rank's ``block`` and per cap its live ``items`` (rows ``[:count]``),
+    ``count``, ``overflowed``, whether the rows past ``count`` are zero and
+    the ms."""
+    mesh = Mesh(mesh_shape)
+    if isinstance(field, torch.Tensor):
+        x = field.to(device)
+        blk = sharded._block(tuple(n * s for n, s in zip(x.shape, mesh.shards(x.ndim))),
+                             mesh)
+    else:
+        blk = sharded._block(field.shape, mesh)
+        x = torch.as_tensor(np.ascontiguousarray(field[blk]), device=device)
+    fn = marching_squares_sharded if x.ndim == 2 else marching_tetrahedra_sharded
+    runs = []
+    for cap in caps:
+        (items, count, ovf), ms = _timed(lambda: fn(x, mesh, level, cap), device)
+        n = int(count)
+        runs.append(dict(items=items[:n], count=n, overflowed=bool(ovf),
+                         zeros_past_count=bool((items[n:] == 0).all()), ms=ms))
+    return dict(block=blk, runs=runs)
+
+
 def run_cases(cases: list, *, device) -> list:
-    """Run ``cases`` [(name of a ``sharded_*`` function, kwargs)] in order."""
-    return [globals()[name](**kwargs, device=device) for name, kwargs in cases]
+    """Run ``cases`` [(name of a ``sharded_*`` function, kwargs)] in order.
+    A `sharded_contour` case whose ``field`` is an int k contours this
+    rank's block of case k's field (its ``x``)."""
+    out = []
+    for name, kwargs in cases:
+        if name == "sharded_contour" and isinstance(kwargs["field"], int):
+            kwargs = dict(kwargs, field=out[kwargs["field"]]["x"])
+        out.append(globals()[name](**kwargs, device=device))
+    return out

@@ -22,11 +22,11 @@ import numpy as np
 import torch
 
 from . import constraints as cons
-from . import stencils
+from . import debugging, stencils
 from .grid import Grid
 from .multigrid import prolong
-from .operators import Problem, assemble, assemble_lanes, check_inputs
-from .solver import SolveInfo, _check_config, solve, solve_refined
+from .operators import Problem, assemble, assemble_lanes, check_inputs, validate_problem
+from .solver import SolveInfo, solve, solve_refined
 from .weights import SolverConfig, Weights
 
 
@@ -88,12 +88,41 @@ def sdf_from_points(
     Returns (field [*grid.shape] float32, SolveInfo); warm start via ``x0``.
     ``fmg_start=True`` (ignored when ``x0`` is given) starts from a
     half-resolution solve of the same cloud (`_fmg_guess`); an int recurses
-    that many levels. The coarse iterations are not counted in SolveInfo."""
+    that many levels. The coarse iterations are not counted in SolveInfo.
+    ``config.debug=True`` runs the checked pipeline (`_debug_pipeline`)."""
+    # The fmg guess comes before the debug dispatch, so debug mode checks
+    # the pipeline production runs (the fine solve from the guess).
     if fmg_start and x0 is None:
         x0 = _fmg_guess(grid, weights, positions, normals, point_weights,
                         config, depth=int(fmg_start))
+    if config.debug:
+        return _debug_pipeline(grid, weights, positions, normals=normals,
+                               point_weights=point_weights, config=config, x0=x0,
+                               sdf=True)
     problem = assemble_sdf(grid, weights, positions, normals, point_weights)
     return solve(problem, config, x0=x0)
+
+
+def _debug_pipeline(grid, weights, positions, *, values=None, normals=None,
+                    point_weights, config, x0, sdf):
+    """Checked assemble + solve (debugging.py), in the reference's order:
+    the inputs before assembly (which zero-weights out-of-lattice rows
+    silently, so no later check could see them), assembly, the solve with
+    ``backend="xla"`` (the reference's choice), the field, then the
+    assembled problem (`validate_problem`)."""
+    debugging.check_sample_inputs(grid, positions, values=values, gradients=normals,
+                                  point_weights=point_weights)
+    if sdf:
+        problem = assemble_sdf(grid, weights, positions, normals, point_weights)
+    else:
+        problem = assemble_interpolation(grid, weights, positions, values, point_weights)
+    x, info = solve(problem, dataclasses.replace(config, debug=False, backend="xla"),
+                    x0=x0)
+    debugging.check_solution(x)
+    issues = validate_problem(problem)
+    if issues:
+        raise ValueError("validate_problem: " + "; ".join(issues))
+    return x, info
 
 
 @dataclasses.dataclass(frozen=True)
@@ -278,11 +307,15 @@ def interpolate(
 ) -> tuple[torch.Tensor, SolveInfo]:
     """Interpolate scattered values onto the lattice. Returns (field
     [*grid.shape] float32, SolveInfo); warm start via ``x0``; ``fmg_start``
-    as in `sdf_from_points` (`_fmg_guess_interp`)."""
-    _check_config(config)
+    as in `sdf_from_points` (`_fmg_guess_interp`); ``config.debug=True``
+    runs the checked pipeline (`_debug_pipeline`)."""
     if fmg_start and x0 is None:
         x0 = _fmg_guess_interp(grid, weights, positions, values, point_weights,
                                config, depth=int(fmg_start))
+    if config.debug:
+        return _debug_pipeline(grid, weights, positions, values=values,
+                               point_weights=point_weights, config=config, x0=x0,
+                               sdf=False)
     problem = assemble_interpolation(grid, weights, positions, values, point_weights)
     return solve(problem, config, x0=x0)
 
@@ -301,7 +334,6 @@ def interpolate_precise(
     float64 normal equations (`assemble_precise` without gradient rows,
     then `solve_refined`). Returns (field float64, SolveInfo). ``fmg_start``
     as in `interpolate` (the guess is the refinement's warm start)."""
-    _check_config(config)
     if fmg_start and x0 is None:
         x0 = _fmg_guess_interp(grid, weights, positions, values, point_weights,
                                config, depth=int(fmg_start))

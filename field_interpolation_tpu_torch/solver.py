@@ -249,12 +249,6 @@ def _make_precond(problem: Problem, config: SolverConfig, apply_fn=None,
     raise ValueError(f"unknown preconditioner {config.preconditioner!r}")
 
 
-def _check_config(config: SolverConfig) -> None:
-    if config.debug:
-        raise NotImplementedError("SolverConfig(debug=True) is not ported "
-                                  "(ROADMAP queue 1, tooling)")
-
-
 def _check_prep(problem: Problem, config: SolverConfig, prep) -> None:
     """A prep built for another grid, other Weights or another setup-relevant
     config (`multigrid.setup_signature`) raises instead of preconditioning
@@ -301,7 +295,6 @@ def solve(
 ) -> tuple[torch.Tensor, SolveInfo]:
     """Solve the assembled problem (warm start via ``x0``; ``prep`` from
     `prepare` on the same operator and config skips the multigrid setup)."""
-    _check_config(config)
     _check_prep(problem, config, prep)
     fused_ops = _fused_solver_ops(problem, config, prep)
     if fused_ops is not None:
@@ -358,7 +351,6 @@ def solve_refined(
     solve; later rounds update the residual incrementally, r ← r − A·d.
     ``prep``: `prepare` on the same problem and config. Kept apart from
     `solve_refined_lanes`, as `_pcg_fused` is from `_pcg_fused_batch`."""
-    _check_config(config)
     p32, residual64, apply_delta, b64 = _refined_parts(problem64)
     _check_prep(p32, config, prep)
     fused_ops = _fused_solver_ops(p32, config, prep)
@@ -562,7 +554,6 @@ def solve_lanes(problem: Problem, config: SolverConfig, x0: Optional[torch.Tenso
     batched apply and the preconditioner of all lanes at once (Jacobi, none,
     or the multigrid cycle on lanes: each smoothing phase or whole cycle one
     kernel call for every lane, `multigrid.make_vcycle_preconditioner`)."""
-    _check_config(config)
     ops = _lanes_ops(problem, config, fused)
     if ops is not None:
         return _pcg_fused_batch(ops, problem.b, x0, tol=config.tol, maxiter=config.maxiter,
@@ -585,7 +576,6 @@ def solve_refined_lanes(problem64, config: SolverConfig,
     rounds is frozen, and the inner solve sees a zero residual for it (no
     iterations, no segment work). Inner solves as `solve_lanes`; the host
     reads one flag per round."""
-    _check_config(config)
     p32, residual64, apply_delta, b64 = _refined_parts(problem64)
     ndim = p32.grid.ndim
     ops = _lanes_ops(p32, config, fused)

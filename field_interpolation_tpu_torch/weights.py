@@ -4,8 +4,9 @@
 Same fields, same defaults (tests/test_torch_config.py holds them equal), so
 one configuration drives either package. The reference's comments explain
 how each default was chosen; the port documents only what each field does
-here. Every multigrid option runs on the port's kernels; only
-``debug=True`` raises ``NotImplementedError`` (see ROADMAP.md).
+here. Every multigrid option runs on the port's kernels; ``debug=True``
+runs the checked pipeline of `sdf_from_points` and `interpolate`
+(debugging.py).
 """
 
 from __future__ import annotations
@@ -69,4 +70,6 @@ class SolverConfig:
     recompute_every: int = 0
     max_restarts: int = 8      # CG segments of the safeguarded stopping rule
     refine_rounds: int = 6     # outer f64 rounds of solve_refined
-    debug: bool = False        # the reference's checkify mode; not ported
+    # Checked inputs, field and problem in sdf_from_points / interpolate
+    # (debugging.py; solved with backend="xla"); ignored elsewhere.
+    debug: bool = False

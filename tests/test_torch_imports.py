@@ -60,6 +60,25 @@ def test_parallel_imports_without_jax_or_a_card():
     assert out.stdout.strip() == "ok"
 
 
+def test_tooling_imports_without_jax_or_a_card():
+    """Contouring (host, device, sharded), debug mode and the tooling
+    modules import with JAX and Triton blocked, touching no CUDA device."""
+    code = BLOCK_JAX + (
+        "import torch\n"
+        "from field_interpolation_tpu_torch import (checkpoint, contour, debugging,\n"
+        "    visualize)\n"
+        "from field_interpolation_tpu_torch.operators import validate_problem\n"
+        "from field_interpolation_tpu_torch.parallel import contour as pcontour\n"
+        "from field_interpolation_tpu_torch.utils import op_cost, record_solve\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "assert not any(m.split('.')[0] in ('jax', 'triton') for m in sys.modules)\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300, env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 @pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")), ids=lambda p: p.name)
 def test_no_file_imports_jax_or_the_reference(path):
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|field_interpolation_tpu)\b(?!_torch)",

@@ -283,10 +283,3 @@ def test_sample_field_gradient_is_the_derivative():
     (g,) = torch.autograd.grad(vals.sum(), pos)
     want = ft.sample_field_gradient(ft.Grid(shape), field, pos.detach())
     torch.testing.assert_close(g, want, rtol=1e-12, atol=1e-12)
-
-
-@pytest.mark.parametrize("fn", ["interpolate", "interpolate_precise"])
-def test_debug_raises(fn):
-    with pytest.raises(NotImplementedError):
-        getattr(ft, fn)(ft.Grid((8, 8)), ft.Weights(), torch.ones((2, 2)), torch.ones(2),
-                        config=ft.SolverConfig(debug=True))
