@@ -139,13 +139,17 @@ toolkit (``nvcc``). Phases, each fatal on failure:
     through the striped form, a 27-channel 256³ field cut 2 x 2 through the
     whole form, the diagonal form on the 512² and 64³ multigrid levels; each
     stitched within 1e-5·max|plain| of the plain version and of the
-    whole-grid apply kernel, one block timed beside its bound;
+    whole-grid apply kernel, one block timed beside its bound; then the
+    same blocks through ``ExtLevel`` (the block and its halo slabs, as the
+    sharded solve launches it) in every mode (apply, residual, Jacobi,
+    Chebyshev; the updates within 2e-5·max|plain|), each timed;
 28-30. S2-S4 (``phase_sharded``): four ranks sharing the card, halos via
     gloo through host memory: config 5 sharded on a 2 x 2 mesh (4096²,
     ``solve_sharded``), S3 ``solve_refined_sharded`` to a TRUE 1e-6, S4 the
-    3-D half at 192³ (then as one rank: the sharded code without the
-    sharing); each against the port's unsharded solve (±2 iterations,
-    2e-3·max|x|), both ext kernels launched on every rank;
+    3-D half at 192³ (then S2 and S4 as one rank: the sharded code without
+    the sharing); each against the port's unsharded solve (±2 iterations,
+    2e-3·max|x|), both ext kernels launched on every rank, each rank's
+    launches per CG iteration printed by form and mode;
 31. BASELINE config 1 through ``interpolate`` (bench.py:125-135: 64², 100
     values, plain CG at tol 5e-4): converged, within ±2 iterations and
     2e-3·max|x| of ``backend="xla"``, ms/solve; the apply kernel against
@@ -1803,6 +1807,81 @@ def compare_blocks(label, shape, shards, r, whole, operands, kernel, plain, work
     return rec
 
 
+def block_slabs(x, blk, r, order, shape):
+    """(z, slabs) of block ``blk`` of the field ``x``: the halo slabs in
+    exchange ``order`` as `parallel.sharded._level_slabs` delivers them (the
+    corners filled by the later axes), None past the global grid."""
+    xp = torch.nn.functional.pad(x, (r,) * (2 * x.ndim))
+    slabs = []
+    for k, axis in enumerate(order):
+        pair = []
+        for low in (True, False):
+            sl = [slice(b.start, b.stop + 2 * r) if d in order[:k]
+                  else slice(b.start + r, b.stop + r) for d, b in enumerate(blk)]
+            b = blk[axis]
+            sl[axis] = slice(b.start, b.start + r) if low else slice(b.stop + r, b.stop + 2 * r)
+            past = b.start == 0 if low else b.stop == shape[axis]
+            pair.append(None if past else xp[tuple(sl)].contiguous())
+        slabs.append(tuple(pair))
+    return x[blk].contiguous(), slabs
+
+
+def compare_modes(label, shape, shards, r, x, coeff, w, whole_az, striped=False):
+    """`ExtLevel` (the slab form the sharded solve launches) in every mode
+    on each block of the layout, its slabs cut from the zero-padded field:
+    stitched within 1e-5 (the apply) or 2e-5 (the updates) ·max|plain| of
+    the plain version and of the mode's update of the whole-grid apply
+    kernel's output ``whole_az``; then the last block's call timed (single,
+    back to back, plain) per mode. Returns {mode: record}."""
+    from field_interpolation_tpu_torch.ops.stencil_ext import (
+        MODES, ExtLevel, fused_normal_apply_ext_slabs_plain, level_update)
+    nd = len(shape)
+    diag = coeff.ndim == nd
+    order = (1, 0) if striped else tuple(range(nd))
+    rng = np.random.default_rng(31)
+    rr, zp = (torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=x.device)
+              for _ in range(2))
+    inv_d = torch.as_tensor(rng.uniform(0.05, 0.5, shape).astype(np.float32), device=x.device)
+    s0, s1 = 0.7, 0.4
+    recs = {}
+    for mode in MODES:
+        got, want = torch.empty_like(x), torch.empty_like(x)
+        for blk, _, gs in ext_blocks(shape, shards, r):
+            c = coeff[blk if diag else (slice(None),) + blk].contiguous()
+            level = ExtLevel(c, gs, w, r, shape, striped=striped)
+            z, slabs = block_slabs(x, blk, r, order, shape)
+            ops = dict(r=rr[blk].contiguous(), inv_d=inv_d[blk].contiguous(),
+                       z_prev=zp[blk].contiguous(), s0=s0, s1=s1)
+            got[blk] = level(z, slabs, mode, **ops)
+            want[blk] = fused_normal_apply_ext_slabs_plain(z, slabs, c, gs, w, r, shape, order,
+                                                           mode, **ops)
+        loc = z.shape
+        bar = 1e-5 if mode == "apply" else 2e-5
+        name = (f"{label}, slab form, {mode}: {shape_str(shape)} as {shape_str(shards)} blocks "
+                f"of {shape_str(loc)}")
+        err = check_close(f"{name}, stitched against the plain version", got, want, bar)
+        check_close(f"{name}, stitched against the whole-grid apply kernel's update", got,
+                    level_update(mode, whole_az, x, rr, inv_d, zp, s0, s1), bar)
+        n = math.prod(loc)
+        planes = (1 if diag else 3 ** nd) + 1 + {"apply": 0, "residual": 1, "jacobi": 2,
+                                                 "chebyshev": 3}[mode]
+        nbytes = 4 * (n * planes + sum(t.numel() for pair in slabs for t in pair
+                                       if t is not None))
+
+        def call(level=level, z=z, slabs=slabs, ops=ops, mode=mode):
+            return level(z, slabs, mode, **ops)
+
+        ms, b2b = cuda_ms(call), batch_ms(call)
+        plain_ms = cuda_ms(lambda: fused_normal_apply_ext_slabs_plain(
+            z, slabs, c, gs, w, r, shape, order, mode, **ops), PLAIN_REPS)
+        recs[mode] = dict(max_abs_err=err, ms=ms, batch_ms=b2b, plain_ms=plain_ms,
+                          shape=shape_str(loc), **bound(nbytes, apply_flops(w, nd, diag) * n))
+        print(f"  one block, {mode}: kernel {ms:.4f} ms, back to back {b2b:.4f} ms "
+              f"({nbytes / b2b / 1e6:.0f} GB/s, {recs[mode]['bound_ms'] / b2b:.2f} of the bound "
+              f"{recs[mode]['bound_ms']:.4f} ms), plain {plain_ms:.4f} ms")
+    return recs
+
+
 def phase_ext(ft, device):
     """S1, one process: the two sharded-apply kernels block by block, at the
     blocks S2 and S4 give them. A 9-channel 4096² field (config 5's problem)
@@ -1852,6 +1931,8 @@ def phase_ext(ft, device):
             whole, striped, fused_normal_apply_ext_striped,
             fused_normal_apply_ext_striped_plain,
             (4 * ((loc[0] + 2 * r) * (loc[1] + 2 * r) + 10 * n), apply_flops(w, 2, False) * n))
+        recs[shards]["modes"] = compare_modes("striped ext", SHAPE5, shards, r, x, p5.coeff, w,
+                                              whole, striped=True)
     del x, xp, whole
     recs["diag2d"] = sharded_level_blocks(ft, p5, cfg, randn)
     del p5
@@ -1873,6 +1954,8 @@ def phase_ext(ft, device):
         "whole-form ext apply, 27 channels", SHAPE_S4, MESH_S + (1,), r, whole3, ext3,
         fused_normal_apply_ext, fused_normal_apply_ext_plain,
         (4 * (math.prod(n + 2 * r for n in loc3) + 28 * n3), apply_flops(w, 3, False) * n3))
+    recs["ext3d"]["modes"] = compare_modes("whole-form ext, 27 channels", SHAPE_S4,
+                                           MESH_S + (1,), r, x3, p3.coeff, w, whole3)
     del x3, xp3, whole3
     recs["diag3d_fine"] = diag_blocks("lumped fine level", SHAPE_S4, w,
                                       cons.data_diag(p3.coeff, 3).contiguous(), randn)
@@ -1917,11 +2000,14 @@ def diag_blocks(label, shape, lw, dd, randn):
         return xp[ext].contiguous(), dd[blk].contiguous(), gs, lw, nd, r, shape
 
     n = math.prod(loc)
-    return compare_blocks(f"diagonal-form ext apply, {label}", shape, shards, r,
-                          fused_normal_apply(x, dd, lw, nd), call, fused_normal_apply_ext,
-                          fused_normal_apply_ext_plain,
-                          (4 * (math.prod(m + 2 * r for m in loc) + 2 * n),
-                           apply_flops(lw, nd, True) * n))
+    whole = fused_normal_apply(x, dd, lw, nd)
+    rec = compare_blocks(f"diagonal-form ext apply, {label}", shape, shards, r, whole, call,
+                         fused_normal_apply_ext, fused_normal_apply_ext_plain,
+                         (4 * (math.prod(m + 2 * r for m in loc) + 2 * n),
+                          apply_flops(lw, nd, True) * n))
+    rec["modes"] = compare_modes(f"diagonal-form ext, {label}", shape, shards, r, x, dd, lw,
+                                 whole)
+    return rec
 
 
 def unsharded_solve(ft, cloud, cfg, device):
@@ -1942,6 +2028,13 @@ def rank_launches(parts):
     return {k: [p["launches"][k] for p in parts] for k in names}
 
 
+def launches_per_iteration(parts):
+    """Per rank, {kind: wrapper launches per CG iteration} of its solve (the
+    ext kernel by form and mode, "name.mode"; the other counted kernels)."""
+    return [{k: round(v / max(p["iterations"], 1), 2) for k, v in p["launches"].items() if v}
+            for p in parts]
+
+
 def check_sharded(label, parts, ref, note=SHARDED):
     """The stitched sharded field against the unsharded one: converged,
     finite, ±2 iterations, max|x - x_unsharded| ≤ 2e-3·max|x|. Prints the
@@ -1956,7 +2049,8 @@ def check_sharded(label, parts, ref, note=SHARDED):
           f"{parts[0]['rel_residual']:.3e}, max|x-x_unsharded| {err:.3e} (bar "
           f"{2e-3 * scale:.3e}); ms/field, slowest rank: {slowest:.1f} (assembly and blocks "
           f"{max(p['setup_ms'] for p in parts):.1f}); unsharded solve {ms_r:.1f} ms on the "
-          f"card alone; launches per rank {rank_launches(parts)}")
+          f"card alone; launches per rank {rank_launches(parts)}; per rank per CG iteration "
+          f"{launches_per_iteration(parts)}")
     require(all(p["converged"] for p in parts), f"{label} did not converge")
     require(bool(torch.isfinite(x).all()), f"{label}: field not finite")
     require(bool(ir.converged), f"{label}: the unsharded solve did not converge")
@@ -1976,7 +2070,9 @@ def phase_sharded(ft, device, shape3=SHAPE_S4, n3=N_POINTS_S4, rank_device="cuda
     reported within 2%. S4: 3-D, 192³ (config 5's 256³ cut, `SHAPE_S4`),
     56 250 sphere points, tol 1e-4, the mesh over dims 0 and 1 (96 x 96 x
     192 blocks), against the unsharded solve; the whole-form ext kernel must
-    launch on every rank; then S4 as one rank (mesh 1 x 1), the same bars."""
+    launch on every rank; then S2 and S4 as one rank (mesh 1 x 1), the same
+    bars. Each prints its ranks' wrapper launches per CG iteration, the ext
+    kernel by form and mode."""
     from field_interpolation_tpu_torch.parallel.cases import Cloud, run_cases, stitch
     from field_interpolation_tpu_torch.parallel.launch import run_ranks
     w = ft.Weights(model_2=0.3)
@@ -2031,14 +2127,22 @@ def phase_sharded(ft, device, shape3=SHAPE_S4, n3=N_POINTS_S4, rank_device="cuda
         check_sharded_contour(label, parts, stitch(blocks, "x").to(device),
                               lambda x: extract(x, n))
         torch.cuda.empty_cache()
-    # S4 as one rank (mesh 1 x 1): the sharded code's own cost, without four
-    # processes sharing the card.
-    one = [r[0] for r in run_ranks(run_cases, 1, [("sharded_solve", dict(
-        cloud=c3, mesh_shape=(1, 1), config=cfg3))], device=rank_device)]
-    out["S4_one_rank"] = check_sharded(f"S4 as one rank {shape_str(shape3)}", one, ref3,
-                                       "1 rank on the H100, no halo messages")
+    # S2 and S4 as one rank (mesh 1 x 1): the sharded code's own cost,
+    # without four processes sharing the card or halo messages.
+    s2one, s4one = ([r[k] for r in run_ranks(run_cases, 1, [
+        ("sharded_solve", dict(cloud=c2, mesh_shape=(1, 1), config=cfg2)),
+        ("sharded_solve", dict(cloud=c3, mesh_shape=(1, 1), config=cfg3))],
+        device=rank_device)] for k in range(2))
+    one = "1 rank on the H100, no halo messages"
+    out["S2_one_rank"] = check_sharded(f"S2 as one rank {shape_str(SHAPE5)}", s2one, ref2, one)
+    out["S4_one_rank"] = check_sharded(f"S4 as one rank {shape_str(shape3)}", s4one, ref3, one)
+    for label, parts in (("S2 as one rank", s2one), ("S4 as one rank", s4one)):
+        require(parts[0]["launches"]["fused_normal_apply_ext"]
+                + parts[0]["launches"]["fused_normal_apply_ext_striped"] > 0,
+                f"{label}: no ext launch")
     out["launches"] = {k: [p["launches"] for p in parts]
-                       for k, parts in (("S2", s2), ("S3", s3), ("S4", s4))}
+                       for k, parts in (("S2", s2), ("S3", s3), ("S4", s4), ("S2_one_rank", s2one),
+                                        ("S4_one_rank", s4one))}
     torch.cuda.empty_cache()
     return out
 
@@ -3572,6 +3676,16 @@ def main():
 
     src = "field_interpolation_tpu_torch/csrc/"
     ref = "field_interpolation_tpu/ops/pallas_stencil.py:"
+
+    def ext_launches(key, runs=("S2", "S4")):
+        return sum(rank[key] for k in runs for rank in sharded["launches"][k])
+
+    def mode_recs(mode):
+        """The slab form's records of ``mode`` at every block S1 holds."""
+        return ([ext_recs[sh]["modes"][mode] for sh in ((2, 2), (1, 8))]
+                + [ext_recs["ext3d"]["modes"][mode], ext_recs["diag3d_fine"]["modes"][mode]]
+                + [rec["modes"][mode] for rec in ext_recs["diag2d"] + ext_recs["diag3d"]])
+
     kernels = [
         dict(name="fused_normal_apply", route="cuda", source=src + "normal_apply.cu",
              replaces=ref + "170", launches=launches["fused_normal_apply"], **apply_rec,
@@ -3642,22 +3756,41 @@ def main():
         dict(name="fused_normal_apply_2d_field_a2", route="cuda",
              source=src + "normal_apply.cu", replaces=ref + "300",
              launches=launches_a2["fused_normal_apply"], **apply_a2_rec),
-        # The sharded slice: launches summed over the ranks of S2's last
-        # solve and S4 (the whole form) and of S2's (the striped form).
+        # The sharded slice: launches summed over the ranks of S2 and S4
+        # (the whole and diagonal forms) and of S2 (the striped form), per
+        # mode: the apply (CG's), the residual the cycle restricts and the
+        # Jacobi sweep (the Chebyshev step, on no S2-S4 path, beside it).
         dict(name="fused_normal_apply_ext", route="cuda", source=src + "normal_apply_ext.cu",
-             replaces=ref + "378,462",
-             launches=sum(l["fused_normal_apply_ext"] for k in ("S2", "S4")
-                          for l in sharded["launches"][k]),
+             replaces=ref + "378,462", launches=ext_launches("fused_normal_apply_ext.apply"),
              **{**ext_recs["ext3d"], "max_abs_err": max(
                  rec["max_abs_err"] for rec in [ext_recs["ext3d"], ext_recs["diag3d_fine"]]
-                 + ext_recs["diag2d"] + ext_recs["diag3d"])},
+                 + ext_recs["diag2d"] + ext_recs["diag3d"] + mode_recs("apply"))},
              diag_2d_levels=ext_recs["diag2d"], diag_3d_fine=ext_recs["diag3d_fine"],
              diag_3d_levels=ext_recs["diag3d"]),
+        *[dict(name=f"fused_normal_apply_ext_{mode}", route="cuda",
+               source=src + "normal_apply_ext.cu", replaces=ref + "378,462",
+               launches=ext_launches(f"fused_normal_apply_ext.{mode}"),
+               **{**ext_recs["diag2d"][0]["modes"][mode], "max_abs_err": max(
+                   rec["max_abs_err"] for rec in mode_recs(mode))},
+               diag_2d_levels=[rec["modes"][mode] for rec in ext_recs["diag2d"]],
+               diag_3d_fine=ext_recs["diag3d_fine"]["modes"][mode],
+               diag_3d_levels=[rec["modes"][mode] for rec in ext_recs["diag3d"]],
+               whole_27_channels=ext_recs["ext3d"]["modes"][mode],
+               **({"chebyshev": ext_recs["diag2d"][0]["modes"]["chebyshev"],
+                   "chebyshev_max_abs_err": max(rec["max_abs_err"]
+                                                for rec in mode_recs("chebyshev"))}
+                  if mode == "jacobi" else {}))
+          for mode in ("residual", "jacobi")],
         dict(name="fused_normal_apply_ext_striped", route="cuda",
              source=src + "normal_apply_ext.cu", replaces=ref + "1282,1387",
-             launches=sum(l["fused_normal_apply_ext_striped"]
-                          for l in sharded["launches"]["S2"]),
+             launches=ext_launches("fused_normal_apply_ext_striped.apply", ("S2",)),
              **ext_recs[(2, 2)], blocks_4096x512=ext_recs[(1, 8)]),
+        *[dict(name=f"fused_normal_apply_ext_striped_{mode}", route="cuda",
+               source=src + "normal_apply_ext.cu", replaces=ref + "1282,1387",
+               launches=ext_launches(f"fused_normal_apply_ext_striped.{mode}", ("S2",)),
+               **ext_recs[(2, 2)]["modes"][mode],
+               blocks_4096x512=ext_recs[(1, 8)]["modes"][mode])
+          for mode in ("residual", "jacobi")],
         # The public-API slice: the kernels on its paths' own inputs, or at
         # the shapes they give them (the session: the headline's operands,
         # phase 4's record; config 4 prepared: phases 6-7's).

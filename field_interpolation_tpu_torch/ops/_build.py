@@ -40,6 +40,8 @@ _SIGNATURES = {
     # x_ext1, from_top, from_bot, coeff, out, n0, n1, g0, g1, N0, N1, r,
     # w2_0..w2_3, stream
     "fi_normal_apply_ext_striped": (_P,) * 5 + (_I,) * 7 + (_F,) * 4 + (_P,),
+    # ExtArgs (host struct, ops/stencil_ext.py:_ExtArgs), stream
+    "fi_ext_level": (_P, _P),
     # x, coeff, out, B, ndim, n0, n1, n2, w2_0..w2_3, diag, stream
     # r, z (null: from zero), coeff, sid, zout, tmp, res (null: not wanted),
     # B, ndim, n0, n1, n2, w2_0..w2_3, diag, cf (null: Jacobi), cf floats a

@@ -32,6 +32,8 @@ from .mesh import Mesh
 
 COUNTED = (fused_normal_apply_ext, fused_normal_apply_ext_striped, fused_normal_apply,
            fused_smooth)
+# Counted per mode too (``ops.stencil_ext.MODES``), as "name.mode".
+BY_MODE = (fused_normal_apply_ext, fused_normal_apply_ext_striped)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,12 +77,17 @@ def stitch(parts: list, key: str) -> torch.Tensor:
 
 
 def _counts() -> dict:
-    return {c.__name__: c.launches for c in COUNTED}
+    out = {c.__name__: c.launches for c in COUNTED}
+    for c in BY_MODE:
+        out.update({f"{c.__name__}.{mode}": n for mode, n in c.modes.items()})
+    return out
 
 
 def _zero_counts() -> None:
     for c in COUNTED:
         c.launches = 0
+    for c in BY_MODE:
+        c.modes = dict.fromkeys(c.modes, 0)
 
 
 def _timed(fn, device):

@@ -12,16 +12,18 @@ Counterpart of ``field_interpolation_tpu.parallel.sharded``, over
     ranks receive zeros, the zero padding the unsharded operator uses
     (`lax.ppermute`'s semantics). Under gloo a slab on a card goes through
     host memory; under nccl it stays on the device;
-  - the operator on the halo-extended block with the smoothness windows
-    masked in GLOBAL coordinates, so the dropped-row boundary appears at the
-    global edge only: the apply kernels of ``ops/stencil_ext.py``, or plain
-    torch under ``backend="xla"``;
+  - the operator on the block and its halo slabs with the smoothness
+    windows masked in GLOBAL coordinates, so the dropped-row boundary
+    appears at the global edge only: the ext kernel of
+    ``ops/stencil_ext.py`` (`ExtLevel`, the slabs read in place), or plain
+    torch on the concatenated block under ``backend="xla"``;
   - the CG inner products summed over ranks (``all_reduce``), the only
     global syncs per iteration.
 * ``preconditioner="multigrid"`` is the reference's distributed multigrid:
   the unsharded solver's hierarchy, its large levels block-sharded (halo
-  exchanged smoothing through the ext kernel's diagonal form, banded
-  transfers over neighbour halos), levels of at most `_REPLICATE_NODES`
+  exchanged smoothing through the ext kernel's diagonal form, each sweep and
+  each residual one launch; banded transfers over neighbour halos), levels
+  of at most `_REPLICATE_NODES`
   nodes gathered onto every rank, the dense coarsest inverse replicated.
 
 Each rank's solve returns its own block of the field; `SolveInfo` is the
@@ -46,8 +48,8 @@ from ..multigrid import (_coarse_dense_inverse, _resize_matrix, _rho_bound,
                          level_rhos, make_restrict, prolong, resolve_wdepth)
 from ..operators import Problem
 from ..ops import _policy
-from ..ops.stencil_ext import (fused_normal_apply_ext, fused_normal_apply_ext_plain,
-                               fused_normal_apply_ext_striped, smoothness_ext)
+from ..ops.stencil_ext import (ExtLevel, fused_normal_apply_ext_plain, level_update,
+                               smoothness_ext)
 from ..solver import SolveInfo, pcg
 from ..weights import SolverConfig
 from .mesh import Mesh
@@ -108,12 +110,13 @@ def _local_field(x: Optional[torch.Tensor], like: torch.Tensor, grid_shape, mesh
 
 # ---- communication --------------------------------------------------------
 
-def _post(msgs):
+def _post(msgs, zeros: bool = True):
     """Start point-to-point messages at once. ``msgs``: (tensor, dst, src)
     per message, all of one dtype on one device; the tensor goes to rank
     ``dst`` and one of its shape comes from rank ``src`` (None: nothing sent
-    / zeros received). Returns a function that waits and gives the received
-    tensors. Under gloo, tensors on a card travel through host memory,
+    / zeros received, or None unless ``zeros``). Returns a function that
+    waits and gives the received tensors. Under gloo, tensors on a card
+    travel through host memory,
     packed: one device→host copy for all the sends (the one host sync of a
     round) and one pinned host→device copy for all the receives."""
     like = msgs[0][0]
@@ -147,8 +150,8 @@ def _post(msgs):
             w.wait()
         got = iter(recv_host.to(like.device, non_blocking=True).split(n_recv)
                    if staged else [rb for rb in recvs if rb is not None])
-        return [torch.zeros(t.shape, dtype=t.dtype, device=t.device) if rb is None
-                else next(got).view(t.shape) for (t, _, _), rb in zip(msgs, recvs)]
+        return [(torch.zeros(t.shape, dtype=t.dtype, device=t.device) if zeros else None)
+                if rb is None else next(got).view(t.shape) for (t, _, _), rb in zip(msgs, recvs)]
     return wait
 
 
@@ -181,6 +184,41 @@ def _extend(x: torch.Tensor, h: int, mesh: Mesh) -> torch.Tensor:
     for d in range(x.ndim):
         x = _halo_exchange(x, d, h, mesh)
     return x
+
+
+def _level_slabs(x: torch.Tensor, h: int, mesh: Mesh, order) -> list:
+    """The halo slabs an `ExtLevel` reads, one (from_left, from_right) pair
+    per axis of ``order``: `_extend`'s exchange (the same slabs, the corners
+    filled by the later axes) without concatenating the block. Only the
+    pieces of a slab that is sent are concatenated; a slab is None where it
+    would be zeros (a global edge), and an axis that is not sharded sends
+    and receives nothing."""
+    slabs = []
+    for axis in order:
+        right, left = mesh.neighbour(axis, 1), mesh.neighbour(axis, -1)
+        if right is None and left is None:
+            slabs.append((None, None))
+            continue
+
+        def edge(start, axis=axis):
+            # The block extended along the axes before ``axis``, narrowed to h
+            # nodes along it from ``start``.
+            piece = x.narrow(axis, start, h)
+            for (lo, hi), before in zip(slabs, order):
+                shape = list(piece.shape)
+                shape[before] = h
+                lo, hi = (piece.new_zeros(shape) if t is None else t.narrow(axis, start, h)
+                          for t in (lo, hi))
+                piece = torch.cat([lo, piece, hi], dim=before)
+            return piece
+
+        to_right = edge(x.shape[axis] - h) if right is not None else None
+        to_left = edge(0) if left is not None else None
+        like = to_right if to_right is not None else to_left  # both of one shape
+        slabs.append(tuple(_post([(like if to_right is None else to_right, right, left),
+                                  (like if to_left is None else to_left, left, right)],
+                                 zeros=False)()))
+    return slabs
 
 
 def _all_sum(t: torch.Tensor) -> torch.Tensor:
@@ -232,27 +270,27 @@ def make_sharded_apply(grid_shape, weights, mesh: Mesh, coeff: torch.Tensor,
                        backend: str = "xla"):
     """The local-block operator apply with halo exchange; ``coeff`` is this
     rank's data-term block. The route is `apply_route`'s; the returned
-    function carries it as ``.route`` (and ``.stripe``)."""
+    function carries it as ``.route`` (and ``.stripe``), and as ``.level``
+    the `ExtLevel` its float32 applies launch (None on the sequential
+    route), whose other modes the distributed cycle's fine sweeps use."""
     grid_shape = tuple(grid_shape)
     nd = len(grid_shape)
     radius = max(stencils.max_stencil_radius(weights), 1)
     route, stripe = apply_route(grid_shape, weights, mesh, backend)
-    c32 = coeff.to(torch.float32).contiguous()
+    level = None
+    if route != "sequential":
+        c32 = coeff.to(torch.float32).contiguous()
+        level = ExtLevel(c32, _global_start(c32.shape[1:], mesh), weights, radius, grid_shape,
+                         striped=route == "ext_striped")
 
     def apply_fn(x_loc: torch.Tensor) -> torch.Tensor:
-        gs = _global_start(x_loc.shape, mesh)
-        if route == "ext_striped" and x_loc.dtype == torch.float32:
-            x1 = _halo_exchange(x_loc, 1, radius, mesh)
-            from_top, from_bot = _halo_slabs(x1, 0, radius, mesh)
-            return fused_normal_apply_ext_striped(
-                x1, from_top, from_bot, c32, gs, weights, radius, grid_shape)
-        if route == "ext" and x_loc.dtype == torch.float32:
-            return fused_normal_apply_ext(_extend(x_loc, radius, mesh), c32, gs,
-                                          weights, nd, radius, grid_shape)
-        return fused_normal_apply_ext_plain(_extend(x_loc, radius, mesh), coeff, gs,
-                                            weights, nd, radius, grid_shape)
+        if level is not None and x_loc.dtype == torch.float32:
+            return level(x_loc, _level_slabs(x_loc, radius, mesh, level.order))
+        return fused_normal_apply_ext_plain(_extend(x_loc, radius, mesh), coeff,
+                                            _global_start(x_loc.shape, mesh), weights, nd,
+                                            radius, grid_shape)
 
-    apply_fn.route, apply_fn.stripe = route, stripe
+    apply_fn.route, apply_fn.stripe, apply_fn.level = route, stripe, level
     return apply_fn
 
 
@@ -426,11 +464,13 @@ def _make_mg_plan(problem: Problem, mesh: Mesh, config: SolverConfig):
 
 def level_routes(plan: _MGPlan, backend: str) -> tuple[str, ...]:
     """How each level of the distributed cycle applies its operator: "apply"
-    (the fine level's exact sharded apply), "ext" (the ext kernel's diagonal
-    form on a sharded level), "plain" (a sharded level in plain torch: under
-    ``backend="xla"`` or without a smoothness term) or "replicated". Off
-    "xla" every sharded level goes through the kernel at every size; the
-    reference does only where `ext_fits_vmem` holds (sharded.py:557-605)."""
+    (the fine level's exact sharded apply, whose float32 sweeps and residuals
+    launch its ext kernel's modes where it has one), "ext" (the ext kernel's
+    diagonal form on a sharded level: each float32 sweep and residual one
+    launch), "plain" (a sharded level in plain torch: under ``backend="xla"``
+    or without a smoothness term) or "replicated". Off "xla" every sharded
+    level goes through the kernel at every size; the reference does only
+    where `ext_fits_vmem` holds (sharded.py:557-605)."""
     fine_rad = max([k for k in plan.fweights.active_orders() if k > 0], default=0)
 
     def route(li):
@@ -461,50 +501,81 @@ def _make_mg_precond(plan: _MGPlan, ops, apply_fn, diag_l, mesh: Mesh,
     fine_rad = max([k for k in plan.fweights.active_orders() if k > 0], default=0)
     routes = level_routes(plan, config.backend)
 
-    def sharded_level_apply(x, dd, weights_l, S_l, radius, how):
-        """(S + diag(dd)) x on a sharded level: the ext kernel's diagonal
-        form, or its plain version."""
-        f = (fused_normal_apply_ext if how == "ext" and x.dtype == torch.float32
-             else fused_normal_apply_ext_plain)
-        return f(_extend(x, radius, mesh), dd, _global_start(x.shape, mesh), weights_l,
-                 nd, radius, S_l)
+    def plain_level_apply(x, dd, weights_l, S_l, radius):
+        """(S + diag(dd)) x on a sharded level with plain torch ops."""
+        return fused_normal_apply_ext_plain(_extend(x, radius, mesh), dd,
+                                            _global_start(x.shape, mesh), weights_l, nd,
+                                            radius, S_l)
 
     def lev_apply(x, li):
+        """A x on level li where no ext launch computes it with its update."""
         if routes[li] == "apply":
             return apply_fn(x)
         if li == 0:
-            return sharded_level_apply(x, fine_dd_l, plan.fweights, plan.shapes[0],
-                                       fine_rad, routes[0])
+            return plain_level_apply(x, fine_dd_l, plan.fweights, plan.shapes[0], fine_rad)
         w_l, S_l, dd = plan.lweights[li - 1], plan.shapes[li], ddiags[li - 1]
         if routes[li] == "replicated":
             return stencils.smoothness_apply(x, w_l, nd) + dd * x
-        return sharded_level_apply(x, dd, w_l, S_l, plan.radii[li - 1], routes[li])
+        return plain_level_apply(x, dd, w_l, S_l, plan.radii[li - 1])
+
+    def ext_level(li):
+        """The ext kernel's block operator of level li, made once, where the
+        level's route launches it."""
+        if routes[li] == "apply":
+            return getattr(apply_fn, "level", None)
+        if routes[li] != "ext":
+            return None
+        dd, w_l, S_l, rad = ((fine_dd_l, plan.fweights, plan.shapes[0], fine_rad) if li == 0
+                             else (ddiags[li - 1], plan.lweights[li - 1], plan.shapes[li],
+                                   plan.radii[li - 1]))
+        dd = dd.to(torch.float32).contiguous()
+        return ExtLevel(dd, _global_start(dd.shape, mesh), w_l, rad, S_l)
+
+    levels = [ext_level(li) for li in range(K + 1)]
+    # The sweeps' scalars, read to the host once: τ per level and the
+    # Chebyshev schedules' rows. They are float32 values, so a product with
+    # them rounds as the product with the 0-d tensor did.
+    tau_host = [float(t) for t in taus]
+    cheb_host = [[cf.tolist() for cf in cfs] for cfs in cheb_cfs]
+
+    def step(li, z, mode, **kw):
+        """One sweep, or the residual, on level li (`ExtLevel`'s modes):
+        one ext launch on z and its halo slabs where the level has its
+        kernel (float32), else A z and the update in plain torch ops."""
+        lv = levels[li]
+        if lv is not None and z.dtype == torch.float32:
+            return lv(z, _level_slabs(z, lv.radius, mesh, lv.order), mode, **kw)
+        return level_update(mode, lev_apply(z, li), z, **kw)
+
+    def residual(r, z, li):
+        return step(li, z.contiguous(), "residual", r=r.contiguous())
 
     def smooth(li, r, z, iters, from_zero):
         inv_d = fine_inv_diag if li == 0 else invdiags[li - 1]
+        r, z = r.contiguous(), z.contiguous()
         if plan.cheb_nus:
             # Chebyshev in iterate-difference form (multigrid.chebyshev_coefs).
             if iters == 0:
                 return torch.zeros_like(r) if from_zero else z
-            cf = cheb_cfs[li][plan.cheb_nus.index(iters)].to(r.dtype)
+            cf = cheb_host[li][plan.cheb_nus.index(iters)]
             if from_zero:
                 zp = torch.zeros_like(r)
-                z = cf[0, 1] * (inv_d * r)  # apply(0) == 0
+                z = cf[0][1] * (inv_d * r)  # apply(0) == 0
                 start = 1
             else:
                 zp, start = z, 0
             for k in range(start, iters):
-                az = lev_apply(z, li)
-                z, zp = z + cf[k, 0] * (z - zp) + cf[k, 1] * inv_d * (r - az), z
+                z, zp = step(li, z, "chebyshev", r=r, inv_d=inv_d, z_prev=zp, s0=cf[k][0],
+                             s1=cf[k][1]), z
             return z
-        tau = taus[li].to(r.dtype)
+        tau = tau_host[li]
         if from_zero:
             if iters == 0:
                 return torch.zeros_like(r)
             z = tau * inv_d * r  # first sweep from zero: apply(0) == 0
             iters -= 1
         for _ in range(iters):
-            z = z + tau * inv_d * (r - lev_apply(z, li))
+            z = step(li, z, "jacobi", r=r, inv_d=inv_d, s0=tau)
         return z
 
     def restrict(res, t):
@@ -557,18 +628,18 @@ def _make_mg_precond(plan: _MGPlan, ops, apply_fn, diag_l, mesh: Mesh,
                 return (inv_c.to(r.dtype) @ r.reshape(-1)).reshape(r.shape)
             return smooth(li, r, r, config.mg_coarse_iters, True)
         z = smooth(li, r, r, nu, True)
-        rc = restrict(r - lev_apply(z, li), li)
+        rc = restrict(residual(r, z, li), li)
         zc = vcycle(rc, li + 1)
         if li + 1 < K and li < wdepth:
             # W-cycle second visit; skipped when the child is the coarsest.
-            zc = zc + vcycle(rc - lev_apply(zc, li + 1), li + 1)
+            zc = zc + vcycle(residual(rc, zc, li + 1), li + 1)
         z = z + prolong_up(zc, li)
         return smooth(li, r, z, nu_post, False)
 
     def precond(r):
         return vcycle(r, 0)
 
-    precond.level_routes = routes
+    precond.level_routes, precond.levels = routes, levels
     return precond
 
 

@@ -9,11 +9,21 @@ outputs stitched against the reference's whole-grid apply.
   radius-3 weights) and :396 (the diagonal form on a (2, 2) layout of 64×96).
 * ``fused_normal_apply_ext_striped`` (1282): the reference's case
   tests/test_sharded.py:153 (a 2-shard row split of 64×48, T = 8).
+* ``ExtLevel`` (the form the sharded solve launches: the block and its halo
+  slabs as the exchange delivers them, None past the global grid) against
+  the reference's kernel on the same extended block, in every mode: the
+  apply, and r − A z, the Jacobi sweep and the Chebyshev step computed from
+  the reference kernel's output with the reference cycle's own expressions
+  in jnp (field_interpolation_tpu/parallel/sharded.py:632-640, 720); an
+  interior block of a 3 x 3 layout (every slab a neighbour's) and a corner
+  block (slabs past the global edge).
 
 Bars: the reference tests' own, absolute: 1e-4 for the 3^D-channel apply
 (test_sharded.py:148), 2e-4 for the striped form (:185), 2e-5 for the
-diagonal form (:428)."""
+diagonal form (:428); the modes at their form's bar (each mode scales A z
+by at most 1)."""
 
+import functools
 import itertools
 
 import jax.numpy as jnp
@@ -22,14 +32,17 @@ import pytest
 import torch
 
 import field_interpolation_tpu as fi
+from field_interpolation_tpu import multigrid as jmg
 from field_interpolation_tpu import stencils as jst
 from field_interpolation_tpu.operators import assemble as jassemble
 from field_interpolation_tpu.ops import pallas_stencil as ps
 
 import field_interpolation_tpu_torch as ft
 from field_interpolation_tpu_torch.ops.stencil_ext import (
-    fused_normal_apply_ext, fused_normal_apply_ext_plain, fused_normal_apply_ext_striped,
-    _check_block, fused_normal_apply_ext_striped_plain)
+    ExtLevel, extend_with_slabs, fused_normal_apply_ext, fused_normal_apply_ext_plain,
+    fused_normal_apply_ext_striped, _check_block,
+    fused_normal_apply_ext_striped_plain, slab_shapes)
+from field_interpolation_tpu_torch.parallel.cases import Cloud, sharded_precond
 from field_interpolation_tpu_torch.stencils import max_stencil_radius
 
 RADIUS_WEIGHTS = {1: dict(model_1=0.7, model_2=0.0), 2: dict(model_2=0.3),
@@ -178,3 +191,164 @@ def test_block_checks():
         _check_block("t", (6, 8), [0, 0], (6, 8), tw, 2)
     with pytest.raises(ValueError, match="does not lie"):
         _check_block("t", (6, 8), [4, 0], (8, 8), tw, 3)
+
+
+# ---- the slab-operand form and the modes (ExtLevel) ------------------------
+
+# (grid, layout, block index, form): 16 x 15 and 8 x 8 x 12 blocks; form
+# "whole" (3^D channels), "diag" or "striped" (2-D, 9 channels, stripe 8 on
+# the reference).
+SLAB_CASES = [((48, 45), (3, 3), (1, 1), "whole"), ((48, 45), (3, 3), (0, 2), "whole"),
+              ((48, 45), (3, 3), (1, 1), "diag"), ((48, 45), (3, 3), (2, 0), "diag"),
+              ((48, 45), (3, 3), (1, 1), "striped"), ((48, 45), (3, 3), (0, 2), "striped"),
+              ((24, 24, 12), (3, 3, 1), (1, 1, 0), "whole"),
+              ((24, 24, 12), (3, 3, 1), (0, 2, 0), "whole"),
+              ((24, 24, 12), (3, 3, 1), (1, 1, 0), "diag"),
+              ((24, 24, 12), (3, 3, 1), (2, 0, 0), "diag")]
+MODE_CASES = [c for c in SLAB_CASES if c[2] in ((1, 1), (1, 1, 0))]
+BARS = {"whole": 1e-4, "diag": 2e-5, "striped": 2e-4}
+
+
+def _case_id(case):
+    shape, _, idx, form = case
+    return f"{'x'.join(map(str, shape))}-block{''.join(map(str, idx))}-{form}"
+
+
+@functools.cache
+def _slab_case(case, radius):
+    """(z, slabs, coeff, global start, order, reference A z) of one block:
+    the slabs cut from the zero-padded field in exchange order (None where a
+    slab lies past the global grid), the reference's kernel on the extended
+    block."""
+    shape, layout, idx, form = case
+    kw = RADIUS_WEIGHTS[radius]
+    nd, r = len(shape), radius
+    x, coeff, _ = _problem(shape, kw, seed=radius)
+    loc = [n // s for n, s in zip(shape, layout)]
+    gs = [i * n for i, n in zip(idx, loc)]
+    blk = tuple(slice(g, g + n) for g, n in zip(gs, loc))
+    if form == "diag":
+        c = np.abs(np.random.default_rng(radius).standard_normal(shape)).astype(np.float32)[blk]
+    else:
+        c = coeff[(slice(None),) + blk]
+    c = np.ascontiguousarray(c)
+    X = np.pad(x, r)[tuple(slice(g, g + n + 2 * r) for g, n in zip(gs, loc))]
+    order = (1, 0) if form == "striped" else tuple(range(nd))
+    slabs = []
+    for k, axis in enumerate(order):
+        pair = []
+        for low in (True, False):
+            sl = [slice(None) if d in order[:k] else slice(r, r + loc[d]) for d in range(nd)]
+            sl[axis] = slice(0, r) if low else slice(r + loc[axis], 2 * r + loc[axis])
+            past = gs[axis] == 0 if low else gs[axis] + loc[axis] == shape[axis]
+            pair.append(None if past else torch.as_tensor(np.ascontiguousarray(X[tuple(sl)])))
+        slabs.append(tuple(pair))
+    jw = fi.Weights(**kw)
+    g32 = jnp.asarray(gs, jnp.int32)
+    if form == "striped":
+        want = ps.fused_normal_apply_ext_striped(
+            jnp.asarray(X[r:-r]), jnp.asarray(X[:r]), jnp.asarray(X[-r:]), jnp.asarray(c),
+            g32, jw, r, shape, 8, interpret=True)
+    else:
+        want = ps.fused_normal_apply_ext(jnp.asarray(X), jnp.asarray(c), g32, jw, nd, r,
+                                         shape, interpret=True, diag_data=form == "diag")
+    z = torch.as_tensor(np.ascontiguousarray(X[tuple(slice(r, r + n) for n in loc)]))
+    return z, slabs, torch.as_tensor(c), gs, order, np.asarray(want), X
+
+
+@pytest.mark.parametrize("radius", [1, 2, 3])
+@pytest.mark.parametrize("case", SLAB_CASES, ids=_case_id)
+def test_slab_form_matches_reference_kernel(case, radius):
+    """The block and its slabs in (the apply): the reference's kernel on
+    the extended block; and exactly the existing plain version on the slabs
+    concatenated."""
+    z, slabs, c, gs, order, want, X = _slab_case(case, radius)
+    shape, form = case[0], case[3]
+    w = ft.Weights(**RADIUS_WEIGHTS[radius])
+    level = ExtLevel(c, gs, w, radius, shape, striped=form == "striped")
+    assert level.order == order
+    assert [tuple(t.shape) for pair in slabs for t in pair if t is not None] == [
+        level.slab_shapes[k] for k, pair in enumerate(slabs) for t in pair if t is not None]
+    got = level(z, slabs)
+    np.testing.assert_allclose(got.numpy(), want, atol=BARS[form])
+    x_ext = extend_with_slabs(z, slabs, radius, order)
+    assert torch.equal(x_ext, torch.as_tensor(X))
+    assert torch.equal(got, fused_normal_apply_ext_plain(x_ext, c, gs, w, len(shape), radius,
+                                                         shape))
+
+
+@pytest.mark.parametrize("mode", ["residual", "jacobi", "chebyshev"])
+@pytest.mark.parametrize("radius", [1, 2, 3])
+@pytest.mark.parametrize("case", MODE_CASES, ids=_case_id)
+def test_modes_match_reference(case, radius, mode):
+    """Each mode on the block and its slabs against the reference kernel's
+    A z followed by the reference cycle's expression in jnp."""
+    z, slabs, c, gs, order, az, _ = _slab_case(case, radius)
+    shape, form = case[0], case[3]
+    rng = np.random.default_rng(17 + radius)
+    r, zp = (rng.standard_normal(z.shape).astype(np.float32) for _ in range(2))
+    inv_d = rng.uniform(0.05, 0.5, z.shape).astype(np.float32)
+    s0, s1 = (float(np.float32(v)) for v in rng.uniform(0.2, 1.2, 2))
+    jz, jr, jzp, jinv, jaz = (jnp.asarray(a) for a in (z.numpy(), r, zp, inv_d, az))
+    j0, j1 = jnp.float32(s0), jnp.float32(s1)
+    want = {"residual": lambda: jr - jaz,
+            "jacobi": lambda: jz + j0 * jinv * (jr - jaz),
+            "chebyshev": lambda: jz + j0 * (jz - jzp) + j1 * jinv * (jr - jaz)}[mode]()
+    level = ExtLevel(c, gs, ft.Weights(**RADIUS_WEIGHTS[radius]), radius, shape,
+                     striped=form == "striped")
+    t = torch.as_tensor
+    got = level(z, slabs, mode, r=t(r), inv_d=t(inv_d), z_prev=t(zp), s0=s0, s1=s1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=BARS[form])
+
+
+def test_slab_shapes_follow_the_exchange_order():
+    """Axes exchanged before an axis extend its slabs by the halo (the
+    corners), later ones do not."""
+    assert slab_shapes((16, 15), 2, (0, 1)) == [(2, 15), (20, 2)]
+    assert slab_shapes((16, 15), 2, (1, 0)) == [(16, 2), (2, 19)]
+    assert slab_shapes((8, 8, 12), 3, (0, 1, 2)) == [(3, 8, 12), (14, 3, 12), (14, 14, 3)]
+
+
+def test_ext_level_checks():
+    """The constant checks are made once, when the level is made."""
+    w = ft.Weights(model_2=0.3, model_3=0.1)
+    with pytest.raises(ValueError, match="narrower"):
+        ExtLevel(torch.zeros(6, 8), [0, 0], w, 2, (6, 8))
+    with pytest.raises(ValueError, match="striped form takes 9 channels"):
+        ExtLevel(torch.zeros(6, 8), [0, 0], w, 3, (6, 8), striped=True)
+    with pytest.raises(ValueError, match="unknown mode"):
+        ExtLevel(torch.zeros(6, 8), [0, 0], w, 3, (6, 8))(torch.zeros(6, 8), mode="sweep")
+
+
+@pytest.fixture(scope="module")
+def one_rank(tmp_path_factory):
+    """A process group of this process alone (gloo, a rendezvous file)."""
+    import torch.distributed as dist
+    path = tmp_path_factory.mktemp("rendezvous") / "file"
+    dist.init_process_group("gloo", init_method=f"file://{path}", rank=0, world_size=1)
+    yield
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("change", [{}, dict(mg_smoother="chebyshev4"), dict(mg_cycle="w"),
+                                    dict(mg_smoother="chebyshev4", mg_cycle="w")], ids=str)
+def test_one_rank_distributed_cycle_matches_reference(one_rank, change):
+    """The distributed cycle as one rank (mesh 1 x 1, no halo messages):
+    its fine level and first coarse level sharded, every sweep and residual
+    there through `ExtLevel` (the plain version on the CPU), Jacobi and
+    Chebyshev, V and W (whose second visit takes the coarse level's
+    residual), against the reference's unsharded cycle; the bar of
+    tests/test_torch_sharded.py's distributed cycle."""
+    rng = np.random.default_rng(5)
+    shape, kw = (160, 128), dict(model_1=0.1, model_2=1.0)
+    pos = rng.uniform(0, np.asarray(shape) - 1, (150, 2)).astype(np.float32)
+    vals = rng.standard_normal(150).astype(np.float32)
+    r = rng.standard_normal(shape).astype(np.float32)
+    part = sharded_precond(Cloud(shape, ft.Weights(**kw), pos, vals), (1, 1),
+                           ft.SolverConfig(tol=1e-4, **change), r, device=torch.device("cpu"))
+    assert part["n_sh"] >= 1 and part["level_routes"][1] == "ext"
+    jp = jassemble(fi.Grid(shape), fi.Weights(**kw), jnp.asarray(pos), jnp.asarray(vals))
+    want = np.asarray(jmg.make_vcycle_preconditioner(jp, fi.SolverConfig(
+        tol=1e-4, preconditioner="multigrid", backend="xla", **change))(jnp.asarray(r)))
+    np.testing.assert_allclose(part["z"].numpy(), want, atol=2e-5 * np.abs(want).max(),
+                               rtol=1e-5)

@@ -29,7 +29,8 @@ from field_interpolation_tpu_torch.ops.smooth import (fused_smooth, fused_smooth
 from field_interpolation_tpu_torch.ops.stencil import (fused_normal_apply,
                                                        fused_normal_apply_plain)
 from field_interpolation_tpu_torch.ops.stencil_ext import (
-    fused_normal_apply_ext, fused_normal_apply_ext_plain, fused_normal_apply_ext_striped,
+    MODES, ExtLevel, fused_normal_apply_ext, fused_normal_apply_ext_plain,
+    fused_normal_apply_ext_slabs_plain, fused_normal_apply_ext_striped,
     fused_normal_apply_ext_striped_plain)
 
 pytestmark = pytest.mark.gpu
@@ -722,6 +723,81 @@ def test_ext_striped_kernel_matches_plain(cuda, shape, shards, radius):
         got = fused_normal_apply_ext_striped(*args)
         assert fused_normal_apply_ext_striped.launches == before + 1
         _close(got, fused_normal_apply_ext_striped_plain(*args), 1e-5)
+
+
+def _block_slabs(xp, blk, r, order, shape):
+    """The halo slabs of block ``blk`` cut from the zero-padded field ``xp``
+    in exchange ``order``, None where a slab lies past the global grid."""
+    nd = len(shape)
+    slabs = []
+    for k, axis in enumerate(order):
+        pair = []
+        for low in (True, False):
+            sl = [slice(b.start, b.stop + 2 * r) if d in order[:k]
+                  else slice(b.start + r, b.stop + r) for d, b in enumerate(blk)]
+            b = blk[axis]
+            sl[axis] = slice(b.start, b.start + r) if low else slice(b.stop + r, b.stop + 2 * r)
+            past = b.start == 0 if low else b.stop == shape[axis]
+            pair.append(None if past else xp[tuple(sl)].contiguous())
+        slabs.append(tuple(pair))
+    return slabs
+
+
+@pytest.mark.parametrize("shape,layout,form", [
+    ((45, 63), (3, 3), "whole"), ((45, 63), (3, 3), "diag"), ((45, 63), (3, 3), "striped"),
+    ((40, 61), (2, 1), "whole"), ((40, 61), (2, 1), "diag"), ((40, 61), (2, 1), "striped"),
+    ((21, 27, 10), (3, 3, 1), "whole"), ((21, 27, 10), (3, 3, 1), "diag"),
+    ((9, 14, 11), (1, 2, 1), "whole"), ((9, 14, 11), (1, 2, 1), "diag")], ids=str)
+@pytest.mark.parametrize("radius", [1, 2, 3])
+def test_ext_level_modes_match_plain(cuda, shape, layout, form, radius):
+    """`ExtLevel` in every mode on every block of the layout (interior
+    blocks, blocks at the global edge whose slabs there are None, odd
+    extents), against its plain version; each call one launch, counted
+    under its form and mode."""
+    rng = np.random.default_rng(40 + radius)
+    nd = len(shape)
+    w = ft.Weights(**EXT_WEIGHTS[radius])
+
+    def rand(s, lo=None, hi=None):
+        a = rng.standard_normal(s) if lo is None else rng.uniform(lo, hi, s)
+        return torch.as_tensor(a.astype(np.float32), device=cuda)
+
+    x = rand(shape)
+    coeff = rand(shape if form == "diag" else (3 ** nd,) + shape, -1, 2)
+    xp = torch.nn.functional.pad(x, (radius,) * (2 * nd))
+    order = (1, 0) if form == "striped" else tuple(range(nd))
+    for blk, _, gs in _blocks(shape, layout, radius):
+        c = coeff[blk if form == "diag" else (slice(None),) + blk].contiguous()
+        level = ExtLevel(c, gs, w, radius, shape, striped=form == "striped")
+        z, slabs = x[blk].contiguous(), _block_slabs(xp, blk, radius, order, shape)
+        loc = z.shape
+        ops = dict(r=rand(loc), inv_d=rand(loc, 0.05, 0.5), z_prev=rand(loc), s0=0.7, s1=0.4)
+        counter = fused_normal_apply_ext_striped if form == "striped" else fused_normal_apply_ext
+        for mode in MODES:
+            before, before_mode = counter.launches, counter.modes[mode]
+            got = level(z, slabs, mode, **ops)
+            assert (counter.launches, counter.modes[mode]) == (before + 1, before_mode + 1)
+            want = fused_normal_apply_ext_slabs_plain(z, slabs, c, gs, w, radius, shape,
+                                                      order, mode, **ops)
+            _close(got, want, 1e-5 if mode == "apply" else 2e-5)
+
+
+def test_ext_level_raises_on_bad_operands(cuda):
+    """No fallback: a CUDA call with a slab or operand of the wrong shape, no
+    slab at a seam (the kernel reads nothing past a face without one), or a
+    halo wider than the kernel stages, raises."""
+    w = ft.Weights(model_2=0.3)
+    level = ExtLevel(torch.ones(8, 10, device=cuda), [0, 0], w, 2, (16, 10))
+    z = torch.zeros(8, 10, device=cuda)
+    with pytest.raises(ValueError, match="slab"):
+        level(z, [(None, torch.zeros(2, 9, device=cuda))])
+    with pytest.raises(ValueError, match="seam"):
+        level(z, [(None, None)])
+    with pytest.raises(ValueError, match="residual"):
+        level(z, (), "residual", r=torch.zeros(8, 9, device=cuda))
+    wide = ExtLevel(torch.ones(8, 10, device=cuda), [0, 0], w, 4, (16, 10))
+    with pytest.raises(ValueError, match="halo"):
+        wide(z)
 
 
 def test_sharded_solves_on_card_launch_the_ext_kernels(cuda):
