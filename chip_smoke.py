@@ -228,13 +228,26 @@ toolkit (``nvcc``). Phases, each fatal on failure:
     within ±2 iterations and 2e-3·max|x| of ``backend="xla"``, no kernel
     launched, a NaN position raises the reference's message;
 51. (after phase 11) a ``record_solve`` JSON line for config 4's solve and
-    ``measure_marginal`` of the 4096² apply.
+    ``measure_marginal`` of the 4096² apply;
+52. ``explicit`` at the headline (256², 1000 points): the rows assembled
+    (host ms; rows and entries against their closed form), AᵀA·x and Aᵀb
+    against the port's float64 operator within 1e-10·max,
+    ``solve_sparse_linear`` (a dense float64 LU) to a true relative residual
+    ≤ 1e-10, the residual of ``sdf_from_points_precise``'s field measured
+    with the explicit AᵀA within 2% of the reported one, and
+    ``solve_sparse_linear_with_guess`` from that field;
+53. ``native`` on the port's engine: ``sdf_from_points_native`` at the
+    headline (iterations, ms, true residual ≤ 1e-10),
+    ``solve_approximate_lattice_native`` against ``explicit``'s within
+    1e-8·max, and at config 4's 128³ the rows built and exported (ms,
+    counts against their closed form), AᵀA·x against the operator within
+    1e-10·max and ``solve(tol=1e-4)`` with its iterations and true residual.
 
 Each phase's wall time follows it in brackets. The lines before the last
 are the contour record (JSON: each extractor's ms a call, the median of 5
 CUDA-event times after a warm-up, its spread and its segments or
-triangles; the host extractors and the sharded ranks once; with the debug
-and observe results and the card), the kernel record (JSON: per kernel its
+triangles; the host extractors and the sharded ranks once; with the debug,
+observe, explicit and native results and the card), the kernel record (JSON: per kernel its
 launches on its path, its error and time against its plain version, and
 its bound: the bytes it must move over 3.35 TB/s or its float32 operations
 over 67 TFLOP/s, whichever is longer) and the card; the last line is
@@ -3583,6 +3596,223 @@ def phase_observe(ft, device, p5, field3):
     return dict(record=json.loads(buf.getvalue()), marginal_apply_ms=1e3 * per)
 
 
+# The reference's row-level API (phases 52-53): the headline's system in
+# explicit rows and BASELINE config 4's (128³, 4000 sphere points).
+ROWS_TOL3 = 1e-4
+
+
+def explicit_counts(shape, weights, pts):
+    """Rows and stored entries of `explicit.assemble_explicit` (values and
+    gradients, nonzero data weights) in closed form: per active order k and
+    axis of n ≥ k + 1 nodes, (N/n)·(n − k) rows of k + 1 entries (order 0:
+    N rows of one); per sample inside the grid one value row of Π_d c_d
+    entries and D gradient rows of 2·Π_{d≠a} c_d, c_d = 1 where the sample
+    lies on a node plane across axis d (a corner weight is 0), else 2."""
+    p = pts.double().cpu().numpy()
+    top = np.asarray(shape, np.float64) - 1.0
+    p = p[np.all((p >= 0.0) & (p <= top), axis=1)]
+    frac = p - np.clip(np.floor(p), 0.0, top - 1.0)
+    c = np.where((frac == 0.0) | (frac == 1.0), 1, 2)
+    n_nodes = math.prod(shape)
+    rows = nnz = 0
+    for k in weights.active_orders():
+        if k == 0:
+            rows, nnz = rows + n_nodes, nnz + n_nodes
+            continue
+        for n in shape:
+            if n >= k + 1:
+                r = n_nodes // n * (n - k)
+                rows, nnz = rows + r, nnz + r * (k + 1)
+    D = len(shape)
+    rows += len(p) * (1 + D)
+    nnz += int(c.prod(1).sum()) + sum(int(2 * np.delete(c, a, 1).prod(1).sum())
+                                      for a in range(D))
+    return rows, nnz
+
+
+def rel_residual(ata, atb, x):
+    """‖Aᵀb − AᵀA x‖ / ‖Aᵀb‖ in float64 with the explicit matrix."""
+    x = x.reshape(-1).double()
+    return float(torch.linalg.norm(atb - ata @ x) / torch.linalg.norm(atb))
+
+
+def check_ata(label, ata, atb, pp, device, seed):
+    """AᵀA·x of the explicit rows against the port's matrix-free float64
+    operator (`PreciseProblem.apply64_delta`: the f64 rows of
+    `sdf.assemble_precise` and the smoothness stencils) on a standard-normal
+    x, and Aᵀb against its b64, each within 1e-10·max."""
+    x = torch.randn(pp.grid.shape, dtype=torch.float64, device=device,
+                    generator=torch.Generator(device=device).manual_seed(seed))
+    want = pp.apply64_delta(x).reshape(-1)
+    err = float((ata @ x.reshape(-1) - want).abs().max())
+    scale = float(want.abs().max())
+    err_b = float((atb - pp.b64.reshape(-1)).abs().max())
+    scale_b = float(pp.b64.abs().max())
+    print(f"{label}: max|AᵀA·x - operator| {err:.3e} (bar {1e-10 * scale:.3e}), "
+          f"max|Aᵀb - b64| {err_b:.3e} (bar {1e-10 * scale_b:.3e}), AᵀA stores "
+          f"{ata.values().numel()} entries")
+    require(err <= 1e-10 * scale, f"{label}: AᵀA·x {err} > 1e-10·{scale}")
+    require(err_b <= 1e-10 * scale_b, f"{label}: Aᵀb {err_b} > 1e-10·{scale_b}")
+    return max(err / scale, err_b / scale_b)
+
+
+def phase_explicit(ft, device):
+    """Phase 52: `explicit` at the headline (256², 1000 circle points,
+    Weights(model_2=0.3), seed 0): the host ms to assemble the rows, the
+    row and entry counts against `explicit_counts`; AᵀA and Aᵀb against
+    the port's float64 operator; `solve_sparse_linear` (a dense float64 LU
+    on the card) to a true relative residual ≤ 1e-10; the residual of
+    `sdf_from_points_precise`'s field (tol 1e-6) measured with the explicit
+    AᵀA within 2% of the one the port reports; `_with_guess` from that
+    field, its iterations and ms."""
+    from field_interpolation_tpu_torch import explicit, rows
+    grid, w = ft.Grid(SHAPE), ft.Weights(model_2=0.3)
+    n = grid.num_nodes
+    pts, nrm = headline_inputs(0, device)
+    zeros = torch.zeros(len(pts), device=device)
+    explicit.assemble_explicit(grid, w, pts, zeros, nrm)          # warm-up
+    eq, asm_ms = host_ms(lambda: explicit.assemble_explicit(grid, w, pts, zeros, nrm))
+    want = explicit_counts(SHAPE, w, pts)
+    got = (eq.num_rows, eq.export_rows()[0].numel())
+    print(f"explicit headline: {got[0]} rows, {got[1]} entries (closed form {want}), "
+          f"assembled in {asm_ms:.3f} ms")
+    require(got == want, f"explicit rows/entries {got} vs closed form {want}")
+    explicit.normal_equations(eq, n)                             # warm-up
+    (ata, atb), ne_ms = host_ms(lambda: explicit.normal_equations(eq, n))
+    print(f"normal equations: {ne_ms:.3f} ms")
+    pp = ft.assemble_precise(grid, w, pts, zeros, gradients=nrm)
+    ata_err = check_ata("explicit headline", ata, atb, pp, device, 52)
+
+    # Why the direct solve is a dense LU: PyTorch's sparse direct solve on
+    # this card (a record of the build, not a route of the library).
+    small = torch.eye(4, dtype=torch.float64, device=device)
+    try:
+        with rows.quiet_sparse():
+            torch.sparse.spsolve(small.to_sparse_csr(), small[0])
+        spsolve = "runs"
+    except RuntimeError as e:
+        spsolve = f"raises RuntimeError: {e}"[:160]
+    print(f"torch.sparse.spsolve on a CUDA tensor: {spsolve}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    x_d, direct_ms = host_ms(lambda: explicit.solve_sparse_linear(n, eq))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    direct_rel = rel_residual(ata, atb, x_d)
+    print(f"solve_sparse_linear (dense float64 LU, torch.linalg.solve, {n} unknowns): "
+          f"{direct_ms:.1f} ms, true rel {direct_rel:.3e}, peak {peak_gb:.1f} GB")
+    require(bool(torch.isfinite(x_d).all()) and direct_rel <= 1e-10,
+            f"direct solve: true rel {direct_rel} > 1e-10")
+    del x_d
+    torch.cuda.empty_cache()
+
+    (x_p, info), precise_ms = host_ms(lambda: ft.sdf_from_points_precise(
+        grid, w, pts, nrm, config=ft.SolverConfig(tol=TOL)))
+    rel_e, rep = rel_residual(ata, atb, x_p), float(info.rel_residual)
+    true = check_precise("explicit headline precise", ft, grid, w, pts, nrm, x_p, info, device)
+    print(f"sdf_from_points_precise: {int(info.iterations)} iterations, {precise_ms:.1f} ms; "
+          f"rel residual with the explicit AᵀA {rel_e:.6e}, reported {rep:.6e}, the "
+          f"operator's true {true:.6e}")
+    require(abs(rel_e - rep) <= 0.02 * rel_e,
+            f"precise field: explicit residual {rel_e} vs reported {rep}")
+
+    guess = x_p.double().reshape(-1)
+    x_g, guess_ms = host_ms(lambda: explicit.solve_sparse_linear_with_guess(n, eq, guess))
+    x_c, it_g, status = rows.conjugate_gradient(ata, atb, guess, tol=1e-10, maxiter=10000,
+                                                jacobi=False)
+    rel_g = rel_residual(ata, atb, x_g)
+    print(f"solve_sparse_linear_with_guess from the precise field (tol 1e-10, maxiter "
+          f"10000, no preconditioner): {it_g} iterations ({status}), {guess_ms:.1f} ms "
+          f"({1e3 * guess_ms / max(it_g, 1):.1f} us/iteration), true rel {rel_g:.3e}")
+    require(torch.equal(x_c, x_g) and bool(torch.isfinite(x_g).all()),
+            "with_guess: not the shared CG's x, or not finite")
+    require(status == "maxiter" or rel_g <= 2e-10,
+            f"with_guess: converged by its own residual, true rel {rel_g}")
+    return dict(rows=got[0], entries=got[1], assemble_ms=asm_ms, normal_equations_ms=ne_ms,
+                ata_rel_err=ata_err, direct_route="dense float64 LU (torch.linalg.solve)",
+                sparse_spsolve_on_card=spsolve,
+                direct_ms=direct_ms, direct_true_rel=direct_rel, direct_peak_gb=peak_gb,
+                precise_iterations=int(info.iterations), precise_rel_explicit=rel_e,
+                precise_rel_reported=rep, with_guess_iterations=it_g,
+                with_guess_status=status, with_guess_ms=guess_ms, with_guess_true_rel=rel_g)
+
+
+def phase_native(ft, device):
+    """Phase 53: `native` on the port's engine. `sdf_from_points_native` at
+    the headline (seed 0, tol 1e-10): iterations, ms, true residual with the
+    explicit AᵀA; `solve_approximate_lattice_native` (tol 1e-12) against
+    `explicit`'s approximate lattice (a direct solve) within 1e-8·max; at
+    BASELINE config 4's 128³ (4000 sphere points, seed 0) the ms to build
+    and export the rows, AᵀA·x against the operator at 1e-10·max and
+    `solve(tol=1e-4)` with its iterations and true residual."""
+    from field_interpolation_tpu_torch import explicit, native, rows
+    grid, w = ft.Grid(SHAPE), ft.Weights(model_2=0.3)
+    pts, nrm = headline_inputs(0, device)
+    zeros = torch.zeros(len(pts), device=device)
+    native.sdf_from_points_native(ft.Grid((32, 32)), w, pts / 8, nrm)   # warm-up
+    (x, it), sdf_ms = host_ms(lambda: native.sdf_from_points_native(grid, w, pts, nrm))
+    ata, atb = explicit.normal_equations(explicit.assemble_explicit(grid, w, pts, zeros, nrm),
+                                         grid.num_nodes)
+    sdf_rel = rel_residual(ata, atb, x)
+    print(f"sdf_from_points_native headline (Jacobi-PCG, tol 1e-10): {it} iterations, "
+          f"{sdf_ms:.1f} ms ({1e3 * sdf_ms / it:.1f} us/iteration), true rel {sdf_rel:.3e}")
+    require(tuple(x.shape) == SHAPE and bool(torch.isfinite(x).all()),
+            "sdf_from_points_native: field not finite or wrong shape")
+    require(sdf_rel <= 1.01e-10, f"sdf_from_points_native: true rel {sdf_rel} > 1e-10")
+    del ata, atb
+
+    (xa, it_a), approx_ms = host_ms(lambda: native.solve_approximate_lattice_native(
+        grid, w, pts, zeros, nrm, tol=1e-12))
+    xe, approx_e_ms = host_ms(lambda: explicit.solve_sparse_linear_approximate_lattice(
+        grid, w, pts, zeros, nrm))
+    err_a = float((xa.reshape(-1) - xe).abs().max())
+    scale_a = float(xe.abs().max())
+    print(f"approximate lattice (downscale 2, 128² coarse): native {it_a} iterations "
+          f"{approx_ms:.1f} ms, explicit (dense LU) {approx_e_ms:.1f} ms, "
+          f"max|native - explicit| {err_a:.3e} (bar {1e-8 * scale_a:.3e})")
+    require(err_a <= 1e-8 * scale_a, f"approximate lattice: {err_a} > 1e-8·{scale_a}")
+    torch.cuda.empty_cache()
+
+    grid3, w3 = ft.Grid(SHAPE3), ft.Weights(model_2=0.3)
+    p3, n3 = sphere_inputs(0, device)
+    ones = torch.ones(len(p3), device=device)
+
+    def build():
+        eq = native.NativeEquation(grid3, device=device)
+        eq.add_field_constraints(w3)
+        eq.add_value_constraints(p3, torch.zeros_like(ones), w3.data_pos * ones)
+        eq.add_gradient_constraints(p3, n3, w3.data_gradient * ones)
+        return eq, eq.export_rows()
+
+    build()                                                     # warm-up
+    (eq3, exported), build_ms = host_ms(build)
+    want = explicit_counts(SHAPE3, w3, p3)
+    got = (eq3.num_rows, exported[0].numel())
+    print(f"native config 4: {got[0]} rows, {got[1]} entries (closed form {want}), built "
+          f"and exported in {build_ms:.1f} ms")
+    require(got == want, f"native config 4 rows/entries {got} vs closed form {want}")
+    (ata3, atb3), ne3_ms = host_ms(lambda: rows.normal_equations(rows.Rows(*exported),
+                                                                 grid3.num_nodes))
+    pp3 = ft.assemble_precise(grid3, w3, p3, torch.zeros_like(ones), gradients=n3)
+    ata3_err = check_ata("native config 4", ata3, atb3, pp3, device, 53)
+    del pp3, exported
+    (x3, it3), solve3_ms = host_ms(lambda: eq3.solve(tol=ROWS_TOL3))
+    rel3 = rel_residual(ata3, atb3, x3)
+    print(f"NativeEquation.solve config 4 (tol {ROWS_TOL3}): {it3} iterations, "
+          f"{solve3_ms:.1f} ms (normal equations {ne3_ms:.1f} ms of it by themselves), "
+          f"true rel {rel3:.3e}")
+    require(tuple(x3.shape) == SHAPE3 and bool(torch.isfinite(x3).all()),
+            "native config 4: field not finite or wrong shape")
+    require(rel3 <= 1.01 * ROWS_TOL3, f"native config 4: true rel {rel3} > {ROWS_TOL3}")
+    del eq3, ata3, atb3, x3
+    torch.cuda.empty_cache()
+    return dict(sdf_iterations=it, sdf_ms=sdf_ms, sdf_true_rel=sdf_rel,
+                approx_iterations=it_a, approx_ms=approx_ms, approx_explicit_ms=approx_e_ms,
+                approx_max_abs_err=err_a, config4_rows=got[0], config4_entries=got[1],
+                config4_build_export_ms=build_ms, config4_normal_equations_ms=ne3_ms,
+                config4_ata_rel_err=ata3_err, config4_iterations=it3,
+                config4_solve_ms=solve3_ms, config4_true_rel=rel3)
+
+
 def run_phase(fn, *args, **kwargs):
     """fn(*args, **kwargs), then its wall time on a line of its own."""
     t0 = time.perf_counter()
@@ -3673,6 +3903,10 @@ def main():
     # The contouring and tooling slice (phases 46-48 ran beside the fields
     # they contour, 49 in the sharded ranks, 51 after phase 11).
     debug = run_phase(phase_debug, ft, device)
+    # The reference's row-level API on the card: no kernel of this repo
+    # runs on it (plain torch ops, cuBLAS/cuSOLVER/cuSPARSE).
+    explicit_rec = run_phase(phase_explicit, ft, device)
+    native_rec = run_phase(phase_native, ft, device)
 
     src = "field_interpolation_tpu_torch/csrc/"
     ref = "field_interpolation_tpu/ops/pallas_stencil.py:"
@@ -3873,7 +4107,7 @@ def main():
     for k in kernels:
         k["library_ms"] = None  # no one PyTorch call computes any of these functions
     print(json.dumps({"contour": CONTOURS, "debug": debug, "observe": observe,
-                      "card": card}))
+                      "explicit": explicit_rec, "native": native_rec, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

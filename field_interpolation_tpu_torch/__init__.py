@@ -11,12 +11,15 @@ differentiation (`solve_implicit`); batched solves of many independent
 fields in ``batch`` (one launch of the batched segment and apply kernels
 for all lanes); the sharded solve in ``parallel/``; contouring (host
 NumPy and device extractors in ``contour``, sharded ones in
-``parallel.contour``); ``SolverConfig(debug=True)`` (``debugging``) and the
-tooling modules (``utils.observe``, ``checkpoint``, ``visualize``).
+``parallel.contour``); ``SolverConfig(debug=True)`` (``debugging``), the
+tooling modules (``utils.observe``, ``checkpoint``, ``visualize``) and the
+reference library's row-level API (``explicit``, ``native``: explicit rows
+built on the device by ``rows``, sparse and CG solves in float64).
 Every entry point runs on the device of the tensors it is given; on CPU
 tensors every kernel runs its plain PyTorch version.
 The JAX package stays the reference; names here are its names, and, as
-there, contouring and tooling are submodules, not top-level names.
+there, contouring, tooling and the row-level API are submodules, not
+top-level names.
 """
 
 from .grid import Grid, grid_2d, grid_3d

@@ -78,6 +78,16 @@ def _cell_frac(grid: Grid, positions: torch.Tensor):
     return cell, frac, in_bounds
 
 
+def _prod_over_axes(w1d: torch.Tensor) -> torch.Tensor:
+    """Product over the last axis in axis order, ((w_0 · w_1) · w_2): the
+    reference's order, on every device (a reduction kernel may pair the
+    factors otherwise), so the float64 rows of `explicit` equal its rows."""
+    out = w1d[..., 0]
+    for d in range(1, w1d.shape[-1]):
+        out = out * w1d[..., d]
+    return out
+
+
 def _corner_rows(grid: Grid, cell: torch.Tensor, frac: torch.Tensor):
     """(corner_idx [n,C] int64, row_coeffs [n,1+D,C] in frac's dtype):
     the multilinear value row + D gradient rows (SPEC.md conventions).
@@ -93,15 +103,14 @@ def _corner_rows(grid: Grid, cell: torch.Tensor, frac: torch.Tensor):
     # Per-axis 1-D weights at each corner: bits ? frac : 1-frac.
     f = frac[..., None, :].expand(*frac.shape[:-1], bits.shape[0], D)
     w1d = torch.where(bits == 1, f, 1.0 - f)                    # [n, C, D]
-    value_row = torch.prod(w1d, dim=-1)                         # [n, C]
+    value_row = _prod_over_axes(w1d)                            # [n, C]
 
     # Gradient row for axis a: sign_a(c) * prod_{d != a} w1d (a masked
     # product, not value_row / w1d, which is unstable at 0).
     grad_rows = []
     for a in range(D):
         keep = torch.as_tensor([d != a for d in range(D)], device=dev)
-        partial = torch.prod(torch.where(keep, w1d, torch.ones_like(w1d)),
-                             dim=-1)
+        partial = _prod_over_axes(torch.where(keep, w1d, torch.ones_like(w1d)))
         sign = torch.where(bits[:, a] == 1, 1.0, -1.0).to(frac.dtype)
         grad_rows.append(sign * partial)                        # [n, C]
     return corner_idx, torch.stack([value_row, *grad_rows], dim=-2)

@@ -86,6 +86,33 @@ def test_no_file_imports_jax_or_the_reference(path):
     assert not pat.search(path.read_text()), path
 
 
+def test_row_api_loads_no_native_library():
+    """`explicit` and `native` run on the port's own engine: with JAX and the
+    JAX package blocked they build and solve rows, and no shared library of
+    the reference's `native/` is loaded into the process."""
+    code = BLOCK_JAX + (
+        "import numpy as np, torch\n"
+        "import field_interpolation_tpu_torch as ft\n"
+        "from field_interpolation_tpu_torch import explicit, native\n"
+        "x, it = native.sdf_from_points_native(ft.Grid((12, 12)), ft.Weights(),\n"
+        "    np.array([[5.5, 5.0], [6.0, 7.5]]), np.array([[1.0, 0.0], [0.0, 1.0]]),\n"
+        "    device='cpu')\n"
+        "eq = explicit.assemble_explicit(ft.Grid((6, 6)), ft.Weights(),\n"
+        "    np.array([[2.5, 3.0]]), np.array([1.0]), device='cpu')\n"
+        "y = explicit.solve_sparse_linear(36, eq)\n"
+        "assert it > 0 and bool(torch.isfinite(x).all()) and bool(torch.isfinite(y).all())\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert 'field_interpolation_native' not in maps\n"
+        "assert not any(m.split('.')[0] in ('jax', 'field_interpolation_tpu') for m in sys.modules)\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300, env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+    for path in PACKAGE.rglob("*.py"):
+        assert "libfield_interpolation_native" not in path.read_text(), path
+
+
 def test_launch_counters_stay_zero_on_cpu():
     fused_normal_apply.launches = 0
     fused_pcg_solve.launches = 0
