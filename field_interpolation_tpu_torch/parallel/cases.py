@@ -112,13 +112,15 @@ def _info(info) -> dict:
                 converged=bool(info.converged))
 
 
-def sharded_apply(cloud: Cloud, mesh_shape, x: np.ndarray, backend="xla", *, device):
-    """One sharded operator apply of the whole-grid ``x``."""
+def sharded_apply(cloud: Cloud, mesh_shape, x: np.ndarray, backend="xla", overlap=True,
+                  dtype=torch.float32, *, device):
+    """One sharded operator apply of the whole-grid ``x`` in ``dtype``."""
     mesh = Mesh(mesh_shape)
-    p = sharded.shard_problem(cloud.problem(device), mesh)
+    p = sharded.shard_problem(cloud.problem(device, dtype), mesh)
     blk = sharded._block(p.grid.shape, mesh)
-    f = sharded.make_sharded_apply(p.grid.shape, p.weights, mesh, p.coeff, backend=backend)
-    xl = torch.as_tensor(np.ascontiguousarray(x[blk]), device=device)
+    f = sharded.make_sharded_apply(p.grid.shape, p.weights, mesh, p.coeff, backend=backend,
+                                   overlap=overlap)
+    xl = torch.as_tensor(np.ascontiguousarray(x[blk]), device=device).to(dtype)
     return dict(block=blk, y=f(xl), route=f.route, stripe=f.stripe)
 
 
@@ -146,7 +148,9 @@ def sharded_solve(cloud: Cloud, mesh_shape, config: SolverConfig, *, device):
                                          sharded._block(tuple(cloud.shape), mesh)), device)
     _zero_counts()
     (x, info), ms = _timed(lambda: sharded.solve_sharded(p, mesh, config), device)
-    return dict(block=blk, x=x, ms=ms, setup_ms=setup_ms, launches=_counts(), **_info(info))
+    route = sharded.apply_route(p.grid.shape, p.weights, mesh, config.backend)[0]
+    return dict(block=blk, x=x, ms=ms, setup_ms=setup_ms, launches=_counts(), route=route,
+                **_info(info))
 
 
 def sharded_refined(cloud: Cloud, mesh_shape, config: SolverConfig, precise: bool = True,

@@ -26,6 +26,8 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from ..rows import resolve_device
+
 # A rank that stops answering fails the run after this long.
 TIMEOUT = datetime.timedelta(seconds=600)
 
@@ -62,12 +64,8 @@ def _rank_main(rank, fn, world, args, device_kind, rendezvous, out_dir):
 def run_ranks(fn, world: int, *args, device: str = "cuda") -> list:
     """Run ``fn(*args, device=...)`` on ``world`` ranks; returns their
     results (tensors moved to the CPU), in rank order."""
-    kind = torch.device(device).type
-    if kind == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("run_ranks: no CUDA card; pass device='cpu'")
-        from ..ops import _build
-        _build.build()  # once, here: the ranks only load the library
+    # The kernels are built once, here: the ranks only load the library.
+    kind = resolve_device(device, build=True).type
     with tempfile.TemporaryDirectory() as tmp:
         rendezvous = "file://" + os.path.join(tmp, "rendezvous")
         mp.spawn(_rank_main, args=(fn, world, args, kind, rendezvous, tmp),

@@ -267,12 +267,16 @@ def apply_route(grid_shape, weights, mesh: Mesh,
 
 
 def make_sharded_apply(grid_shape, weights, mesh: Mesh, coeff: torch.Tensor,
-                       backend: str = "xla"):
+                       backend: str = "xla", overlap: bool = True):
     """The local-block operator apply with halo exchange; ``coeff`` is this
     rank's data-term block. The route is `apply_route`'s; the returned
     function carries it as ``.route`` (and ``.stripe``), and as ``.level``
     the `ExtLevel` its float32 applies launch (None on the sequential
-    route), whose other modes the distributed cycle's fine sweeps use."""
+    route), whose other modes the distributed cycle's fine sweeps use.
+    ``overlap`` is the reference's argument and changes nothing here: the
+    reference's overlapped 2-D body gives the sequential route's bits and
+    took 1.7-1.8x its host time on one H100 under gloo (PERF.md), so the
+    plain apply keeps the one sequential route."""
     grid_shape = tuple(grid_shape)
     nd = len(grid_shape)
     radius = max(stencils.max_stencil_radius(weights), 1)

@@ -38,16 +38,20 @@ F64 = torch.float64
 CHECK_EVERY = 32
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None, build: bool = False) -> torch.device:
     """The device of an entry point that is given no tensors: ``cuda``
-    unless the caller names another; raises when there is no card."""
+    unless the caller names another; raises when there is no card. With
+    ``build``, on the card the kernels' library is also built (if missing)
+    and loaded now, so that the first solve is not a build."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: pass device='cpu' to build and "
-                               "solve the rows on the CPU")
+            raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
+        if build:
+            from .ops import _build
+            _build.library()
     return dev
 
 
@@ -320,7 +324,6 @@ def normal_equations(rows: Rows, ncols: int) -> tuple[torch.Tensor, torch.Tensor
     dev = val.device
     if col.numel() and (int(col.min()) < 0 or int(col.max()) >= ncols):
         raise ValueError(f"a column index outside [0, {ncols})")
-    atb = torch.zeros(ncols, dtype=F64, device=dev).index_add_(0, col, val * rhs[row])
     # Pairs (p, q) of entries of one row: each entry p repeats once per
     # entry of its row, q running over that row's entries.
     counts = torch.bincount(row, minlength=rhs.numel())
@@ -332,10 +335,14 @@ def normal_equations(rows: Rows, ncols: int) -> tuple[torch.Tensor, torch.Tensor
     run = torch.cumsum(per, 0) - per                         # each p's first pair
     q = (first[row[p]] + torch.arange(n_pairs, device=dev)
          - torch.repeat_interleave(run, per, output_size=n_pairs))
+    # Both sums go through coalesce, whose order is fixed: an index_add_ on
+    # the card sums with atomics, so Aᵀb, and every CG from it, changed
+    # from call to call in the last bits.
     with quiet_sparse():
         ata = torch.sparse_coo_tensor(torch.stack([col[p], col[q]]), val[p] * val[q],
                                       (ncols, ncols)).coalesce()
-        return ata.to_sparse_csr(), atb
+        atb = torch.sparse_coo_tensor(col[None], val * rhs[row], (ncols,)).coalesce()
+        return ata.to_sparse_csr(), atb.to_dense()
 
 
 def csr_diagonal(a: torch.Tensor) -> torch.Tensor:

@@ -17,7 +17,7 @@ import field_interpolation_tpu_torch as ft
 DOC = Path(__file__).resolve().parents[1] / "docs" / "torch_api.md"
 SUBMODULES = ["batch", "checkpoint", "constraints", "contour", "convert", "debugging", "diff",
               "explicit", "grid", "multigrid", "native", "operators", "parallel",
-              "parallel.contour", "parallel.launch", "rows", "sdf", "session", "solver",
+              "parallel.contour", "parallel.launch", "parallel.sharded", "rows", "sdf", "session", "solver",
               "stencils", "utils", "visualize", "weights", "ops", "ops.cycle", "ops.pcg",
               "ops.smooth", "ops.stencil", "ops.stencil_ext"]
 EXTERNAL = {"torch", "cuda", "device", "sm_90a", "auto", "prep", "debug", "spsolve"}

@@ -86,6 +86,36 @@ def test_no_file_imports_jax_or_the_reference(path):
     assert not pat.search(path.read_text()), path
 
 
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.name)
+def test_no_example_imports_jax_or_the_reference(path):
+    """The port's examples import the port only: no JAX, no JAX package."""
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|field_interpolation_tpu)\b(?!_torch)",
+                     re.M)
+    assert not pat.search(path.read_text()), path
+
+
+def test_examples_load_with_jax_blocked():
+    """Every port example loads with JAX, Triton and the JAX package blocked,
+    touching no CUDA device."""
+    assert len(EXAMPLES) >= 6
+    code = BLOCK_JAX + (
+        "import importlib.util, torch\n"
+        f"for p in {[str(p) for p in EXAMPLES]!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('example', p)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "assert not any(m.split('.')[0] in ('jax', 'triton', 'field_interpolation_tpu')\n"
+        "               for m in sys.modules)\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300, env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_row_api_loads_no_native_library():
     """`explicit` and `native` run on the port's own engine: with JAX and the
     JAX package blocked they build and solve rows, and no shared library of

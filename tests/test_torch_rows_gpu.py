@@ -109,3 +109,24 @@ def test_default_device_is_the_card(cuda):
                                          np.array([[3.5, 3.5], [4.0, 2.5]]),
                                          np.array([[1.0, 0.0], [0.0, -1.0]]))
     assert x.is_cuda
+
+
+def test_normal_equations_repeat_on_the_card(cuda):
+    """AᵀA and Aᵀb of the same rows are the same bits on every call on the
+    card (their duplicate sums in a fixed order, not atomics), and so is
+    the warm-started CG from them: at the headline's size, the CG that
+    chip_smoke.py's explicit phase holds bit for bit."""
+    shape = (256, 256)
+    pos, _, grads, _ = samples(shape, 1000, 3)
+    W = ft.Weights(model_2=0.3)
+    eq = explicit.assemble_explicit(ft.Grid(shape), W, pos[2:], np.zeros(998), grads[2:],
+                                    device=cuda)
+    n = 256 * 256
+    (a1, b1), (a2, b2) = (explicit.normal_equations(eq, n) for _ in range(2))
+    assert torch.equal(b1, b2)
+    assert torch.equal(a1.crow_indices(), a2.crow_indices())
+    assert torch.equal(a1.col_indices(), a2.col_indices())
+    assert torch.equal(a1.values(), a2.values())
+    guess = torch.zeros(n, dtype=torch.float64, device=cuda)
+    xs = [explicit.solve_sparse_linear_with_guess(n, eq, guess, maxiter=2000) for _ in range(2)]
+    assert torch.equal(xs[0], xs[1])

@@ -9,6 +9,11 @@ reference on the same numpy-seeded inputs, with the reference tests' bars
 * the sharded apply against the reference's unsharded apply, atol 1e-4
   (:148), on meshes (2, 2), (4, 1), (1, 4) and a 3-D one, every route
   (the ext kernels' plain versions and the sequential plain apply);
+* the plain apply under ``overlap=True`` (the reference's default, which
+  leaves the port on its sequential route) against the reference's
+  overlapped 2-D apply on the same mesh of virtual devices, atol 1e-5·max
+  (:459-490), on meshes (2, 2), (4, 1), (1, 4), and for a float64 operand
+  off ``backend="xla"``;
 * `solve_sharded` (jacobi, multigrid) against the reference's `solve` and
   its `solve_sharded` on a 2 x 2 mesh of the conftest's virtual devices:
   ±2 iterations, 2e-3·max|x| (:52, :300);
@@ -83,6 +88,8 @@ C_APPLY = _cloud((48, 40), W_APPLY, 60)
 C_APPLY3 = _cloud((16, 16, 8), dict(model_2=0.5), 40)
 X_APPLY = np.random.default_rng(1).standard_normal((48, 40)).astype(np.float32)
 X_APPLY3 = np.random.default_rng(1).standard_normal((16, 16, 8)).astype(np.float32)
+C_OVERLAP = _cloud((64, 96), dict(model_1=0.2, model_2=1.0), 120)
+X_OVERLAP = np.random.default_rng(3).standard_normal((64, 96)).astype(np.float32)
 C_JACOBI = _cloud((32, 64), W_JACOBI, 80)
 C_MG = _cloud((64, 64), W_MG, 120)
 C_3D = _cloud((16, 16, 8), dict(model_2=0.5), 40, gradients=False)
@@ -102,6 +109,9 @@ APPLY_CASES = [(ms, be) for ms in MESHES for be in ("auto", "xla")]
 SOLVE_CASES = ([("jacobi", ms, C_JACOBI, CFG_J) for ms in ((2, 2), (1, 4))]
                + [("multigrid", ms, C_MG, CFG_MG) for ms in MESHES]
                + [("multigrid xla", (2, 2), C_MG, CFG_MG_XLA),
+                  ("jacobi xla", (4, 1), C_JACOBI,
+                   ft.SolverConfig(tol=1e-4, preconditioner="jacobi", maxiter=4000,
+                                   backend="xla")),
                   ("3-D jacobi", (1, 2, 2), C_3D, CFG_J),
                   ("3-D multigrid", (2, 2), C_MG3, CFG_MG)])
 PRECOND_CASES = [((2, 2), "auto"), ((2, 2), "xla"), ((4, 1), "auto")]
@@ -111,6 +121,10 @@ REFINED_CASES = [("float64 jacobi", (2, 2), C_REFINED, False,
                  ("precise", (2, 2), C_REFINED, True, CFG_6),
                  ("precise", (4, 1), C_REFINED, True, CFG_6),
                  ("precise 3-D", (1, 2, 2), C_PRECISE3, True, CFG_6)]
+
+# (mesh, overlap, dtype, backend) of the overlapped apply's cases.
+OVERLAP_CASES = ([(ms, ov, torch.float32, "xla") for ms in MESHES for ov in (True, False)]
+                 + [((2, 2), True, torch.float64, "auto")])
 
 CASES = (
     [("sharded_apply", dict(cloud=C_APPLY, mesh_shape=ms, x=X_APPLY, backend=be))
@@ -124,7 +138,10 @@ CASES = (
        for ms, be in PRECOND_CASES]
     + [("sharded_refined", dict(cloud=c, mesh_shape=ms, config=cfg, precise=precise))
        for _, ms, c, precise, cfg in REFINED_CASES]
-    + [("sharded_refined", dict(cloud=C_WARM, mesh_shape=(2, 2), config=CFG_6, warm=True))])
+    + [("sharded_refined", dict(cloud=C_WARM, mesh_shape=(2, 2), config=CFG_6, warm=True))]
+    + [("sharded_apply", dict(cloud=C_OVERLAP, mesh_shape=ms, x=X_OVERLAP, backend=be,
+                              overlap=ov, dtype=dt))
+       for ms, ov, dt, be in OVERLAP_CASES])
 
 
 @pytest.fixture(scope="module")
@@ -141,7 +158,7 @@ def _x(ps, key="x"):
 @pytest.mark.parametrize("k", range(len(APPLY_CASES)),
                          ids=[f"{ms}-{be}" for ms, be in APPLY_CASES])
 def test_sharded_apply_matches_reference(parts, k):
-    _, be = APPLY_CASES[k]
+    ms, be = APPLY_CASES[k]
     ps = parts[k]
     jp, _ = _jproblem(C_APPLY)
     np.testing.assert_allclose(_x(ps, "y"), np.asarray(jp.apply(jnp.asarray(X_APPLY))),
@@ -173,9 +190,11 @@ def test_solve_sharded_matches_reference_solve(parts, k):
     assert abs(ps[0]["iterations"] - int(ir.iterations)) <= 2
     xr = np.asarray(xr)
     np.testing.assert_allclose(_x(ps), xr, atol=2e-3 * np.abs(xr).max())
+    if cfg.backend == "xla":
+        assert ps[0]["route"] == "sequential"
 
 
-@pytest.mark.parametrize("name", ["jacobi", "multigrid"])
+@pytest.mark.parametrize("name", ["jacobi", "multigrid", "multigrid xla"])
 def test_solve_sharded_matches_reference_solve_sharded(parts, name):
     """Against the reference's own sharded solve on a 2 x 2 mesh of the
     conftest's virtual CPU devices."""
@@ -274,10 +293,62 @@ def test_refined_sharded_true_1e6(parts, k):
 def test_refined_sharded_warm_start(parts):
     """From its own float32 result the refinement converges at once
     (tests/test_sharded.py:541-560)."""
-    ps = parts[-1]
+    ps = parts[OVERLAP0 - 1]
     assert all(p["converged"] and p["warm"]["converged"] for p in ps)
     assert ps[0]["warm"]["iterations"] < ps[0]["iterations"]
     assert _true_rel(C_WARM, _x(ps)) <= 1.1e-6
+
+
+OVERLAP0 = len(CASES) - len(OVERLAP_CASES)
+
+
+def _reference_apply(c: Cloud, x: np.ndarray, ms, overlap: bool) -> np.ndarray:
+    """The reference's sharded apply (`make_sharded_apply` under shard_map)
+    of ``x`` on an ``ms`` mesh of the conftest's virtual CPU devices."""
+    from functools import partial
+
+    from jax.sharding import NamedSharding
+    jp, jw = _jproblem(c)
+    mesh = JMesh(np.array(jax.devices()[:4]).reshape(ms), ("x", "y"))
+    spec_g = jsh._grid_partition_spec(mesh, 2)
+    spec_c = jsh._grid_partition_spec(mesh, 2, lead_dims=1)
+
+    @partial(jax.shard_map, mesh=mesh, in_specs=(spec_c, spec_g), out_specs=spec_g)
+    def body(coeff_l, x_l):
+        return jsh.make_sharded_apply(c.shape, jw, mesh, coeff_l, overlap=overlap)(x_l)
+
+    return np.asarray(jax.jit(body)(jax.device_put(jp.coeff, NamedSharding(mesh, spec_c)),
+                                    jax.device_put(jnp.asarray(x), NamedSharding(mesh, spec_g))))
+
+
+@pytest.mark.parametrize("ms", MESHES, ids=str)
+def test_overlap_apply_equals_sequential(parts, ms):
+    """``overlap=True`` and ``overlap=False`` both take the sequential plain
+    route and give the same bits; both equal the reference's overlapped 2-D
+    apply on the same mesh at the reference's bar between its overlapped and
+    its sequential apply (tests/test_sharded.py:459-490)."""
+    got = {}
+    for j, (m, ov, dt, _) in enumerate(OVERLAP_CASES):
+        if m == ms and dt == torch.float32:
+            ps = parts[OVERLAP0 + j]
+            assert ps[0]["route"] == "sequential"
+            got[ov] = _x(ps, "y")
+    assert np.array_equal(got[True], got[False])
+    want = _reference_apply(C_OVERLAP, X_OVERLAP, ms, overlap=True)
+    np.testing.assert_allclose(got[True], want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
+def test_overlap_apply_float64_operand(parts):
+    """A float64 operand off backend="xla" takes the sequential plain apply
+    (the ext kernels are float32 only; the reference's gate sends it to its
+    overlapped body) and equals the float32 apply to float32 rounding."""
+    ps = parts[-1]
+    assert ps[0]["route"] == "ext"
+    y64 = _x(ps, "y")
+    assert y64.dtype == np.float64
+    j = OVERLAP_CASES.index(((2, 2), False, torch.float32, "xla"))
+    y32 = _x(parts[OVERLAP0 + j], "y")
+    np.testing.assert_allclose(y64, y32, rtol=0, atol=1e-5 * np.abs(y32).max())
 
 
 def test_indivisible_grid_raises():
