@@ -37,6 +37,10 @@ is built (`solve_route`):
   its kernels.
 
 Assembly is batched in every route: one scatter for all lanes.
+
+Each entry runs in an `utils.observe` span named ``batch``: under a
+recording torch profiler the outermost one keeps a record of the batch's
+spans and counters (`utils.observe.batch_records`).
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ from .operators import Problem, assemble_lanes
 from .sdf import PreciseProblem, assemble_precise_lanes
 from .solver import (SolveInfo, _downcast_problem, solve, solve_lanes,
                      solve_refined, solve_refined_lanes)
+from .utils import observe
 from .weights import SolverConfig, Weights
 
 
@@ -174,7 +179,8 @@ def assemble_batch(
     if gradients is None or not with_gradient:
         gradients = None
     _check_lanes(grid, positions, values, gradients, point_weights)
-    return assemble_lanes(grid, weights, positions, values, gradients, point_weights)
+    with observe.span("batch"), observe.span("assemble", positions.device):
+        return assemble_lanes(grid, weights, positions, values, gradients, point_weights)
 
 
 def solve_batch(
@@ -185,11 +191,12 @@ def solve_batch(
     """Solve B problems (BASELINE config 3); ``x0`` warm-starts every lane.
     The dense coarsest level stays while the per-lane inverses fit
     (`_dense_coarsest_ok`). Returns (x [B, *grid], SolveInfo of [B])."""
-    config = _batch_config(problems.grid, config, _lanes(problems))
-    route = solve_route(problems, config)
-    if route == "lanes":
-        return _by_lane(solve, problems, config, x0)
-    return solve_lanes(problems, config, x0, fused=route == "fused")
+    with observe.span("batch"):
+        config = _batch_config(problems.grid, config, _lanes(problems))
+        route = solve_route(problems, config)
+        if route == "lanes":
+            return _by_lane(solve, problems, config, x0)
+        return solve_lanes(problems, config, x0, fused=route == "fused")
 
 
 def solve_refined_batch(
@@ -203,12 +210,13 @@ def solve_refined_batch(
     with its own inner tolerance, rounds and exit. ``x0`` warm-starts every
     lane (the outer float64 loop starts from its true residual, so a good
     start skips whole refinement rounds)."""
-    p32 = problems64.p32 if hasattr(problems64, "p32") else _downcast_problem(problems64)
-    config = _batch_config(p32.grid, config, _lanes(problems64))
-    route = solve_route(p32, config)
-    if route == "lanes":
-        return _by_lane(solve_refined, problems64, config, x0)
-    return solve_refined_lanes(problems64, config, x0, fused=route == "fused")
+    with observe.span("batch"):
+        p32 = problems64.p32 if hasattr(problems64, "p32") else _downcast_problem(problems64)
+        config = _batch_config(p32.grid, config, _lanes(problems64))
+        route = solve_route(p32, config)
+        if route == "lanes":
+            return _by_lane(solve_refined, problems64, config, x0)
+        return solve_refined_lanes(problems64, config, x0, fused=route == "fused")
 
 
 def assemble_precise_batch(
@@ -223,8 +231,9 @@ def assemble_precise_batch(
     with B (`sdf.assemble_precise` on every lane, one float32 and one
     float64 scatter for all lanes)."""
     _check_lanes(grid, positions, values, gradients, point_weights)
-    return assemble_precise_lanes(grid, weights, positions, values, gradients,
-                                  point_weights)
+    with observe.span("batch"), observe.span("assemble", positions.device):
+        return assemble_precise_lanes(grid, weights, positions, values, gradients,
+                                      point_weights)
 
 
 def sdf_from_points_precise_batch(
@@ -239,11 +248,12 @@ def sdf_from_points_precise_batch(
     """B SDF reconstructions, each to a TRUE ≤ tol relative residual against
     its float64 normal equations (batched `sdf.sdf_from_points_precise`).
     Returns (fields [B, *grid] float64, SolveInfo of [B])."""
-    values = torch.zeros(positions.shape[:2], dtype=torch.float32,
-                         device=positions.device)
-    pp = assemble_precise_batch(grid, weights, positions, values, gradients=normals,
-                                point_weights=point_weights)
-    return solve_refined_batch(pp, config, x0)
+    with observe.span("batch"):
+        values = torch.zeros(positions.shape[:2], dtype=torch.float32,
+                             device=positions.device)
+        pp = assemble_precise_batch(grid, weights, positions, values, gradients=normals,
+                                    point_weights=point_weights)
+        return solve_refined_batch(pp, config, x0)
 
 
 def sdf_from_points_batch(
@@ -258,9 +268,10 @@ def sdf_from_points_batch(
     """B SDF reconstructions in float32 (batched `sdf.sdf_from_points`).
     Returns (fields [B, *grid] float32, SolveInfo of [B])."""
     f32 = torch.float32
-    values = torch.zeros(positions.shape[:2], dtype=f32, device=positions.device)
-    problems = assemble_batch(grid, weights, positions.to(f32), values,
-                              gradients=normals.to(f32),
-                              point_weights=None if point_weights is None
-                              else point_weights.to(f32))
-    return solve_batch(problems, config, x0)
+    with observe.span("batch"):
+        values = torch.zeros(positions.shape[:2], dtype=f32, device=positions.device)
+        problems = assemble_batch(grid, weights, positions.to(f32), values,
+                                  gradients=normals.to(f32),
+                                  point_weights=None if point_weights is None
+                                  else point_weights.to(f32))
+        return solve_batch(problems, config, x0)

@@ -33,7 +33,11 @@ segment launch, `ops.pcg.fused_pcg_solve_batch`, per outer round for all
 lanes), `solve_lanes` and `solve_refined_lanes`. Each lane keeps its own
 scalars, iteration count, restarts and rounds, and a lane that stops is
 frozen while the others run; the host reads one flag per iteration (plain
-`pcg_batch`), per segment (fused) or per round for all lanes together.
+`pcg_batch`), per segment (fused) or per round for all lanes together,
+each through `utils.observe.host_read`. Under a recording torch profiler
+they record spans (``mg_setup``, ``refine_round``, ``inner_solve``,
+``segment_round``) and counters (``refine_rounds``, ``lanes_offered``,
+``lanes_working``) into the batch's record (`utils.observe`).
 
 `prepare` builds a problem's multigrid setup once (`multigrid.MGPrep`);
 `solve` and `solve_refined` take it as ``prep=`` and then build nothing
@@ -55,6 +59,7 @@ from .multigrid import (MGPrep, build_fused_solver_operands,
 from .operators import Problem
 from .ops.pcg import fused_pcg_solve, fused_pcg_solve_batch
 from .ops.stencil import fused_normal_apply, fused_normal_apply_batch
+from .utils import observe
 from .weights import SolverConfig
 
 
@@ -443,36 +448,39 @@ def pcg_batch(
 
     r = b - apply_fn(x)
     seg = _segment_open(dot(r, r) > tol2, k, maxiter, segments, max_restarts, progressed)
-    while bool(seg.any()):
-        # Lanes in ``seg`` start a CG segment from their verified residual.
-        k_start = k
-        z = precond_fn(r)
-        p, rz = z, dot(r, z)
-        run = seg & (k < maxiter)
-        while bool(run.any()):
-            on = _on_grid(run, ndim)
-            Ap = apply_fn(p)
-            pAp = dot(p, Ap)
-            alpha = _on_grid(torch.where(pAp > 0, rz / pAp, zero), ndim)
-            x = torch.where(on, x + alpha * p, x)
-            r_new = r - alpha * Ap
-            if recompute_every > 0:
-                refresh = run & ((k + 1) % recompute_every == 0)
-                if bool(refresh.any()):
-                    r_new = torch.where(_on_grid(refresh, ndim), b - apply_fn(x), r_new)
-            r = torch.where(on, r_new, r)
+    while observe.host_read(seg.any()):
+        with observe.span("segment_round"):
+            # Lanes in ``seg`` start a CG segment from their verified residual.
+            k_start = k
             z = precond_fn(r)
-            rz_new = dot(r, z)
-            beta = _on_grid(torch.where(rz > 0, rz_new / rz, zero), ndim)
-            p = torch.where(on, z + beta * p, p)
-            rz = torch.where(run, rz_new, rz)
-            k = k + run.to(torch.int32)
-            run = run & (dot(r, r) > tol2) & (k < maxiter)
-        r = torch.where(_on_grid(seg, ndim), b - apply_fn(x), r)  # verify the exits
-        segments = segments + seg.to(torch.int32)
-        progressed = torch.where(seg, k > k_start, progressed)
-        seg = _segment_open(dot(r, r) > tol2, k, maxiter, segments, max_restarts,
-                            progressed)
+            p, rz = z, dot(r, z)
+            run = seg & (k < maxiter)
+            while observe.host_read(run.any()):
+                observe.count("lanes_offered", B)
+                observe.count("lanes_working", run)
+                on = _on_grid(run, ndim)
+                Ap = apply_fn(p)
+                pAp = dot(p, Ap)
+                alpha = _on_grid(torch.where(pAp > 0, rz / pAp, zero), ndim)
+                x = torch.where(on, x + alpha * p, x)
+                r_new = r - alpha * Ap
+                if recompute_every > 0:
+                    refresh = run & ((k + 1) % recompute_every == 0)
+                    if observe.host_read(refresh.any()):
+                        r_new = torch.where(_on_grid(refresh, ndim), b - apply_fn(x), r_new)
+                r = torch.where(on, r_new, r)
+                z = precond_fn(r)
+                rz_new = dot(r, z)
+                beta = _on_grid(torch.where(rz > 0, rz_new / rz, zero), ndim)
+                p = torch.where(on, z + beta * p, p)
+                rz = torch.where(run, rz_new, rz)
+                k = k + run.to(torch.int32)
+                run = run & (dot(r, r) > tol2) & (k < maxiter)
+            r = torch.where(_on_grid(seg, ndim), b - apply_fn(x), r)  # verify the exits
+            segments = segments + seg.to(torch.int32)
+            progressed = torch.where(seg, k > k_start, progressed)
+            seg = _segment_open(dot(r, r) > tol2, k, maxiter, segments, max_restarts,
+                                progressed)
     return x, _exit_info(dot(r, r), b_norm2, tol2, k, _tiny(b))
 
 
@@ -506,17 +514,22 @@ def _pcg_fused_batch(ops, b: torch.Tensor, x0: Optional[torch.Tensor], *, tol,
     segments = torch.zeros_like(k)
     progressed = torch.ones(B, dtype=torch.bool, device=dev)
     active = _segment_open(dot(r, r) > tol2, k, maxiter, segments, max_restarts, progressed)
-    while bool(active.any()):
-        budget = torch.where(active, maxiter - k, 0).to(torch.int32)
-        x, iters, _ = fused_pcg_solve_batch(x, r.contiguous(), tol2_s, budget, coeffs, sids,
-                                            Rs, inv32, lw, nu, cheb_coefs=cfs,
-                                            wdepth=wdepth)
-        k = k + iters
-        r = torch.where(_on_grid(active, 2), b - apply_f(x), r)  # verify (see pcg)
-        segments = segments + active.to(torch.int32)
-        progressed = torch.where(active, iters > 0, progressed)
-        active = _segment_open(dot(r, r) > tol2, k, maxiter, segments, max_restarts,
-                               progressed)
+    while observe.host_read(active.any()):
+        with observe.span("segment_round"):
+            budget = torch.where(active, maxiter - k, 0).to(torch.int32)
+            x, iters, _ = fused_pcg_solve_batch(x, r.contiguous(), tol2_s, budget, coeffs,
+                                                sids, Rs, inv32, lw, nu, cheb_coefs=cfs,
+                                                wdepth=wdepth)
+            # The lanes that iterated are read later from the counts before
+            # and after the launch, tensors the loop makes anyway: no new op.
+            k_before, k = k, k + iters
+            observe.count("lanes_offered", B)
+            observe.count("lanes_working", k, before=k_before)
+            r = torch.where(_on_grid(active, 2), b - apply_f(x), r)  # verify (see pcg)
+            segments = segments + active.to(torch.int32)
+            progressed = torch.where(active, iters > 0, progressed)
+            active = _segment_open(dot(r, r) > tol2, k, maxiter, segments, max_restarts,
+                                   progressed)
     return x, _exit_info(dot(r, r), b_norm2, tol2, k, _tiny(b))
 
 
@@ -554,14 +567,16 @@ def solve_lanes(problem: Problem, config: SolverConfig, x0: Optional[torch.Tenso
     batched apply and the preconditioner of all lanes at once (Jacobi, none,
     or the multigrid cycle on lanes: each smoothing phase or whole cycle one
     kernel call for every lane, `multigrid.make_vcycle_preconditioner`)."""
-    ops = _lanes_ops(problem, config, fused)
+    with observe.span("mg_setup", problem.b.device):
+        ops = _lanes_ops(problem, config, fused)
+        if ops is None:
+            apply_fn = _make_apply_lanes(problem, config)
+            precond = _make_precond(problem, config, apply_fn)
     if ops is not None:
         return _pcg_fused_batch(ops, problem.b, x0, tol=config.tol, maxiter=config.maxiter,
                                 max_restarts=config.max_restarts, nu=config.mg_pre_smooth,
                                 wdepth=resolve_wdepth(config, problem.grid.shape))
-    apply_fn = _make_apply_lanes(problem, config)
-    return pcg_batch(apply_fn, problem.b, x0=x0,
-                     precond_fn=_make_precond(problem, config, apply_fn),
+    return pcg_batch(apply_fn, problem.b, x0=x0, precond_fn=precond,
                      ndim=problem.grid.ndim, tol=config.tol, maxiter=config.maxiter,
                      recompute_every=config.recompute_every,
                      max_restarts=config.max_restarts)
@@ -578,16 +593,17 @@ def solve_refined_lanes(problem64, config: SolverConfig,
     reads one flag per round."""
     p32, residual64, apply_delta, b64 = _refined_parts(problem64)
     ndim = p32.grid.ndim
-    ops = _lanes_ops(p32, config, fused)
-    if ops is None:
-        apply32 = _make_apply_lanes(p32, config)
-        precond = _make_precond(p32, config, apply32)
+    B, dev = b64.shape[0], b64.device
+    with observe.span("mg_setup", dev):
+        ops = _lanes_ops(p32, config, fused)
+        if ops is None:
+            apply32 = _make_apply_lanes(p32, config)
+            precond = _make_precond(p32, config, apply32)
     wdepth = resolve_wdepth(config, p32.grid.shape)
 
     def dot(u, v):
         return _lane_dot(u, v, ndim)
 
-    B, dev = b64.shape[0], b64.device
     bnorm2 = torch.clamp_min(dot(b64, b64), torch.finfo(torch.float64).tiny)
     tol2 = config.tol * config.tol * bnorm2
     if x0 is None:
@@ -609,23 +625,28 @@ def solve_refined_lanes(problem64, config: SolverConfig,
                          max_restarts=1)
 
     # Round 1 (peeled) for every lane, then the one full float64 residual.
-    d32, info = inner(r, rr, torch.ones(B, dtype=torch.bool, device=dev))
-    iters = info.iterations
-    x = x + d32.to(torch.float64)
-    r = residual64(x)
-    rr = dot(r, r)
-    rounds = torch.ones(B, dtype=torch.int32, device=dev)
-    active = (rr > tol2) & (rounds < config.refine_rounds)
-    while bool(active.any()):
-        d32, info = inner(r, rr, active)
-        d64 = d32.to(torch.float64)
-        on = _on_grid(active, ndim)
-        x = torch.where(on, x + d64, x)
-        r = torch.where(on, r - apply_delta(d64), r)  # incremental
-        rr = torch.where(active, dot(r, r), rr)
-        iters = iters + torch.where(active, info.iterations, 0)
-        rounds = rounds + active.to(torch.int32)
+    with observe.span("refine_round", dev):
+        with observe.span("inner_solve", dev):
+            d32, info = inner(r, rr, torch.ones(B, dtype=torch.bool, device=dev))
+        iters = info.iterations
+        x = x + d32.to(torch.float64)
+        r = residual64(x)
+        rr = dot(r, r)
+        rounds = torch.ones(B, dtype=torch.int32, device=dev)
         active = (rr > tol2) & (rounds < config.refine_rounds)
+    while observe.host_read(active.any()):
+        with observe.span("refine_round", dev):
+            with observe.span("inner_solve", dev):
+                d32, info = inner(r, rr, active)
+            d64 = d32.to(torch.float64)
+            on = _on_grid(active, ndim)
+            x = torch.where(on, x + d64, x)
+            r = torch.where(on, r - apply_delta(d64), r)  # incremental
+            rr = torch.where(active, dot(r, r), rr)
+            iters = iters + torch.where(active, info.iterations, 0)
+            rounds = rounds + active.to(torch.int32)
+            active = (rr > tol2) & (rounds < config.refine_rounds)
+    observe.count("refine_rounds", rounds)
     rel = torch.sqrt(rr / bnorm2)
     return x, SolveInfo(iterations=iters.to(torch.int32), rel_residual=rel.to(torch.float32),
                         converged=rel <= config.tol)

@@ -3,11 +3,16 @@
 from .observe import (
     PhaseCost,
     SolveRecord,
+    batch_records,
+    clear_records,
     cost_table,
+    count,
+    host_read,
     measure_marginal,
     op_cost,
     record_solve,
     roofline_bytes_per_apply,
+    span,
     timed_block,
     vcycle_applies_per_iteration,
 )
@@ -15,11 +20,16 @@ from .observe import (
 __all__ = [
     "PhaseCost",
     "SolveRecord",
+    "batch_records",
+    "clear_records",
     "cost_table",
+    "count",
+    "host_read",
     "measure_marginal",
     "op_cost",
     "record_solve",
     "roofline_bytes_per_apply",
+    "span",
     "timed_block",
     "vcycle_applies_per_iteration",
 ]

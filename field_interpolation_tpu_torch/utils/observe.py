@@ -7,6 +7,10 @@ the chained marginal timer, and per-phase cost tables. The reference's
 ``xla_cost`` reads XLA's compiled cost model, which torch has not; `op_cost`
 takes its place by counting the aten ops of one run of the phase.
 
+Inside the batched solve, `span`, `count` and `host_read` record each
+batch's spans and counters while a torch profiler is recording, and cost
+one attribute check otherwise (`batch_records`).
+
 The rates are one NVIDIA H100's (SXM, NVIDIA's data sheet): 3.35 TB/s of
 HBM and 67 TFLOP/s of float32 outside the tensor cores, at its full 700 W
 power limit; a card set below it runs slower (``nvidia-smi
@@ -15,13 +19,16 @@ power limit; a card set below it runs slower (``nvidia-smi
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
+import itertools
 import json
 import time
 from typing import Optional, TextIO
 
 import torch
+from torch.autograd import profiler as _torch_profiler
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
@@ -280,3 +287,157 @@ def record_solve(grid: Grid, info, wall_ms: float, *,
     if stream is not None:
         print(rec.to_json(), file=stream, flush=True)
     return rec
+
+
+# ------------------------------------------------ spans inside the batched solve
+#
+# The switch is a torch profiler recording (`torch.profiler.profile`): with
+# none, `span` returns one shared object that does nothing, `count` returns
+# and `host_read` is `bool`, after one attribute check each. With one, the
+# outermost span opens a record of its batch; spans and counters land in
+# it, and it is kept when that span closes. Recording launches no kernel or
+# copy and waits for nothing: a span's host times are the profiler's clock
+# (Unix-epoch nanoseconds, `time.time_ns`), its device time a pair of CUDA
+# timing events on the current stream, read only by `batch_records`, and a
+# tensor counter is kept by reference and summed only there.
+
+KEPT_BATCHES = 64
+
+
+# The span of a run that no profiler records.
+_OFF = contextlib.nullcontext()
+
+
+class _Recorder:
+    """The records of the last `KEPT_BATCHES` batches, and the one open now
+    with its open spans (outermost first). One per process."""
+
+    def __init__(self):
+        self.records = collections.deque(maxlen=KEPT_BATCHES)
+        self.record = None
+        self.open = []
+        self.span_ids = itertools.count(1)
+        self.batch_ids = itertools.count(1)
+
+
+_REC = _Recorder()
+
+
+class _Span:
+    __slots__ = ("name", "device", "entry", "stream", "events", "fn")
+
+    def __init__(self, name: str, device):
+        self.name, self.device = name, device
+
+    def __enter__(self):
+        rec = _REC
+        if rec.record is None:
+            rec.record = {"batch": next(rec.batch_ids), "spans": [], "counters": {},
+                          "events": {}, "pending": []}
+        e = self.entry = {"name": self.name, "id": next(rec.span_ids),
+                          "parent": rec.open[-1]["id"] if rec.open else None,
+                          "batch": rec.record["batch"], "start_ns": None, "end_ns": None,
+                          "device_ms": None}
+        rec.record["spans"].append(e)
+        rec.open.append(e)
+        cuda = self.device is not None and torch.device(self.device).type == "cuda"
+        self.stream = torch.cuda.current_stream(self.device) if cuda else None
+        self.events = None
+        self.fn = torch.profiler.record_function(f"fi.{self.name}")
+        e["start_ns"] = time.time_ns()
+        self.fn.__enter__()
+        if self.stream is not None:
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+            self.events[0].record(self.stream)
+        return self
+
+    def __exit__(self, *exc):
+        rec, e = _REC, self.entry
+        if self.events is not None:
+            self.events[1].record(self.stream)
+            rec.record["events"][e["id"]] = self.events
+        self.fn.__exit__(*exc)
+        e["end_ns"] = time.time_ns()
+        rec.open.pop()
+        if not rec.open:
+            rec.records.append(rec.record)
+            rec.record = None
+        return False
+
+
+def span(name: str, device=None):
+    """A context manager recording span ``name`` of the open batch (its id,
+    parent span and batch id, host start and end in ns on the profiler's
+    clock) inside ``torch.profiler.record_function("fi.<name>")``; the
+    outermost span opens the batch's record. With ``device`` a CUDA device,
+    also the span's device ms between two timing events on its current
+    stream. Without a recording profiler: one shared object doing
+    nothing."""
+    if not _torch_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, device)
+
+
+def count(name: str, value, before: Optional[torch.Tensor] = None) -> None:
+    """Add ``value`` to counter ``name`` of the open batch record: a Python
+    int, or a tensor kept by reference and summed when read; with
+    ``before``, the number of elements in which ``value`` exceeds it. Does
+    nothing without a recording profiler or an open record."""
+    if not _torch_profiler._is_profiler_enabled:
+        return
+    rec = _REC.record
+    if rec is None:
+        return
+    counters = rec["counters"]
+    if isinstance(value, int) and before is None:
+        counters[name] = counters.get(name, 0) + value
+    else:
+        counters.setdefault(name, 0)
+        rec["pending"].append((name, value, before))
+
+
+def host_read(flag: torch.Tensor) -> bool:
+    """``bool(flag)``: the one way the batched solve's loops block on a
+    device flag. Recorded as a ``host_read`` span and counted in
+    ``host_syncs`` while a profiler records a batch."""
+    if not _torch_profiler._is_profiler_enabled or _REC.record is None:
+        return bool(flag)
+    with _Span("host_read", None):
+        out = bool(flag)
+    count("host_syncs", 1)
+    return out
+
+
+def _settle(record: dict) -> None:
+    """Read a record's device times and sum its tensor counters, once."""
+    spans = {s["id"]: s for s in record["spans"]}
+    for sid, (start, end) in record["events"].items():
+        end.synchronize()
+        spans[sid]["device_ms"] = start.elapsed_time(end)
+    record["events"] = {}
+    counters = record["counters"]
+    for name, value, before in record["pending"]:
+        hits = value if before is None else value > before
+        counters[name] += int(hits.sum())
+    record["pending"] = []
+
+
+def batch_records() -> list[dict]:
+    """The records of the last `KEPT_BATCHES` batches that ran under a
+    recording profiler, oldest first, as plain dicts: ``batch`` (its id),
+    ``spans`` (each ``name``, ``id``, ``parent``, ``batch``, ``start_ns``,
+    ``end_ns``, ``device_ms``: None for a host span) and ``counters`` (name
+    → int)."""
+    out = []
+    for record in _REC.records:
+        _settle(record)
+        out.append({"batch": record["batch"],
+                    "spans": [dict(s) for s in record["spans"]],
+                    "counters": dict(record["counters"])})
+    return out
+
+
+def clear_records() -> None:
+    """Forget every kept batch record."""
+    _REC.records.clear()
