@@ -49,6 +49,11 @@ tol 1e-4 from zero, the operands of ``chip_smoke.py`` phase 38's "config 3,
 every lane"), and reads the ptxas registers and spills of the batched
 kernel from its build. Prints each run's record, then per measurement each
 side's median and B/A, and the iterations of config 3's batch on each side.
+A's first run also solves one batch of the benchmark's cell
+``c3-b1024-true1e-6`` (its inputs from seed `BITS_SEED`) and saves each
+segment launch's operands and x, iterations and ‖r‖² (``--bits``); B's first
+run launches its segment on those operands (``--replay``) and compares its
+outputs with A's by ``torch.equal``.
 
 ``--split``: where a lane-iteration's time goes. One-line variants of the
 lane body (``csrc/lane2d.cuh``, the ``SPLIT`` table: ``fine_only``, the
@@ -83,6 +88,7 @@ SCALING = {(128, 128): [1, 8, 66, 132, 264, 396, 528, 660, 792, 1024],
 BUDGET = 8
 AB_SCALING = {(128, 128): [1, 8, 396, 1024], (256, 256): [1, 396]}
 ORDER = "ABBABAAB"
+BITS_CELL, BITS_SEED = "c3-b1024-true1e-6", 2**33 + 12345
 # One-line variants of csrc/lane2d.cuh for --split: (old, new) substitutions.
 SPLIT = {
     "fine_only": [
@@ -208,10 +214,59 @@ def config3_segment(cs, ft, device):
     return dict(ms=ms, iterations_sum=int(iters.sum()), iterations_max=int(iters.max()))
 
 
-def measure(tree, lane=None, config3=True):
+def _moved(v, device):
+    """``v`` with every tensor in it (inside lists and tuples) on ``device``."""
+    import torch
+    if isinstance(v, torch.Tensor):
+        return v.to(device)
+    if isinstance(v, (list, tuple)):
+        return type(v)(_moved(u, device) for u in v)
+    return v
+
+
+def cell_bits(device, path, replay):
+    """The batched segment on BITS_CELL's operands. Without ``replay``: one
+    batch of the cell through the tree's entry point (the benchmark's
+    inputs, grid, weights and solver), each segment launch's operands and
+    outputs (x, iters, rr) saved to ``path`` on the CPU (the card's assembly
+    adds in no fixed order, so two processes' operands differ). With it:
+    each saved launch again, on its operands, through this tree's segment,
+    and whether every output is ``torch.equal`` to the saved one."""
+    import torch
+    from field_interpolation_tpu_torch import solver
+    if replay:
+        saved = torch.load(path, weights_only=False)  # written by this script
+        equal = []
+        for args, kw, outs in saved:
+            got = solver.fused_pcg_solve_batch(*_moved(args, device), **_moved(kw, device))
+            equal.append(all(torch.equal(g.cpu(), o) for g, o in zip(got, outs)))
+        return dict(launches=len(equal), equal=equal)
+    sys.path.insert(0, str(HERE))
+    from benchmark.cells import Cell, load_benchmark, module
+    from benchmark.traffic import make_pool
+    cell = Cell(load_benchmark(HERE), BITS_CELL)
+    program = module("adapters", cell.traffic["adapter"]).Program(cell)
+    pts, nrm = make_pool(cell.config, dict(cell.traffic, pool_batches=1), BITS_SEED, device)[0]
+    launches, real = [], solver.fused_pcg_solve_batch
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        launches.append((_moved(args, "cpu"), _moved(kw, "cpu"), _moved(out, "cpu")))
+        return out
+    solver.fused_pcg_solve_batch = spy
+    try:
+        _, conv, iters = program(pts, nrm)
+    finally:
+        solver.fused_pcg_solve_batch = real
+    torch.save(launches, path)
+    return dict(launches=len(launches), iterations_sum=int(iters.sum()),
+                converged=bool(conv.all()))
+
+
+def measure(tree, lane=None, config3=True, bits=None, replay=False):
     """One tree's batched segment: the AB_SCALING points and config 3's
-    batch, back to back (``lane``: the geometry, where the tree has one);
-    returns the record."""
+    batch, back to back (``lane``: the geometry, where the tree has one),
+    and with ``bits`` `cell_bits`; returns the record."""
     sys.path.insert(0, str(tree))
     import torch
     import field_interpolation_tpu_torch as ft
@@ -233,6 +288,8 @@ def measure(tree, lane=None, config3=True):
         rec[f"{r['grid'][0]}_B{r['lanes']}"] = r["ms"]
     if config3:
         rec["config3"] = config3_segment(cs, ft, device)
+    if bits:
+        rec["bits"] = cell_bits(device, bits, replay)
     return rec
 
 
@@ -283,10 +340,14 @@ def split():
 def ab(other):
     """Run ``other`` (A) and this tree (B) as A B B A B A A B; print each run and the table."""
     runs = []
-    for side in ORDER:
+    bits = HERE / "build" / "batch_probe" / "bits.pt"
+    bits.parent.mkdir(parents=True, exist_ok=True)
+    for i, side in enumerate(ORDER):
         tree = other if side == "A" else HERE
+        first = (["--bits", str(bits)] + (["--replay"] if side == "B" else [])
+                 if ORDER.index(side) == i else [])
         proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--tree",
-                               str(tree)], capture_output=True, text=True, timeout=900)
+                               str(tree)] + first, capture_output=True, text=True, timeout=900)
         sys.stderr.write(proc.stderr[-4000:])
         if proc.returncode:
             raise SystemExit(f"batch_probe FAILED: the run of {tree} exited "
@@ -311,6 +372,9 @@ def ab(other):
         its = {(r["config3"]["iterations_sum"], r["config3"]["iterations_max"])
                for r in runs if r["side"] == side}
         print(f"config 3 iterations (sum, max) {side}: {sorted(its)}")
+    got = [r["bits"] for r in runs if "bits" in r]
+    print(f"{BITS_CELL}, seed {BITS_SEED}: A's batch {got[0]}; B on A's segment operands, "
+          f"x, iterations and ‖r‖² torch.equal per launch: {got[1]['equal']}")
 
 
 def main():
@@ -322,6 +386,10 @@ def main():
     ap.add_argument("--tree", type=Path, help="the tree whose batched segment to time alone")
     ap.add_argument("--split", action="store_true", help="time the lane body's variants")
     ap.add_argument("--no-config3", action="store_true", help="--tree: the scaling points alone")
+    ap.add_argument("--bits", help="--tree: also save the cell batch's segment operands and "
+                    "outputs to this file")
+    ap.add_argument("--replay", action="store_true",
+                    help="--bits: launch the saved operands and compare with the saved outputs")
     ap.add_argument("--out", default=str(HERE / "build" / "batch_probe.json"))
     args = ap.parse_args()
     if args.ab:
@@ -332,7 +400,8 @@ def main():
         return 0
     lane = tuple(int(v) for v in args.lane.split(",")) if args.lane else None
     if args.tree:
-        print(json.dumps(measure(args.tree.resolve(), lane, not args.no_config3)))
+        print(json.dumps(measure(args.tree.resolve(), lane, not args.no_config3, args.bits,
+                                 args.replay)))
         return 0
     both = not (args.crossover or args.scaling)
     cs = helpers()

@@ -15,6 +15,11 @@
 //   (16-byte loads away from the grid's edge, guarded loads near it), every
 //   load of the window and the run's data planes issued before any is used,
 //   with normal_apply.cuh:apply_at's arithmetic node by node;
+// - level 0's data term is zero but at the corners of cells that hold a
+//   point (~6% of config 3's runs), so a run mask in shared memory, built
+//   once a launch, lets each level-0 apply load the nine data planes and do
+//   their multiply-adds only at the runs that hold data (a warp whose 32
+//   runs hold none skips them); the bits are the same;
 // - the transfers' bands and weights sit in shared memory (built once per
 //   launch), and so do the vectors, D⁻¹ and data of the coarse levels that
 //   fit the block's share (the host's plan), and level 0's residual;
@@ -68,6 +73,9 @@ struct Lane {
     float* p;
     int* iters_out;
     float* rr_out;
+    unsigned* mask;                  // level 0's run mask (mark_runs)
+    int runs;                        // its set bits
+    int* runs_out;
     float tol2;
     int budget;
     float red[kSlots][32];           // virtual warp sums of the dot products
@@ -83,13 +91,19 @@ __host__ __device__ __forceinline__ int level_words(const Level& lv) {
     const int n = nodes(lv);
     return 5 * round4(n) + round4(lv.op.diag ? n : 9 * n);
 }
+__host__ __device__ __forceinline__ int runs_per_row(int n1) { return (n1 + kRun - 1) / kRun; }
+// Level 0's run mask: bit q is run q of for_runs' order (row-major).
+__host__ __device__ __forceinline__ int mask_words(const Level& lv) {
+    return round4((lv.op.n0 * runs_per_row(lv.op.n1) + 31) / 32);
+}
 
 // Offsets (in floats) into the dynamic shared memory: the bands of every
-// transfer, then each planned coarse level (r, za, zb, az, sid, data), then
-// level 0's residual buffer when planned. The host sizes the launch with
-// it, the kernel places its arrays with it.
+// transfer, level 0's run mask, then each planned coarse level (r, za, zb,
+// az, sid, data), then level 0's residual buffer when planned. The host
+// sizes the launch with it, the kernel places its arrays with it.
 struct Layout {
     int band[kMaxLevels - 1][2];
+    int mask;
     int level[kMaxLevels];   // -1: in global memory
     int az0;                 // -1: in global memory
     int words;
@@ -106,6 +120,8 @@ __host__ __device__ inline Layout plan_layout(const Cycle& c, unsigned smem_leve
         o.band[t][1] = w;
         w += band_words(f.n1, k.n1);
     }
+    o.mask = w;
+    w += mask_words(c.lv[0]);
     for (int l = 0; l < c.L; ++l) {
         o.level[l] = -1;
         if (l > 0 && ((smem_levels >> l) & 1u)) {
@@ -247,11 +263,14 @@ __device__ __forceinline__ float4 ld4_in(const float* __restrict__ x, int base, 
 // grid's bounds on the others. Then node by node normal_apply.cuh's
 // apply_at arithmetic with x from the window: the smoothness order by order
 // through axis_normal's windows, then + the data term in offset_list order,
-// pairs that leave the grid skipped.
+// pairs that leave the grid skipped. With a run mask (level 0), a run whose
+// bit is clear skips the data term: its coefficients are zeros, whose
+// products would sum to +0 for a finite x, so the bits are the same.
 template <int R, bool D>
 __device__ __forceinline__ float4 apply_run(const ApplyOp& op, const float* __restrict__ x,
                                             int i0, int j, int base, int cnt, bool inner,
-                                            bool vec, float4& xc) {
+                                            bool vec, const unsigned* __restrict__ mask,
+                                            float4& xc) {
     const int n0 = op.n0, n1 = op.n1;
     const float* w2 = op.w2;
     float row[12];  // row i0, columns j-4 .. j+7
@@ -314,26 +333,31 @@ __device__ __forceinline__ float4 apply_run(const ApplyOp& op, const float* __re
             s += w2[3] * (axis_normal<4>(along0, i0, n0) + axis_normal<4>(along1, i1, n1));
         at(out, k) = s;
     }
-    const float4 c4 = ld4(cf, 0, vec, cnt);
     if (D) {
+        const float4 c4 = ld4(cf, 0, vec, cnt);
 #pragma unroll
         for (int k = 0; k < 4; ++k) at(out, k) += at(c4, k) * row[4 + k];
         return out;
     }
+    const int q = i0 * runs_per_row(n1) + j / kRun;
+    const bool has = mask == nullptr || ((mask[q >> 5] >> (q & 31)) & 1u);
     // Data rows i0 ± 1 over columns j-1 .. j+4.
     const float um[6] = {ue0, u1.x, u1.y, u1.z, u1.w, ue5};
     const float dm[6] = {de0, d1.x, d1.y, d1.z, d1.w, de5};
     float4 data = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (has) {
 #pragma unroll
-    for (int o = 0; o < 9; ++o) {
-        const float4 co = o == 0 ? c4 : ld4(cf, o * N, vec, cnt);
-        const int d0 = o / 3 - 1, dd = o % 3 - 1;
+        for (int o = 0; o < 9; ++o) {
+            const float4 co = ld4(cf, o * N, vec, cnt);
+            const int d0 = o / 3 - 1, dd = o % 3 - 1;
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-            const int r0 = i0 + d0, r1 = j + k + dd;
-            if (!inner && (r0 < 0 || r0 >= n0 || r1 < 0 || r1 >= n1)) continue;
-            const float xv = d0 < 0 ? um[1 + k + dd] : (d0 > 0 ? dm[1 + k + dd] : row[4 + k + dd]);
-            at(data, k) += at(co, k) * xv;
+            for (int k = 0; k < 4; ++k) {
+                const int r0 = i0 + d0, r1 = j + k + dd;
+                if (!inner && (r0 < 0 || r0 >= n0 || r1 < 0 || r1 >= n1)) continue;
+                const float xv = d0 < 0 ? um[1 + k + dd]
+                               : (d0 > 0 ? dm[1 + k + dd] : row[4 + k + dd]);
+                at(data, k) += at(co, k) * xv;
+            }
         }
     }
 #pragma unroll
@@ -366,6 +390,7 @@ __device__ void sweep(Lane& L, int l, const float* zin, const float* zprev, floa
                       int k, bool want_dot) {
     const Level lv = L.cyc.lv[l];
     const bool vec = L.vec[l];
+    const unsigned* mask = l == 0 ? L.mask : nullptr;
     const bool cheb = lv.cf != nullptr;
     const float c1 = cheb ? lv.cf[2 * k] : 0.f;
     const float c2 = cheb ? lv.cf[2 * k + 1] : 1.f;
@@ -384,7 +409,8 @@ __device__ void sweep(Lane& L, int l, const float* zin, const float* zprev, floa
                 const float4 zp = (cheb && zprev) ? ld4(zprev, base, vec, cnt)
                                                   : make_float4(0.f, 0.f, 0.f, 0.f);
                 float4 zi;
-                const float4 ax = apply_run<R, D>(lv.op, zin, i0, j, base, cnt, inner, vec, zi);
+                const float4 ax = apply_run<R, D>(lv.op, zin, i0, j, base, cnt, inner, vec,
+                                                  mask, zi);
 #pragma unroll
                 for (int q = 0; q < 4; ++q) {
                     const float res = at(sid, q) * (at(r, q) - at(ax, q));
@@ -407,13 +433,14 @@ template <int T>
 __device__ void residual(Lane& L, int l, const float* z) {
     const Level lv = L.cyc.lv[l];
     const bool vec = L.vec[l];
+    const unsigned* mask = l == 0 ? L.mask : nullptr;
     dispatch(L.reach[l], lv.op.diag, [&](auto RR, auto DD) {
         constexpr int R = decltype(RR)::value;
         constexpr bool D = decltype(DD)::value;
         for_runs<T>(lv.op, R, [&](int i0, int j, int base, int cnt, bool inner) {
             const float4 r = ld4(lv.r, base, vec, cnt);
             float4 zc;
-            const float4 ax = apply_run<R, D>(lv.op, z, i0, j, base, cnt, inner, vec, zc);
+            const float4 ax = apply_run<R, D>(lv.op, z, i0, j, base, cnt, inner, vec, mask, zc);
             float4 res;
 #pragma unroll
             for (int q = 0; q < 4; ++q) at(res, q) = at(r, q) - at(ax, q);
@@ -428,13 +455,14 @@ template <int T>
 __device__ void residual_update(Lane& L, int l, const float* z) {
     const Level lv = L.cyc.lv[l];
     const bool vec = L.vec[l];
+    const unsigned* mask = l == 0 ? L.mask : nullptr;
     dispatch(L.reach[l], lv.op.diag, [&](auto RR, auto DD) {
         constexpr int R = decltype(RR)::value;
         constexpr bool D = decltype(DD)::value;
         for_runs<T>(lv.op, R, [&](int i0, int j, int base, int cnt, bool inner) {
             const float4 r = ld4(lv.r, base, vec, cnt);
             float4 zc;
-            const float4 ax = apply_run<R, D>(lv.op, z, i0, j, base, cnt, inner, vec, zc);
+            const float4 ax = apply_run<R, D>(lv.op, z, i0, j, base, cnt, inner, vec, mask, zc);
             float4 out;
 #pragma unroll
             for (int q = 0; q < 4; ++q) at(out, q) = at(r, q) - at(ax, q);
@@ -623,9 +651,38 @@ __device__ const float* cycle(Lane& L, bool z0_first) {
     }
 }
 
+// Level 0's run mask: bit q of L.mask is set where run q holds a nonzero
+// data coefficient (NaN included); a warp writes one word at a time, and
+// L.runs counts the set bits.
+template <int T>
+__device__ void mark_runs(Lane& L) {
+    const ApplyOp& op = L.cyc.lv[0].op;
+    const bool vec = L.vec[0];
+    const int n1 = op.n1, N = op.n0 * n1;
+    const int rpr = runs_per_row(n1), runs = op.n0 * rpr;
+    for (int w = threadIdx.x >> 5; 32 * w < runs; w += T / 32) {
+        const int q = 32 * w + (threadIdx.x & 31);
+        bool data = false;
+        if (q < runs) {
+            const int i0 = q / rpr, j = (q - i0 * rpr) * kRun;
+            const int base = i0 * n1 + j, cnt = min(kRun, n1 - j);
+#pragma unroll
+            for (int o = 0; o < 9; ++o) {
+                const float4 c = ld4(op.coeff, o * N + base, vec, cnt);
+                data |= (c.x != 0.f) | (c.y != 0.f) | (c.z != 0.f) | (c.w != 0.f);
+            }
+        }
+        const unsigned word = __ballot_sync(0xffffffffu, data);
+        if ((threadIdx.x & 31) == 0) {
+            L.mask[w] = word;
+            atomicAdd(&L.runs, __popc(word));
+        }
+    }
+}
+
 // The segment on one lane (pcg_segment.cu:segment's loop and exits). Level
 // 0's sweep 0 from zero is written by the phases that write r, so the
-// cycle starts at sweep 1.
+// cycle starts at sweep 1. A lane that runs a cycle marks its runs first.
 template <int T>
 __device__ void segment(Lane& L) {
     const Level l0 = L.cyc.lv[0];
@@ -652,6 +709,10 @@ __device__ void segment(Lane& L) {
     put<T>(L, kRR, acc);
     __syncthreads();
     float rr = total(L, kRR);
+    if (rr > tol2 && budget > 0) {
+        mark_runs<T>(L);
+        __syncthreads();
+    }
     float rz = 0.f;
     int k = 0;
     for (;; ++k) {
@@ -678,7 +739,7 @@ __device__ void segment(Lane& L) {
             for_runs<T>(l0.op, R, [&](int i0, int j, int base, int cnt, bool inner) {
                 float4 pv;
                 const float4 ap = apply_run<R, false>(l0.op, L.p, i0, j, base, cnt,
-                                                      inner, vec, pv);
+                                                      inner, vec, L.mask, pv);
                 st4(l0.az, base, vec, cnt, ap);
                 for (int q = 0; q < cnt; ++q) pap_acc.cur() += at(pv, q) * at(ap, q);
                 pap_acc.next();
@@ -716,6 +777,7 @@ __device__ void segment(Lane& L) {
     if (threadIdx.x == 0) {
         *L.iters_out = k;
         *L.rr_out = rr;
+        *L.runs_out = L.runs;
     }
 }
 
@@ -725,9 +787,10 @@ __device__ __forceinline__ bool aligned16(const void* p) {
     return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-// Thread 0: the lane's pointers in shared memory (levels and buffers the
-// plan puts there), and per level its alignment and reach. `glob` gets the
-// global data and D⁻¹ of each level moved to shared memory (for the copy).
+// Thread 0: the lane's pointers in shared memory (level 0's run mask, and
+// the levels and buffers the plan puts there), and per level its alignment
+// and reach. `glob` gets the global data and D⁻¹ of each level moved to
+// shared memory (for the copy).
 __device__ inline void place(Lane& L, float* dyn, const Layout& lay, const float** glob) {
     Cycle& c = L.cyc;
     for (int t = 0; t < c.L - 1; ++t) {
@@ -745,6 +808,8 @@ __device__ inline void place(Lane& L, float* dyn, const Layout& lay, const float
             b.pw = w + 2 * round4(nf);
         }
     }
+    L.mask = reinterpret_cast<unsigned*>(dyn + lay.mask);
+    L.runs = 0;
     for (int l = 0; l < c.L; ++l) {
         Level& lv = c.lv[l];
         const int n = nodes(lv);

@@ -49,12 +49,14 @@
 // What bounded the first form (one block of 256 threads a lane, a node a
 // thread per stride step, every load chained through global memory): each
 // block's own latency, 1.12 ms a 128² lane-iteration.
-// What bounds it now (batch_probe.py --split on the H100): the fine level's
-// nine data planes, which each of an iteration's seven applies streams. Read
-// as one plane they leave 0.41 of a 128² lane-iteration's time at 1024 lanes
-// and 0.56 at one; the coarse levels take 0.11. The kernel is at a few
-// percent of its operations bound: a design that read each data plane once
-// an iteration, not once an apply, is the next step.
+// What bounded the second (batch_probe.py --split on the H100): the fine
+// level's nine data planes, which each of an iteration's seven applies
+// streamed. Read as one plane they left 0.41 of a 128² lane-iteration's time
+// at 1024 lanes and 0.56 at one; the coarse levels take 0.11. The planes are
+// zero but where a cell holds a point, so each launch marks the runs of four
+// nodes that hold data in a bit mask in shared memory, and the applies load
+// the planes and do their multiply-adds only there (config 3's batch 0.80 of
+// the time before).
 // What the design does about it: a thread takes runs of four nodes with
 // their window of x in registers and every load issued before it is used;
 // the transfer bands, the coarse levels that fit and level 0's residual sit
@@ -70,7 +72,9 @@
 // a phase (1.09×: more spills); the run loop unrolled by two (1.17×); level
 // 0's data copied once a launch into rows interleaving the nine channels
 // (1.03×: the copy's cost, no gain in the applies: DRAM locality does not
-// bound it).
+// bound it); under the run mask, the planes' loads predicated and zeros
+// multiplied (0.93× the time without a mask, against 0.80×) or loaded before
+// the smoothness term (1.03×: spills).
 #include "lane2d.cuh"
 #include "mg_cycle2d.cuh"
 
@@ -179,7 +183,7 @@ struct Plan {
 template <int T, int MinBlocks>
 __global__ void __launch_bounds__(T, MinBlocks)
 pcg_segment_batch_kernel(const __grid_constant__ Params base, const __grid_constant__ Lanes st,
-                         const __grid_constant__ Plan plan) {
+                         const __grid_constant__ Plan plan, int* runs_out) {
     extern __shared__ float4 dyn4[];
     __shared__ lane2d::Lane L;
     __shared__ const float* glob[2 * kMaxLevels];
@@ -195,6 +199,7 @@ pcg_segment_batch_kernel(const __grid_constant__ Params base, const __grid_const
         L.budget = base.budget[lane];
         L.iters_out = base.iters_out + lane;
         L.rr_out = base.rr_out + lane;
+        L.runs_out = runs_out + lane;
         for (int l = 0; l < L.cyc.L; ++l) {
             Level& lv = L.cyc.lv[l];
             const size_t n = static_cast<size_t>(nodes(lv));
@@ -220,8 +225,8 @@ pcg_segment_batch_kernel(const __grid_constant__ Params base, const __grid_const
 // The launch, refused unless an SM holds MinBlocks lanes of this plan at
 // once (the geometry the host chose the plan's share for).
 template <int T, int MinBlocks>
-cudaError_t launch_batch(int B, const Params& p, const Lanes& st, const Plan& plan, size_t bytes,
-                         void* stream) {
+cudaError_t launch_batch(int B, const Params& p, const Lanes& st, const Plan& plan, int* runs_out,
+                         size_t bytes, void* stream) {
     auto kernel = pcg_segment_batch_kernel<T, MinBlocks>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(bytes));
@@ -230,7 +235,7 @@ cudaError_t launch_batch(int B, const Params& p, const Lanes& st, const Plan& pl
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, T, bytes);
     if (err != cudaSuccess) return err;
     if (resident < MinBlocks) return cudaErrorInvalidConfiguration;
-    kernel<<<B, T, bytes, static_cast<cudaStream_t>(stream)>>>(p, st, plan);
+    kernel<<<B, T, bytes, static_cast<cudaStream_t>(stream)>>>(p, st, plan, runs_out);
     return cudaGetLastError();
 }
 
@@ -270,8 +275,10 @@ extern "C" int fi_pcg_segment(const long long* ptrs, const int* ints,
 // The batched segment: lane b's operands start b lanes past the base
 // pointers (lane 0's), every per-lane operand [B, ...] contiguous.
 //   ptrs: x_in, r_in, tol2 [B], budget [B], x_out, iters_out [B],
-//         rr_out [B], rw, p, inv [B, Nc, Nc]; then the cycle's pointers of
-//         lane 0 as fi_pcg_segment's (Rs and bands shared by the lanes).
+//         rr_out [B], rw, p, inv [B, Nc, Nc], runs_out [B] (the runs of
+//         level 0 that hold data, 0 for a lane that runs no cycle); then
+//         the cycle's pointers of lane 0 as fi_pcg_segment's (Rs and bands
+//         shared by the lanes).
 //   ints: B, the floats of level scratch per lane, kMaxLevels schedule
 //         strides (floats per lane; 0 under damped Jacobi), threads per
 //         lane, the shared-memory plan (bit l: coarse level l; then 1:
@@ -291,7 +298,7 @@ extern "C" int fi_pcg_segment_batch(const long long* ptrs, const int* ints,
     const int threads = ints[2 + kMaxLevels];
     Plan plan{static_cast<unsigned>(ints[3 + kMaxLevels]), ints[4 + kMaxLevels]};
     if (B < 1 || st.scratch < 0 ||
-        !fill_cycle(p.cyc, ptrs + 10, ints + 7 + kMaxLevels, w2s,
+        !fill_cycle(p.cyc, ptrs + 11, ints + 7 + kMaxLevels, w2s,
                     as_ptr<const float>(ptrs[9])))
         return static_cast<int>(cudaErrorInvalidValue);
     p.x_in = as_ptr<const float>(ptrs[0]);
@@ -303,6 +310,7 @@ extern "C" int fi_pcg_segment_batch(const long long* ptrs, const int* ints,
     p.rr_out = as_ptr<float>(ptrs[6]);
     p.cyc.lv[0].r = as_ptr<float>(ptrs[7]);
     p.p = as_ptr<float>(ptrs[8]);
+    int* runs_out = as_ptr<int>(ptrs[10]);
     const size_t bytes = sizeof(float) * static_cast<size_t>(
         lane2d::plan_layout(p.cyc, plan.levels, plan.az0).words);
     const int per_sm = ints[5 + kMaxLevels];
@@ -310,7 +318,7 @@ extern "C" int fi_pcg_segment_batch(const long long* ptrs, const int* ints,
         return static_cast<int>(cudaErrorInvalidValue);
 #define FI_LANE_GEOMETRY(T, M) \
     if (threads == T && per_sm == M) \
-        return static_cast<int>(launch_batch<T, M>(B, p, st, plan, bytes, stream));
+        return static_cast<int>(launch_batch<T, M>(B, p, st, plan, runs_out, bytes, stream));
     FI_LANE_GEOMETRY(1024, 1)
     FI_LANE_GEOMETRY(256, 2)
 #undef FI_LANE_GEOMETRY

@@ -25,13 +25,16 @@ config 3): B independent segments in one launch of the same source's
 ``pcg_segment_batch_kernel``, one block per lane running the lane body of
 ``csrc/lane2d.cuh`` in `lane_geometry`'s geometry with `lane_plan`'s
 shared memory, each lane doing only its own iterations; ``fused_pcg_solve_batch_plain`` is its plain version, with
-per-lane masks. Same counters on the batched wrapper.
+per-lane masks. Same counters on the batched wrapper; each call also adds
+its lanes' level-0 runs that hold data (the kernel's run mask,
+`lane_data_runs`) and the runs it offered to the open batch record.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils import observe
 from ..weights import Weights
 from . import _build
 from .cycle import (_band_table, _ok, call_tables, check_cycle_operands, check_schedules,
@@ -139,6 +142,24 @@ def _lane_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.sum(a * b, dim=(-2, -1))
 
 
+def lane_data_runs(coeff: torch.Tensor, iters: torch.Tensor) -> torch.Tensor:
+    """Per lane of ``coeff`` [B, 9, n0, n1], the runs of `lane_runs` whose
+    nine data coefficients are not all zero, and 0 for a lane that ran no
+    iteration (``iters`` [B]): the bits csrc/lane2d.cuh:mark_runs sets, [B]
+    int32."""
+    B, _, n0, n1 = coeff.shape
+    nz = (coeff != 0).any(dim=1).to(torch.int8)
+    nz = torch.nn.functional.pad(nz, (0, -n1 % _RUN)).reshape(B, n0, -1, _RUN)
+    runs = nz.amax(dim=-1).sum(dim=(1, 2), dtype=torch.int32)
+    return torch.where(iters > 0, runs, 0)
+
+
+def lane_runs(shape) -> int:
+    """The runs of 4 nodes along axis 1 (csrc/lane2d.cuh: kRun, the last one
+    ragged) of a 2-D lane of ``shape``."""
+    return shape[0] * -(-shape[1] // _RUN)
+
+
 def fused_pcg_solve_batch_plain(x, r, tol2, iter_budget, coeffs, sids, Rs, inv_c,
                                 level_weights: list[Weights], nu: int, cheb_coefs=None,
                                 wdepth: int = 0):
@@ -196,21 +217,28 @@ LANE_GEOMETRIES = ((1024, 1), (256, 2))
 LANE_GEOMETRY = None
 LANE_SMEM_BYTES = {1: 160 * 1024, 2: 100 * 1024}
 _SPAN_R, _SPAN_P = 4, 2  # lane2d.cuh: kSpanR, kSpanP
+_RUN = 4  # lane2d.cuh: kRun, the nodes of a work item along axis 1
 
 
 def _round4(w: int) -> int:
     return (w + 3) & ~3
 
 
+def _mask_words(shape) -> int:
+    """The words of level 0's run mask, one bit a run (lane2d.cuh:mask_words)."""
+    return _round4(-(-lane_runs(shape) // 32))
+
+
 def _lane_candidates(shapes, diags, nu, wdepth):
-    """The words of the transfer bands, and (words, traffic saved a cycle)
-    of each candidate for shared memory: coarse levels 1..L-1 (a level's
-    arrays are read and written ~4ν + 6 times a visit), then level 0's
-    residual (4 times an iteration)."""
-    bands = 0
+    """The words every lane holds (the transfer bands, then level 0's run
+    mask), and (words, traffic saved a cycle) of each candidate for shared
+    memory: coarse levels 1..L-1 (a level's arrays are read and written
+    ~4ν + 6 times a visit), then level 0's residual (4 times an iteration)."""
+    fixed = 0
     for (f0, f1), (c0, c1) in zip(shapes, shapes[1:]):
         for nf, nc in ((f0, c0), (f1, c1)):
-            bands += 2 * _round4(nc) + nc * _SPAN_R + 2 * _round4(nf) + nf * _SPAN_P
+            fixed += 2 * _round4(nc) + nc * _SPAN_R + 2 * _round4(nf) + nf * _SPAN_P
+    fixed += _mask_words(shapes[0])
     L = len(shapes)
     nodes = [a * b for a, b in shapes]
     visits = [1] * L
@@ -218,7 +246,7 @@ def _lane_candidates(shapes, diags, nu, wdepth):
         visits[l + 1] = visits[l] * (2 if l < wdepth and l + 1 < L - 1 else 1)
     items = [(5 * _round4(nodes[l]) + _round4(nodes[l] if diags[l] else 9 * nodes[l]),
               visits[l] * nodes[l] * (4 * nu + 6)) for l in range(1, L)]
-    return bands, items + [(_round4(nodes[0]), 4 * nodes[0])]
+    return fixed, items + [(_round4(nodes[0]), 4 * nodes[0])]
 
 
 def lane_geometry(B: int, sms: int) -> tuple[int, int]:
@@ -248,19 +276,20 @@ def lane_plan(shapes, diags, nu: int = 3, wdepth: int = 0, geometry=(1024, 1)):
     an SM holds, bitmask of the coarse levels held in shared memory, 1 if
     level 0's residual is too, the dynamic shared-memory bytes).
     ``shapes``/``diags``: per level its (n0, n1) and whether its data is the
-    diagonal; ``nu``/``wdepth`` the cycle's. Of the sets of
-    `_lane_candidates` that fit the lane's share, the one that saves the most
-    traffic. The sizes are csrc/lane2d.cuh:plan_layout's: the kernel
-    refuses a launch whose bytes differ from the plan's."""
+    diagonal; ``nu``/``wdepth`` the cycle's. The transfer bands and level 0's
+    run mask first, then of the sets of `_lane_candidates` that fit the
+    lane's share, the one that saves the most traffic. The sizes are
+    csrc/lane2d.cuh:plan_layout's: the kernel refuses a launch whose bytes
+    differ from the plan's."""
     threads, per_sm = geometry
     if (threads, per_sm) not in LANE_GEOMETRIES:
         raise ValueError(f"lane_plan: the lane geometry (threads, lanes an SM holds) must "
                          f"be one of {LANE_GEOMETRIES}, got {(threads, per_sm)}")
     budget = LANE_SMEM_BYTES[per_sm] // 4
-    bands, items = _lane_candidates(shapes, diags, nu, wdepth)
+    fixed, items = _lane_candidates(shapes, diags, nu, wdepth)
     best = (0, 0, 0)  # (saved, -words, set)
     for chosen in range(1 << len(items)):
-        words = bands + sum(items[i][0] for i in range(len(items)) if chosen >> i & 1)
+        words = fixed + sum(items[i][0] for i in range(len(items)) if chosen >> i & 1)
         saved = sum(items[i][1] for i in range(len(items)) if chosen >> i & 1)
         if words <= budget and (saved, -words) > best[:2]:
             best = (saved, -words, chosen)
@@ -302,9 +331,9 @@ def _batch_tables(x, r, tol2, iter_budget, coeffs, sids, Rs, inv_c, level_weight
                   wdepth, cheb_coefs):
     """Outputs, scratch and the host tables of csrc/pcg_segment.cu's
     ``fi_pcg_segment_batch`` (layout documented there), with
-    `lane_geometry`'s geometry and its `lane_plan`. Returns (outputs, ptrs,
-    ints, w2s, scratch); the caller keeps ``scratch`` alive until the launch
-    is queued."""
+    `lane_geometry`'s geometry and its `lane_plan`. Returns (outputs: x,
+    iters, rr and the data runs, ptrs, ints, w2s, scratch); the caller keeps
+    ``scratch`` alive until the launch is queued."""
     B, dev = x.shape[0], x.device
     shapes = level_shapes([c[0] for c in coeffs])
     _check_lane_bands(shapes)
@@ -313,6 +342,7 @@ def _batch_tables(x, r, tol2, iter_budget, coeffs, sids, Rs, inv_c, level_weight
     x_out = torch.empty_like(x)
     iters = torch.empty(B, dtype=torch.int32, device=dev)
     rr = torch.empty(B, dtype=torch.float32, device=dev)
+    runs = torch.empty(B, dtype=torch.int32, device=dev)
     rw, p = torch.empty_like(x), torch.empty_like(x)
     lane0_cfs = None if cheb_coefs is None else [cf[0] for cf in cheb_coefs]
     lp, li, w2s, scratch = cycle_tables([c[0] for c in coeffs], [s[0] for s in sids], Rs,
@@ -320,9 +350,9 @@ def _batch_tables(x, r, tol2, iter_budget, coeffs, sids, Rs, inv_c, level_weight
                                         lanes=B)
     cf_strides = schedule_strides(cheb_coefs, len(coeffs))
     ptrs = [t.data_ptr() for t in (x, r, tol2, iter_budget, x_out, iters, rr, rw, p,
-                                   inv_c)] + lp
+                                   inv_c, runs)] + lp
     ints = [B, scratch.numel() // B] + cf_strides + [threads, mask, az0, per_sm, nbytes] + li
-    return (x_out, iters, rr), ptrs, ints, w2s, (rw, p, scratch)
+    return (x_out, iters, rr, runs), ptrs, ints, w2s, (rw, p, scratch)
 
 
 def fused_pcg_solve_batch(x, r, tol2, iter_budget, coeffs, sids, Rs, inv_c,
@@ -337,7 +367,10 @@ def fused_pcg_solve_batch(x, r, tol2, iter_budget, coeffs, sids, Rs, inv_c,
     level [B, ...] as `fused_pcg_solve`'s per field; inv_c [B, Nc, Nc];
     cheb_coefs: per level [B, ≥ ν, 2] (each lane's schedule) or None; Rs
     and level_weights shared. Returns (x_out [B, n0, n1], iters [B] int32,
-    rr [B] float32)."""
+    rr [B] float32). Adds the lanes' level-0 runs that hold data
+    (`lane_data_runs`; the kernel counts its run mask's bits) and the runs
+    offered, B · `lane_runs`, to the counters ``data_runs`` and
+    ``runs_offered`` of the open batch record (`utils.observe.count`)."""
     if int(nu) < 0 or int(wdepth) < 0:
         raise ValueError(f"fused_pcg_solve_batch: nu and wdepth must be >= 0, got {nu}, "
                          f"{wdepth}")
@@ -349,20 +382,24 @@ def fused_pcg_solve_batch(x, r, tol2, iter_budget, coeffs, sids, Rs, inv_c,
         check_schedules("fused_pcg_solve_batch", [cf[0] for cf in cheb_coefs],
                         len(coeffs), nu, x.device)
     if x.device.type == "cpu":
-        return fused_pcg_solve_batch_plain(x, r, tol2, iter_budget, coeffs, sids, Rs,
+        outs = fused_pcg_solve_batch_plain(x, r, tol2, iter_budget, coeffs, sids, Rs,
                                            inv_c, level_weights, nu, cheb_coefs, wdepth)
-    if x.device.type != "cuda":
+        runs = lane_data_runs(coeffs[0], outs[1])
+    elif x.device.type != "cuda":
         raise ValueError(f"fused_pcg_solve_batch: no kernel for device {x.device}")
-    _check_batch_operands(x, r, tol2, iter_budget, coeffs, sids, Rs, inv_c)
-    lib = _build.library()
-    outs, ptrs, ints, w2s, _scratch = _batch_tables(x, r, tol2, iter_budget, coeffs, sids,
-                                                    Rs, inv_c, level_weights, nu, wdepth,
-                                                    cheb_coefs)
-    rc = call_tables(lib.fi_pcg_segment_batch, ptrs, ints, w2s, x.device)
-    _build.check(rc, "fused_pcg_solve_batch")
-    fused_pcg_solve_batch.launches += 1
-    fused_pcg_solve_batch.cheb_launches += cheb_coefs is not None
-    return outs
+    else:
+        _check_batch_operands(x, r, tol2, iter_budget, coeffs, sids, Rs, inv_c)
+        lib = _build.library()
+        (*outs, runs), ptrs, ints, w2s, _scratch = _batch_tables(
+            x, r, tol2, iter_budget, coeffs, sids, Rs, inv_c, level_weights, nu, wdepth,
+            cheb_coefs)
+        rc = call_tables(lib.fi_pcg_segment_batch, ptrs, ints, w2s, x.device)
+        _build.check(rc, "fused_pcg_solve_batch")
+        fused_pcg_solve_batch.launches += 1
+        fused_pcg_solve_batch.cheb_launches += cheb_coefs is not None
+    observe.count("runs_offered", x.shape[0] * lane_runs(x.shape[1:]))
+    observe.count("data_runs", runs)
+    return tuple(outs)
 
 
 fused_pcg_solve_batch.launches = fused_pcg_solve_batch.cheb_launches = 0

@@ -37,7 +37,8 @@ frozen while the others run; the host reads one flag per iteration (plain
 each through `utils.observe.host_read`. Under a recording torch profiler
 they record spans (``mg_setup``, ``refine_round``, ``inner_solve``,
 ``segment_round``) and counters (``refine_rounds``, ``lanes_offered``,
-``lanes_working``) into the batch's record (`utils.observe`).
+``lanes_working``; each batched segment launch adds ``runs_offered`` and
+``data_runs``) into the batch's record (`utils.observe`).
 
 `prepare` builds a problem's multigrid setup once (`multigrid.MGPrep`);
 `solve` and `solve_refined` take it as ``prep=`` and then build nothing

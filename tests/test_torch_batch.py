@@ -643,6 +643,106 @@ def test_lane_plan_of_config3():
         tpcg.lane_plan(shapes, diags, geometry=(512, 4))
 
 
+@pytest.mark.parametrize("shape,words", [((128, 128), 128), ((256, 256), 512), ((97, 130), 104),
+                                         ((32, 32), 8), ((45, 61), 24), ((18, 10), 4)], ids=str)
+def test_lane_plan_reserves_the_run_mask_first(shape, words):
+    """Level 0's run mask (one bit a run of 4 nodes along axis 1, the last
+    run of a row ragged; words rounded to 4) is held by every lane beside
+    the transfer bands, before any coarse level or level 0's residual:
+    97×130 has 97 · 33 = 3,201 runs, 101 words, 104 rounded."""
+    shapes, diags = _hierarchy(shape, mg_min_size=4)
+    assert tpcg._mask_words(shape) == words
+    fixed, _ = tpcg._lane_candidates(shapes, diags, 3, 0)
+    bands = sum(2 * tpcg._round4(nc) + nc * 4 + 2 * tpcg._round4(nf) + nf * 2
+                for (f0, f1), (c0, c1) in zip(shapes, shapes[1:])
+                for nf, nc in ((f0, c0), (f1, c1)))
+    assert fixed == bands + words
+    for geometry in tpcg.LANE_GEOMETRIES:
+        assert tpcg.lane_plan(shapes, diags, 3, 0, geometry)[4] >= 4 * fixed
+
+
+@pytest.mark.parametrize("geometry,before", [((1024, 1), (0b1110, 0, 141_568)),
+                                             ((256, 2), (0b1000, 1, 84_224))], ids=str)
+def test_lane_plan_of_config3_keeps_its_choice_with_the_mask(geometry, before):
+    """At config 3's shapes the mask takes 128 words (4,096 runs), and
+    each geometry keeps the coarse levels and level 0's residual it held
+    without it: the bytes grow by the mask's 512 alone."""
+    mask, az0, nbytes = before
+    got = tpcg.lane_plan(*_hierarchy((128, 128)), geometry=geometry)
+    assert got[2:] == (mask, az0, nbytes + 512)
+    assert got[4] <= tpcg.LANE_SMEM_BYTES[geometry[1]]
+
+
+def test_lane_data_runs_counted_by_hand():
+    """`lane_data_runs` (csrc/lane2d.cuh:mark_runs' rule) against a count
+    by hand on 64² lanes: a run of 4 nodes along axis 1 counts once when any
+    of its 36 coefficients is nonzero (NaN too, −0.0 not); a lane that ran
+    no iteration counts 0; a 64×10 lane's last run holds 2 nodes."""
+    c = torch.zeros(3, 9, 64, 64)
+    c[0, 4, 0, 0] = 1.0            # run (0, 0)
+    c[0, 0, 10, 5] = c[0, 8, 10, 6] = 2.0   # both in run (10, 1)
+    c[0, 3, 20, 7] = c[0, 5, 20, 8] = 3.0   # runs (20, 1) and (20, 2)
+    c[0, 1, 30, 30] = float("nan")          # run (30, 7)
+    c[0, 2, 40, 40] = -0.0                  # no run
+    c[0, 7, 63, 63] = 1e-30                 # run (63, 15)
+    c[1, 4, 5, 9] = 1.0
+    c[2] = c[0]
+    got = tpcg.lane_data_runs(c, torch.tensor([4, 1, 0], dtype=torch.int32))
+    assert got.dtype == torch.int32 and got.tolist() == [6, 1, 0]
+    r = torch.zeros(1, 9, 64, 10)
+    r[0, 6, 3, 9] = r[0, 6, 4, 8] = 1.0     # both in the ragged run (·, 2) of rows 3, 4
+    r[0, 6, 4, 7] = 1.0                     # run (4, 1)
+    assert tpcg.lane_data_runs(r, torch.ones(1, dtype=torch.int32)).tolist() == [3]
+    assert tpcg.lane_runs((64, 10)) == 192 and tpcg.lane_runs((64, 64)) == 1024
+
+
+def test_lane_data_runs_of_an_assembled_lane():
+    """On config 3's cloud at 64² (two lanes of 128 oriented points), the
+    rule counts the runs a loop over rows and runs finds, and only a few
+    percent of the runs hold data."""
+    rng = np.random.default_rng(11)
+    pts, nrm = _cloud(rng, 2, 128, (64, 64))
+    probs = tb.assemble_batch(ft.Grid((64, 64)), ft.Weights(model_2=0.3), torch.as_tensor(pts),
+                              torch.zeros(2, 128), gradients=torch.as_tensor(nrm))
+    coeff = probs.coeff
+    want = []
+    for lane in range(2):
+        nz = (coeff[lane] != 0).any(dim=0).tolist()
+        want.append(sum(any(row[j:j + 4]) for row in nz for j in range(0, 64, 4)))
+    got = tpcg.lane_data_runs(coeff, torch.ones(2, dtype=torch.int32)).tolist()
+    assert got == want and all(0 < w < 0.25 * tpcg.lane_runs((64, 64)) for w in want)
+
+
+def test_batched_segment_records_its_data_runs():
+    """`fused_pcg_solve_batch` adds its lanes' data runs (none for a lane
+    with budget 0) and the runs it offered to the open batch record's
+    counters, and nothing without one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from field_interpolation_tpu_torch.utils import observe
+    rng = np.random.default_rng(12)
+    pts, nrm = _cloud(rng, 3, 60, (32, 32))
+    probs = tb.assemble_batch(ft.Grid((32, 32)), ft.Weights(model_2=0.3), torch.as_tensor(pts),
+                              torch.zeros(3, 60), gradients=torch.as_tensor(nrm))
+    coeffs, sids, Rs, inv32, lw, _ = tmg.build_fused_solver_operands(
+        probs, ft.SolverConfig(tol=1e-4))
+    b = probs.b
+    tol2 = 1e-8 * torch.sum(b * b, dim=(1, 2))
+    budget = torch.tensor([50, 0, 50], dtype=torch.int32)
+    args = (torch.zeros_like(b), b, tol2, budget, coeffs, sids, Rs, inv32, lw, 3)
+    observe.clear_records()
+    tpcg.fused_pcg_solve_batch(*args)
+    assert observe.batch_records() == []
+    with profile(activities=[ProfilerActivity.CPU]):
+        with observe.span("batch"):
+            _, iters, _ = tpcg.fused_pcg_solve_batch(*args)
+    (rec,) = observe.batch_records()
+    observe.clear_records()
+    runs = tpcg.lane_data_runs(coeffs[0], iters)
+    assert int(runs[1]) == 0 and int(runs[0]) > 0 and int(runs[2]) > 0
+    assert rec["counters"] == {"runs_offered": 3 * 32 * 8, "data_runs": int(runs.sum())}
+
+
 @pytest.mark.parametrize("shape", [(32, 32), (64, 64), (97, 130), (128, 128), (256, 256),
                                    (18, 10), (45, 61)], ids=str)
 def test_lane_bands_fit_the_lane_body(shape):
@@ -678,5 +778,6 @@ def test_batch_tables_carry_the_lane_plan():
     threads, per_sm, mask, az0, nbytes = tpcg.lane_plan(shapes, diags, geometry=(1024, 1))
     assert ints[10:15] == [threads, mask, az0, per_sm, nbytes]
     assert ints[15:19] == [L, 3, 3, 0]
-    assert len(ptrs) == 10 + 6 * L + 6 * (L - 1) + L and len(w2s) == 4 * L
-    assert [tuple(t.shape) for t in outs] == [(3, 32, 32), (3,), (3,)]
+    assert len(ptrs) == 11 + 6 * L + 6 * (L - 1) + L and len(w2s) == 4 * L
+    assert ptrs[10] == outs[3].data_ptr() and outs[3].dtype == torch.int32
+    assert [tuple(t.shape) for t in outs] == [(3, 32, 32), (3,), (3,), (3,)]

@@ -1090,6 +1090,146 @@ def test_segment_batch_lanes_equal_single_kernel(cuda, geometry, monkeypatch):
         assert float((xs - x1[i]).abs().max()) <= 2e-3 * float(xs.abs().max())
 
 
+def _lanes(shape, device, clouds, weights=dict(model_0=0.05, model_2=0.3)):
+    """One lane per cloud: oriented points (``(pts, nrm)``, normals as data
+    gradients) or value points (``(pts, None)``), padded to a common count
+    with points out of bounds (dropped by the assembly)."""
+    from field_interpolation_tpu_torch import batch as tb
+    n = max(len(p) for p, _ in clouds)
+    pts = np.full((len(clouds), n, 2), 1e4, np.float32)
+    nrm = np.zeros((len(clouds), n, 2), np.float32)
+    for i, (p, g) in enumerate(clouds):
+        pts[i, :len(p)] = p
+        if g is not None:
+            nrm[i, :len(g)] = g
+    grads = None if all(g is None for _, g in clouds) else torch.as_tensor(nrm, device=device)
+    return tb.assemble_batch(ft.Grid(shape), ft.Weights(**weights),
+                             torch.as_tensor(pts, device=device),
+                             torch.ones(len(clouds), n, device=device), gradients=grads)
+
+
+def _counted(call):
+    """``call()`` inside a batch record under a CPU profiler: (its result,
+    the record's counters)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from field_interpolation_tpu_torch.utils import observe
+    observe.clear_records()
+    with profile(activities=[ProfilerActivity.CPU]), observe.span("batch"):
+        out = call()
+    (rec,) = observe.batch_records()
+    observe.clear_records()
+    return out, rec["counters"]
+
+
+def _run_mask_check(probs, cfg=ft.SolverConfig(tol=1e-4)):
+    """The batched segment with level 0's run mask: each lane's x,
+    iterations and ‖r‖² equal the same lane solved alone (torch.equal);
+    every lane is held to the plain batched segment at the bars of
+    `_segment_batch_check`; the data runs the kernel counts, for the batch
+    and for each lane alone, equal `lane_data_runs`. Returns (iterations,
+    data runs a lane) on the CPU."""
+    from field_interpolation_tpu_torch.ops.pcg import (fused_pcg_solve_batch,
+                                                       fused_pcg_solve_batch_plain,
+                                                       lane_data_runs, lane_runs)
+    coeffs, sids, Rs, inv32, lw, cfs = tmg.build_fused_solver_operands(probs, cfg)
+    b = probs.b
+    B = b.shape[0]
+    tol2 = (1e-4 ** 2 * torch.sum(b * b, dim=(1, 2))).contiguous()
+    budget = torch.full((B,), 2000, dtype=torch.int32, device=b.device)
+    kw = dict(cheb_coefs=cfs, wdepth=tmg.resolve_wdepth(cfg, tuple(b.shape[1:])))
+    args = (torch.zeros_like(b), b, tol2, budget, coeffs, sids, Rs, inv32, lw,
+            cfg.mg_pre_smooth)
+    whole, counters = _counted(lambda: fused_pcg_solve_batch(*args, **kw))
+    xk, ik, rrk = whole
+    runs = lane_data_runs(coeffs[0], ik).cpu()
+    assert counters == {"runs_offered": B * lane_runs(tuple(b.shape[1:])),
+                        "data_runs": int(runs.sum())}, counters
+    xp, ip, _ = fused_pcg_solve_batch_plain(*args, **kw)
+    assert int((ik - ip).abs().max()) <= 2, (ik.tolist(), ip.tolist())
+    for i in range(B):
+        assert float((xk[i] - xp[i]).abs().max()) <= 2e-3 * float(xp[i].abs().max()), i
+        if int(ik[i]) > 0:
+            assert float(rrk[i]) <= float(tol2[i])
+        one = slice(i, i + 1)
+        alone, counters = _counted(lambda: fused_pcg_solve_batch(
+            torch.zeros_like(b[one]), b[one].contiguous(), tol2[one].contiguous(),
+            budget[one].contiguous(), [c[one].contiguous() for c in coeffs],
+            [s[one].contiguous() for s in sids], Rs, inv32[one].contiguous(), lw,
+            cfg.mg_pre_smooth, cheb_coefs=None if cfs is None else [
+                None if cf is None else cf[one].contiguous() for cf in cfs],
+            wdepth=kw["wdepth"]))
+        assert all(torch.equal(a[0], w[i]) for a, w in zip(alone, whole)), i
+        assert counters["data_runs"] == int(runs[i]), (i, counters)
+    return ik.cpu(), runs
+
+
+def test_run_mask_corners_and_edges(cuda):
+    """Points in the grid's corner and edge cells (the runs there take the
+    guarded loads), one lane with its data on one node of one run (a value
+    point on a node: one nonzero coefficient), and a lane with no point
+    (b = 0: it runs no cycle and marks nothing)."""
+    from field_interpolation_tpu_torch.ops.pcg import lane_runs
+    n = 64
+    edge = [(0.2, 0.3), (0.4, n - 1.2), (n - 1.3, 0.1), (n - 1.1, n - 1.4), (0.5, 31.5),
+            (31.7, 0.2), (n - 1.2, 30.1), (29.6, n - 1.3)]
+    rng = np.random.default_rng(8)
+    theta = rng.uniform(0, 2 * np.pi, 60)
+    ring = np.stack([31.5 + 20 * np.cos(theta), 31.5 + 20 * np.sin(theta)], 1)
+    clouds = [(np.concatenate([ring, edge]).astype(np.float32), None),
+              (np.asarray([[20.0, 21.0]], np.float32), None),
+              (np.asarray([[1e4, 1e4]], np.float32), None)]
+    probs = _lanes((n, n), cuda, clouds)
+    assert int(torch.count_nonzero(probs.coeff[1])) == 1
+    ik, runs = _run_mask_check(probs)
+    assert int(ik[0]) > 0 and int(ik[1]) > 0 and int(ik[2]) == 0
+    assert 0 < int(runs[0]) < lane_runs((n, n)) and int(runs[1]) == 1 and int(runs[2]) == 0
+
+
+@pytest.mark.parametrize("shape", [(61, 45), (30, 42), (97, 130)], ids=str)
+def test_run_mask_ragged_rows(cuda, shape):
+    """Rows whose length is not a multiple of 4 (a level-0 row of 45 or 42
+    nodes: no 16-byte loads, a ragged last run) and 130 (16-byte rows, a
+    ragged last run of 2), with points in the last run of a row."""
+    rng = np.random.default_rng(9)
+    clouds = []
+    for s in range(3):
+        theta = rng.uniform(0, 2 * np.pi, 80)
+        c = (np.asarray(shape) - 1) / 2.0
+        r = (0.25 + 0.05 * s) * min(shape)
+        pts = np.stack([c[0] + r * np.cos(theta), c[1] + r * np.sin(theta)], 1)
+        pts = np.concatenate([pts, [[c[0], shape[1] - 1.3], [1.5, shape[1] - 1.1]]])
+        nrm = np.concatenate([np.stack([np.cos(theta), np.sin(theta)], 1), [[0, 1], [0, 1]]])
+        clouds.append((pts.astype(np.float32), nrm.astype(np.float32)))
+    _run_mask_check(_lanes(shape, cuda, clouds, dict(model_2=0.3)))
+
+
+def test_run_mask_dense_cloud(cuda):
+    """A cloud with data in every run: the mask is all ones and every apply
+    does what it did without it."""
+    from field_interpolation_tpu_torch.ops.pcg import lane_runs
+    rng = np.random.default_rng(10)
+    n = 64
+    clouds = []
+    for _ in range(2):
+        theta = rng.uniform(0, 2 * np.pi, 12000)
+        pts = rng.uniform(0, n - 1, (12000, 2))
+        clouds.append((pts.astype(np.float32),
+                       np.stack([np.cos(theta), np.sin(theta)], 1).astype(np.float32)))
+    _, runs = _run_mask_check(_lanes((n, n), cuda, clouds, dict(model_2=0.3)))
+    assert runs.tolist() == [lane_runs((n, n))] * 2
+
+
+@pytest.mark.parametrize("geometry", LANE_GEOMETRIES, ids=str)
+def test_run_mask_config3_lanes(cuda, geometry, monkeypatch):
+    """Config 3 × 64 lanes at either lane width: ~6% of the runs hold data."""
+    from field_interpolation_tpu_torch.ops import pcg
+    monkeypatch.setattr(pcg, "LANE_GEOMETRY", geometry)
+    _, runs = _run_mask_check(_batch((128, 128), cuda, 64))
+    share = float(runs.sum()) / (64 * pcg.lane_runs((128, 128)))
+    assert 0.02 < share < 0.12, share
+
+
 @pytest.mark.parametrize("shape,B", [((128, 128), 16), ((33, 17), 5), ((20, 18, 22), 4),
                                      ((128, 128), 1)], ids=str)
 @pytest.mark.parametrize("diag", [False, True])

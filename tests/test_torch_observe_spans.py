@@ -191,6 +191,20 @@ def test_counters_agree_with_the_loops(runs):
     assert bool(runs["info1"].converged.all())
 
 
+def test_data_run_counters_of_the_segment_launches(runs):
+    """A fused route offers every lane's level-0 runs of 4 nodes at each
+    segment launch and counts those that hold data; the cycle routes run no
+    segment and count neither."""
+    from field_interpolation_tpu_torch.ops.pcg import lane_runs
+    (rec,) = runs["records"]
+    c, names = rec["counters"], collections.Counter(s["name"] for s in rec["spans"])
+    if ROUTES[runs["route"]][2] != "fused":
+        assert "runs_offered" not in c and "data_runs" not in c
+        return
+    assert c["runs_offered"] == LANES * lane_runs(SHAPE) * names["segment_round"]
+    assert 0 < c["data_runs"] < c["runs_offered"] // 2
+
+
 def test_spans_hold_the_profiler_intervals_of_their_ops(runs):
     """Each span's host interval (the profiler's clock) holds its own
     ``fi.<name>`` range and every aten op run inside it."""
